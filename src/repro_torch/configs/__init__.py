@@ -1,3 +1,3 @@
-from repro_torch.configs.base import ArchConfig, get_config
+from repro_torch.configs.base import ArchConfig, get_config, list_configs, reduced
 
-__all__ = ["ArchConfig", "get_config"]
+__all__ = ["ArchConfig", "get_config", "list_configs", "reduced"]

@@ -368,3 +368,131 @@ REGISTRY.register(OpSpec(
     to_caffe=_add_to_caffe, from_caffe=_add_from_caffe,
     from_block=lambda v: dict(src=v),
 ))
+
+
+# ---------------------------------------------------------------------------
+# Serving hot-path ops: not graph layers, but the same named-backend
+# mechanism — call sites resolve `ref` (plain tensor ops) vs `cuda` (the
+# flash-decode kernel) by name.  Backends take q (B, 1, H, D).
+# ---------------------------------------------------------------------------
+
+
+def _decode_attn_ref_b(q, k_cache, v_cache, valid_len, *, layout="bksd"):
+    """Against a ring cache; valid_len scalar or (B,)."""
+    from repro_torch.models.common import attention_decode
+    return attention_decode(q, k_cache, v_cache, valid_len, layout=layout)
+
+
+def _decode_attn_cuda_b(q, k_cache, v_cache, valid_len, *, layout="bksd"):
+    return kops.decode_attention(q[:, 0], k_cache, v_cache, valid_len,
+                                 layout=layout)[:, None]
+
+
+def _decode_attn_ref_q8_b(q, k_cache, v_cache, valid_len, *, layout="bksd",
+                          k_scale=None, v_scale=None):
+    from repro_torch.kernels.ref import decode_attention_q8_ref
+    return decode_attention_q8_ref(q[:, 0], k_cache, v_cache, k_scale,
+                                   v_scale, valid_len, layout=layout)[:, None]
+
+
+def _decode_attn_cuda_q8_b(q, k_cache, v_cache, valid_len, *, layout="bksd",
+                           k_scale=None, v_scale=None):
+    return kops.decode_attention_q8(q[:, 0], k_cache, v_cache, k_scale,
+                                    v_scale, valid_len, layout=layout)[:, None]
+
+
+def _decode_attn_paged_ref_b(q, k_cache, v_cache, valid_len, *,
+                             layout="bksd", page_table=None):
+    from repro_torch.kernels.ref import decode_attention_paged_ref
+    return decode_attention_paged_ref(q[:, 0], k_cache, v_cache, page_table,
+                                      valid_len, layout=layout)[:, None]
+
+
+def _decode_attn_paged_cuda_b(q, k_cache, v_cache, valid_len, *,
+                              layout="bksd", page_table=None):
+    return kops.decode_attention_paged(q[:, 0], k_cache, v_cache, page_table,
+                                       valid_len, layout=layout)[:, None]
+
+
+def _decode_attn_paged_ref_q8_b(q, k_cache, v_cache, valid_len, *,
+                                layout="bksd", k_scale=None, v_scale=None,
+                                page_table=None):
+    from repro_torch.kernels.ref import decode_attention_paged_q8_ref
+    return decode_attention_paged_q8_ref(
+        q[:, 0], k_cache, v_cache, k_scale, v_scale, page_table, valid_len,
+        layout=layout)[:, None]
+
+
+def _decode_attn_paged_cuda_q8_b(q, k_cache, v_cache, valid_len, *,
+                                 layout="bksd", k_scale=None, v_scale=None,
+                                 page_table=None):
+    return kops.decode_attention_paged_q8(
+        q[:, 0], k_cache, v_cache, k_scale, v_scale, page_table, valid_len,
+        layout=layout)[:, None]
+
+
+def resolve_decode_backend(name: Optional[str], quantized: bool = False,
+                           paged: bool = False, device=None) -> str:
+    """``None``/'auto' -> 'cuda' on a CUDA device, 'ref' elsewhere (the
+    JAX package picks its Pallas kernel on a TPU the same way).
+
+    ``quantized=True`` (int8 KV cache) maps the base names onto their q8
+    twins ('ref' -> 'ref_q8', 'cuda' -> 'cuda_q8'); ``paged=True`` onto
+    the paged twins ('paged_ref', 'paged_cuda'); the two compose.  A
+    name the registry does not know raises: ``OpSpec.backend`` would fall
+    back to 'ref' silently."""
+    if name in (None, "auto"):
+        name = "cuda" if torch.device(device or "cpu").type == "cuda" else "ref"
+    if paged and name in ("ref", "cuda"):
+        name = "paged_" + name
+    if quantized and name in ("ref", "cuda", "paged_ref", "paged_cuda"):
+        name = name + "_q8"
+    known = REGISTRY.op("decode_attention").backends
+    if name not in known:
+        raise ValueError(f"unknown decode attention backend {name!r} "
+                         f"(known: {sorted(known)} or 'auto')")
+    return name
+
+
+def decode_attn_flops(a: Attrs, in_shape: Shape = (), out_shape: Shape = ()) -> int:
+    """Analytic flops of one decode-attention token: the QK and PV dots
+    are each ``valid_len x head_dim`` MACs per q-head per layer, over the
+    block-rounded, capacity-clamped valid length.  Attrs: ``num_heads``,
+    ``head_dim``, ``layers``, ``valid_len``; optional ``block`` and
+    ``capacity``."""
+    return 4 * a["num_heads"] * a["head_dim"] * a["layers"] * _effective_slots(a)
+
+
+def decode_kv_bytes(a: Attrs, elem: int = 0) -> int:
+    """Analytic bytes one decode token streams from the KV cache:
+    ``per_slot_bytes`` (K/V/scale bytes per slot, all layers) times the
+    block-rounded valid length, plus ``fixed_bytes``."""
+    return a["per_slot_bytes"] * _effective_slots(a) + a.get("fixed_bytes", 0)
+
+
+def _effective_slots(a: Attrs) -> int:
+    """Block-rounded, capacity-clamped number of KV slots a decode step
+    with ``valid_len`` tokens of context touches."""
+    v = int(a["valid_len"])
+    block = int(a.get("block", 1))
+    if block > 1:
+        v = -(-v // block) * block
+    cap = a.get("capacity")
+    if cap is not None:
+        v = min(v, int(cap))
+    return v
+
+
+REGISTRY.register(OpSpec(
+    kind="decode_attention",
+    shape=lambda a, s: s,
+    backends={"ref": _decode_attn_ref_b, "cuda": _decode_attn_cuda_b,
+              "ref_q8": _decode_attn_ref_q8_b,
+              "cuda_q8": _decode_attn_cuda_q8_b,
+              "paged_ref": _decode_attn_paged_ref_b,
+              "paged_cuda": _decode_attn_paged_cuda_b,
+              "paged_ref_q8": _decode_attn_paged_ref_q8_b,
+              "paged_cuda_q8": _decode_attn_paged_cuda_q8_b},
+    flops=lambda a, i, o: decode_attn_flops(a, i, o),
+    weight_bytes=lambda a, e: decode_kv_bytes(a, e),
+))

@@ -1,7 +1,7 @@
 """Reduced-precision weights: symmetric per-channel int8 over parameter trees.
 
 The port of the parts of ``repro.core.quantize`` that the model store
-uses.  The arithmetic is the JAX package's, step for step, so the int8
+and the int8 KV cache use.  The arithmetic is the JAX package's, step for step, so the int8
 payloads and scales of a published artifact are equal in both packages:
 ``scale = max(absmax / 127, SCALE_EPS)`` in fp32, ``q = clip(round(x /
 scale), -127, 127)`` with round-half-to-even (``torch.round`` and
@@ -45,6 +45,27 @@ def quantize(x: torch.Tensor, axis: int = -1) -> QTensor:
     s = scale.reshape([-1 if i == axis else 1 for i in range(x.ndim)])
     q = torch.clamp(torch.round(xf / s), -127, 127)
     return QTensor(q.to(torch.int8), scale, axis)
+
+
+def quantize_into(x: torch.Tensor, axis: int = -1):
+    """Static-shape symmetric int8 quantization along one axis: the KV
+    cache write path's quantizer, one scalar scale per reduced row.
+    Returns raw ``(q, scale)``: ``q`` int8 with the shape of ``x``,
+    ``scale`` fp32 with that shape less ``axis``."""
+    axis = axis % x.ndim
+    xf = x.float()
+    absmax = xf.abs().amax(dim=axis, keepdim=True)
+    scale = torch.clamp_min(absmax / 127.0, SCALE_EPS)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale.squeeze(axis)
+
+
+def dequantize_block(q: torch.Tensor, scale: torch.Tensor, axis: int = -1,
+                     dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`quantize_into`: broadcast ``scale`` along
+    ``axis`` and multiply."""
+    axis = axis % q.ndim
+    return (q.float() * scale.unsqueeze(axis)).to(dtype)
 
 
 def _is_quantizable(x) -> bool:

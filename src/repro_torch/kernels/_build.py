@@ -150,6 +150,16 @@ class CudaKernel:
         self.launches += 1
 
 
+class CompositeKernel:
+    """A wrapper whose kernel is another one of the library (B2 conv2d is
+    im2col + the B1 launch): it counts its own launches beside the
+    count of the kernel it goes through."""
+
+    def __init__(self, via: CudaKernel):
+        self.via = via
+        self.launches = 0
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

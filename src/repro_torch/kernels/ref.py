@@ -90,3 +90,90 @@ def softmax_ref(x):
     xf = x.float()
     e = torch.exp(xf - xf.amax(dim=-1, keepdim=True))
     return (e / e.sum(dim=-1, keepdim=True)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# B6 / B7: ragged flash-decode against ring and paged KV caches
+# ---------------------------------------------------------------------------
+
+
+def _valid_mask(valid_len, s, device):
+    valid = torch.as_tensor(valid_len, device=device)
+    slots = torch.arange(s, device=device)
+    if valid.ndim == 0:
+        return (slots < valid)[None, None, None]
+    return (slots[None, :] < valid[:, None])[:, None, None]
+
+
+def decode_attention_ref(q, k, v, valid_len, *, layout="bskd"):
+    """q: (B, H, D); k, v: (B, S, KV, D) ('bskd') or (B, KV, S, D)
+    ('bksd'); valid_len: scalar or per-lane (B,).  fp32 throughout."""
+    b, h, d = q.shape
+    if layout == "bksd":
+        k = k.transpose(1, 2)
+        v = v.transpose(1, 2)
+    s, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, d)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) / math.sqrt(d)
+    scores = torch.where(_valid_mask(valid_len, s, q.device), scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_q8_ref(q, k_q, v_q, k_scale, v_scale, valid_len, *,
+                            layout="bskd"):
+    """Ragged int8 decode: payloads int8, one fp32 scale per (lane,
+    kv-head, slot), scales (B, S, KV) ('bskd') or (B, KV, S) ('bksd').
+    K scales multiply the score columns after the QK dot and V scales the
+    probabilities before the PV dot, in the kernel's order."""
+    b, h, d = q.shape
+    if layout == "bksd":
+        k_q = k_q.transpose(1, 2)
+        v_q = v_q.transpose(1, 2)
+        k_scale = k_scale.transpose(1, 2)          # -> (B, S, KV)
+        v_scale = v_scale.transpose(1, 2)
+    s, kvh = k_q.shape[1], k_q.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, d)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_q.float()) / math.sqrt(d)
+    scores = scores * k_scale.float().transpose(1, 2)[:, :, None]
+    scores = torch.where(_valid_mask(valid_len, s, q.device), scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    probs = probs * v_scale.float().transpose(1, 2)[:, :, None]
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v_q.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def paged_gather(pool, page_table, *, layout="bksd"):
+    """The ring-equivalent lane-major cache out of a page pool: lane b's
+    logical slot t is ``pool[page_table[b, t // ps]][..., t % ps, ...]``.
+    pool: (P, KV, ps, D) ('bksd') or (P, ps, KV, D) ('bskd'), or the scale
+    pools (P, KV, ps) / (P, ps, KV); page_table: (B, W)."""
+    g = pool[page_table.long()]                 # (B, W, *page_shape)
+    b, w = g.shape[:2]
+    if layout == "bskd":                        # page (ps, KV[, D])
+        return g.reshape(b, w * g.shape[2], *g.shape[3:])
+    if layout != "bksd":
+        raise ValueError(f"unknown layout {layout!r}")
+    g = g.movedim(1, 2)                         # (B, KV, W, ps[, D])
+    return g.reshape(b, g.shape[1], w * g.shape[3], *g.shape[4:])
+
+
+def decode_attention_paged_ref(q, k_pool, v_pool, page_table, valid_len, *,
+                               layout="bksd"):
+    """Paged decode: gather pages into the ring layout, then the ring
+    version.  valid_len counts logical slots (<= W * ps)."""
+    k = paged_gather(k_pool, page_table, layout=layout)
+    v = paged_gather(v_pool, page_table, layout=layout)
+    return decode_attention_ref(q, k, v, valid_len, layout=layout)
+
+
+def decode_attention_paged_q8_ref(q, k_pool, v_pool, k_scale, v_scale,
+                                  page_table, valid_len, *, layout="bksd"):
+    """Paged int8 decode: gather payload and scale pools, then the q8
+    ring version."""
+    k = paged_gather(k_pool, page_table, layout=layout)
+    v = paged_gather(v_pool, page_table, layout=layout)
+    ks = paged_gather(k_scale, page_table, layout=layout)
+    vs = paged_gather(v_scale, page_table, layout=layout)
+    return decode_attention_q8_ref(q, k, v, ks, vs, valid_len, layout=layout)
