@@ -27,8 +27,9 @@ its seconds:
                   layouts, fragmented page tables; nothing read past
                   valid_len
   serve           TinyLlama-1.1B at full width through ServingEngine in five
-                  cache forms, on the kernel and on ``ref``: tokens, launches
-                  (22 x decode steps), one host sync per request, 8 ticks
+                  cache forms, on the kernels and on ``ref``: tokens, launches
+                  (B6/B7 22 x decode steps, B8 22 x full prefills), one host
+                  sync per request, 8 ticks
                   under sync debug mode "error", prefix hits, page audit;
                   teacher-forced logits and a ring that wraps
   serve_times     decode tokens/s and TTFT (scheduler counters), device time
@@ -36,6 +37,26 @@ its seconds:
                   plain version and SDPA
   multimodel      TinyLlama-1.1B and Qwen3-0.6B (and its int8 artifact)
                   through MultiModelServer: hits, misses, switch log
+  slice 3, training, then publish and serve:
+  flash_kernels   B8 and B9 (forward, dq, dk/dv) against their plain
+                  versions: TinyLlama and Qwen3 heads (head_dim 64, 128)
+                  and their reduced configs' (head_dim 32), B 1 and 4, S 1
+                  to 2048, window 0 and 256, fp32 and bf16; causality
+  cli             ``launch.serve --model tinyllama-1.1b`` on an empty store
+                  (bootstraps a reduced model; B8 prefill, B6 decode; tokens
+                  equal ``ref``) and ``launch.train`` with its defaults
+                  (reduced TinyLlama, 2 steps on B9; losses equal ``ref``)
+  train           TinyLlama-1.1B at full width and depth, fp32, batch 4 x
+                  2048, 4 AdamW steps through launch.train on the kernels
+                  and on ``ref`` from one numpy tree: losses, step-1 grads,
+                  launches (forward 2 x 22 x steps under remat, dq and
+                  dk/dv 22 x steps); then Qwen3-0.6B, 2 steps at 4 x 1024
+  train_publish_serve  the trained TinyLlama from the model store through
+                  ServingEngine: tokens equal ``ref``, B8 22 x prefills
+  train_times     train tokens/s, device time per step by part and idle
+                  share; B8/B9 per launch at the train shapes against the
+                  bound, the plain versions and the library (SDPA forward;
+                  the efficient-attention backward for dq and dk/dv)
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check or
@@ -826,9 +847,12 @@ def phase_serve(run, torch, np, card):
                       if k.startswith("decode_attention")}
             tag = f"{name}/{backend or 'cuda'}"
             results[tag] = [r.output for r in reqs]
+            prefills = full_prefills(sched, len(reqs))
+            b8 = after["flash_attention"] - before["flash_attention"]
             rec = {"phase": "serve", "config": tag, "wall_s": wall,
                    "decode_steps": sched.decode_steps,
                    "decode_launches": decode,
+                   "full_prefills": prefills, "prefill_launches": b8,
                    "host_syncs": sched.host_syncs,
                    "tokens": stats.tokens_out, "prefill_s": stats.prefill_s,
                    "decode_s": stats.decode_s,
@@ -847,6 +871,9 @@ def phase_serve(run, torch, np, card):
                           start=window.start)
             run.check("serve", f"{tag}: decode launches = {L} x decode steps",
                       decode == want, launches=decode, steps=sched.decode_steps)
+            want_b8 = L * prefills if backend is None else 0
+            run.check("serve", f"{tag}: B8 launches = {L} x full prefills",
+                      b8 == want_b8, launches=b8, prefills=prefills)
             run.check("serve", f"{tag}: host_syncs == retired requests",
                       sched.host_syncs == len(reqs), host_syncs=sched.host_syncs)
             run.check("serve", f"{tag}: every request generated "
@@ -886,11 +913,21 @@ def phase_serve(run, torch, np, card):
     path = {"decode_attention": sum(counts[k] for k in
                                     DECODE_FAMILY["decode_attention"]),
             "decode_attention_paged": sum(counts[k] for k in
-                                          DECODE_FAMILY["decode_attention_paged"])}
+                                          DECODE_FAMILY["decode_attention_paged"]),
+            "flash_attention": counts["flash_attention"]}
     emit({"phase": "serve", "main_path_launches": counts})
     run.phase("serve_teacher_forced", phase_teacher_forced, run, torch, np,
               cfg, params)
     return cfg, np_params, params, engines, path
+
+
+def full_prefills(sched, n_requests):
+    """Admissions that ran a full prefill: every request on a ring (no
+    preemption there); on pages, the admissions that missed the prefix
+    cache (a hit feeds its suffix through decode steps)."""
+    if sched._paged:
+        return sched.admissions - sched.prefix_hits
+    return n_requests
 
 
 def divergence_gaps(torch, cfg, params, reqs, got, want):
@@ -905,7 +942,7 @@ def divergence_gaps(torch, cfg, params, reqs, got, want):
                 continue
             j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
             toks = torch.tensor([r.prompt + a[:j]], device=DEVICE)
-            lg = tf.forward(cfg, params, toks)[0, -1]
+            lg = tf.forward(cfg, params, toks, backend="ref")[0, -1]
             gaps.append(float((lg[a[j]] - lg[b[j]]).abs()))
     return gaps
 
@@ -1245,10 +1282,595 @@ def phase_b2_times(run, torch, graph, card):
     return t
 
 
-def kernel_rows(totals, b2, dec, nin_launches, serve_launches, max_err):
+# ---------------------------------------------------------------------------
+# slice 3: training through launch.train, then publish and serve
+# ---------------------------------------------------------------------------
+
+FLASH_CU = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_SOURCES = {
+    "flash_attention": (FLASH_CU, "src/repro/kernels/flash_attention.py:77"),
+    "flash_attention_fwd": (FLASH_CU,
+                            "src/repro/kernels/flash_attention_bwd.py:92"),
+    "flash_attention_dq": (FLASH_CU,
+                           "src/repro/kernels/flash_attention_bwd.py:203"),
+    "flash_attention_dkv": (FLASH_CU,
+                            "src/repro/kernels/flash_attention_bwd.py:220"),
+}
+# H, KV, D: the full models', and the reduced configs' that the serve and
+# train command lines bootstrap by default (head_dim 32)
+FLASH_HEADS = {"tinyllama": (32, 4, 64), "qwen3": (16, 8, 128),
+               "tinyllama-reduced": (8, 1, 32), "qwen3-reduced": (8, 4, 32)}
+FLASH_SEQS = (1, 5, 64, 127, 300, 1024, 2048)
+# rtol, atol.  fp32: outputs and lse differ from the plain versions in
+# summation order only; grads take the JAX suite's bar for its fused
+# backward (tests/test_kernels.py:441-446).  bf16: the plain B8 rounds p
+# to bf16 before PV, and every output is rounded to bf16.
+FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 3e-2)}
+FLASH_GRAD_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (2e-2, 3e-2)}
+# TinyLlama's own context (arXiv:2401.02385) at batch 4; Qwen3 shorter
+TRAIN = {"tinyllama-1.1b": dict(batch=4, seq=2048, steps=4),
+         "qwen3-0.6b": dict(batch=4, seq=1024, steps=2)}
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_REL = 1e-3                       # ||g_cuda - g_ref|| / ||g_ref||
+
+
+def phase_flash_kernels(run, torch):
+    """B8, B9's forward (o and lse), dq and dk/dv against their plain
+    versions: TinyLlama and Qwen3 heads, full (head_dim 64 and 128) and
+    reduced (head_dim 32), B 1 and 4, S 1 to 2048 (ragged
+    against the 64-row tiles), causal with window 0 and 256, fp32 and
+    bf16; then a perturbed future token."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    summary = {}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def check(kernel, dtype, what, got, want, tol):
+        rtol, atol = tol
+        err, bad = compare(torch, got, want, rtol, atol)
+        run.max_err[kernel] = max(run.max_err.get(kernel, 0.0), err)
+        s = summary.setdefault(f"{kernel}/{dtype}", {
+            "checks": 0, "failed": 0, "max_abs_err": 0.0, "rtol": rtol,
+            "atol": atol})
+        s["checks"] += 1
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        if not run.check("flash_kernels", f"{kernel} {dtype} {what} "
+                         f"(rtol {rtol}, atol {atol})", bad == 0,
+                         max_abs_err=err, mismatches=bad):
+            s["failed"] += 1
+
+    for heads, (h, kvh, d) in FLASH_HEADS.items():
+        for b in (1, 4):
+            for s in FLASH_SEQS:
+                for window in (0, 256):
+                    for dtype in ("float32", "bfloat16"):
+                        dt = getattr(torch, dtype)
+                        q, do = randn(b, s, h, d, dtype=dt), randn(b, s, h, d, dtype=dt)
+                        k, v = randn(b, s, kvh, d, dtype=dt), randn(b, s, kvh, d, dtype=dt)
+                        kw = dict(causal=True, window=window)
+                        what = f"{heads} B={b} S={s} window={window}"
+                        check("flash_attention", dtype, what,
+                              kops.flash_attention(q, k, v, **kw),
+                              ref.flash_attention_ref(q, k, v, **kw),
+                              FLASH_TOL[dtype])
+                        o, lse = fa.flash_fwd_lse(q, k, v, **kw)
+                        o_ref, lse_ref = ref.flash_fwd_lse_ref(q, k, v, **kw)
+                        check("flash_attention_fwd", dtype, what + " o", o,
+                              o_ref, FLASH_TOL[dtype])
+                        check("flash_attention_fwd", dtype, what + " lse",
+                              lse, lse_ref, FLASH_TOL["float32"])
+                        res = (q, k, v, do, lse_ref, fa.dsum_of(o_ref, do))
+                        check("flash_attention_dq", dtype, what,
+                              fa.flash_dq(*res, **kw),
+                              ref.flash_dq_ref(*res, **kw),
+                              FLASH_GRAD_TOL[dtype])
+                        for part, got, want in zip(
+                                ("dk", "dv"), fa.flash_dkv(*res, **kw),
+                                ref.flash_dkv_ref(*res, **kw)):
+                            check("flash_attention_dkv", dtype,
+                                  f"{what} {part}", got, want,
+                                  FLASH_GRAD_TOL[dtype])
+                        torch.cuda.synchronize()    # a fault shows here
+    # causality: a perturbed last token leaves every earlier row unchanged
+    q, k, v = randn(2, 300, 32, 64), randn(2, 300, 4, 64), randn(2, 300, 4, 64)
+    base = kops.flash_attention(q, k, v)
+    k[:, -1] += 10.0
+    v[:, -1] += 10.0
+    pert = kops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    changed = float((base[:, -1] - pert[:, -1]).abs().max())
+    ok = torch.equal(base[:, :-1], pert[:, :-1]) and changed > 1e-3
+    run.check("flash_kernels", "a perturbed last token changes only the "
+              "last row", ok, last_row_change=changed)
+    for key, s in summary.items():
+        emit({"phase": "flash_kernels", "check": key, "result": s})
+    emit({"phase": "flash_kernels", "check": "causality", "ok": ok,
+          "last_row_change": changed})
+
+
+def _step1_grads(torch, cfg, np_params, batch, backend):
+    """(loss, grads in tree order) of loss_fn on the initial params."""
+    from repro_torch import models
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.optim.adamw import tree_items
+    params = params_from_numpy(np_params, DEVICE, cfg=cfg)
+    paths, leaves = zip(*[(p, x.requires_grad_())
+                          for p, x in tree_items(params)])
+    loss, _ = models.get_module(cfg).loss_fn(
+        cfg, params, to_device(batch, DEVICE), backend=backend)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), dict(zip(("/".join(p) for p in paths), grads))
+
+
+def _train_run(torch, cfg, np_params, backend, publish_to=None):
+    """launch.train.train on the card from ``np_params``: (losses, the
+    launch counts of the run, wall s, peak device bytes)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.train import train
+    kw = TRAIN[cfg.name]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()                            # the main path starts
+    t0 = time.perf_counter()
+    params, losses = train(cfg.name, steps=kw["steps"], batch=kw["batch"],
+                           seq=kw["seq"], use_reduced=False,
+                           publish_to=publish_to, log_every=1, seed=SEED,
+                           device=DEVICE, params=np_params, backend=backend)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kops.launches()                         # read just after
+    del params
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    return losses, counts, wall, peak
+
+
+def _train_model(run, torch, cfg, np_params, publish_to=None):
+    """One model: step-1 gradients on cuda and ref, then the trainer on
+    cuda (the main path) and on ref from the same numpy params."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    kw = TRAIN[cfg.name]
+    L, steps = cfg.num_layers, kw["steps"]
+    batch0 = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=kw["seq"],
+                                    global_batch=kw["batch"],
+                                    seed=SEED)).batch(0)
+    loss_c, g_cuda = _step1_grads(torch, cfg, np_params, batch0, None)
+    g_cuda = {k: g.cpu() for k, g in g_cuda.items()}
+    torch.cuda.empty_cache()
+    loss_r, g_ref = _step1_grads(torch, cfg, np_params, batch0, "ref")
+    rel, finite = {}, True
+    for key, gr in g_ref.items():
+        gc = g_cuda[key].to(DEVICE)
+        finite &= bool(torch.isfinite(gc).all())
+        rel[key] = float((gc - gr).norm() / gr.norm().clamp_min(1e-30))
+    del g_cuda, g_ref, gc, gr
+    torch.cuda.empty_cache()
+    worst = max(rel, key=rel.get)
+    run.check("train", f"{cfg.name}: step-1 grads, cuda vs ref, per leaf "
+              f"||dg|| / ||g|| <= {TRAIN_GRAD_REL}",
+              all(r <= TRAIN_GRAD_REL for r in rel.values()) and finite,
+              worst=worst, rel=rel[worst], finite=finite)
+    losses, rec = {}, {"phase": "train", "model": cfg.name, **kw,
+                       "params": cfg.param_count(),
+                       "step1_loss": {"cuda": loss_c, "ref": loss_r},
+                       "step1_grad_rel": rel}
+    for backend in (None, "ref"):
+        tag = backend or "cuda"
+        got, counts, wall, peak = _train_run(
+            torch, cfg, np_params, backend,
+            publish_to if backend is None else None)
+        losses[tag] = got
+        want = {k: 0 for k in counts}
+        if backend is None:
+            want.update(flash_attention_fwd=2 * L * steps,
+                        flash_attention_dq=L * steps,
+                        flash_attention_dkv=L * steps)
+            rec["main_path_launches"] = counts
+        run.check("train", f"{cfg.name}/{tag}: launches (forward 2 x {L} "
+                  f"x steps under remat, dq and dk/dv {L} x steps)",
+                  counts == want, launches={k: v for k, v in counts.items()
+                                            if v or want[k]})
+        run.check("train", f"{cfg.name}/{tag}: finite losses",
+                  all(math.isfinite(x) for x in got), losses=got)
+        rec[tag] = {"losses": got, "wall_s": wall,
+                    "tokens_per_s_incl_first_step":
+                        steps * kw["batch"] * kw["seq"] / wall,
+                    "peak_device_gb": peak / 1e9}
+    rel_loss = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                     losses["ref"])]
+    rec["loss_rel_diff"] = rel_loss
+    run.check("train", f"{cfg.name}: losses cuda vs ref at every step "
+              f"(rtol {TRAIN_LOSS_RTOL})",
+              len(rel_loss) == steps and max(rel_loss) <= TRAIN_LOSS_RTOL,
+              rel=rel_loss)
+    emit(rec)
+    return rec
+
+
+def phase_train(run, torch, np, tiny_np, store_root):
+    """TinyLlama-1.1B at full width and depth (fp32, batch 4 x 2048, 4
+    AdamW steps on SyntheticLM) through launch.train on the flash kernels
+    and on ``ref`` from one numpy-seeded tree, publishing the cuda run;
+    then Qwen3-0.6B (qk-norm, tied embeddings, head_dim 128), 2 steps at
+    batch 4 x 1024."""
+    from repro_torch.configs import get_config
+    set_fp32_exact(torch)
+    tiny = get_config("tinyllama-1.1b")
+    out = {tiny.name: _train_model(run, torch, tiny, tiny_np,
+                                   publish_to=store_root)}
+    qwen = get_config("qwen3-0.6b")
+    qwen_np = numpy_weights(np, qwen, SEED + 1)
+    out[qwen.name] = _train_model(run, torch, qwen, qwen_np)
+    return out[tiny.name]["main_path_launches"]
+
+
+def phase_train_publish_serve(run, torch, np, tiny_np, store_root):
+    """The trained TinyLlama, loaded back from the model store it was
+    published to, served through ServingEngine (4 greedy requests) on the
+    kernels and on ``ref``: tokens equal, 22 B8 launches per full
+    prefill and 22 B6 launches per decode step."""
+    from repro_torch.checkpoint.ckpt import load_published
+    from repro_torch.core.modelstore import ModelStore
+    from repro_torch.kernels import ops as kops
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.serving.engine import ServingEngine
+    cfg, cpu_params, rec = load_published(ModelStore(store_root),
+                                          "tinyllama-1.1b")
+    meta = rec.load_spec()["metadata"]
+    moved = float((cpu_params["layers"]["wq"][0]
+                   - torch.from_numpy(tiny_np["layers"]["wq"][0])).abs().max())
+    run.check("train_publish_serve", "the artifact holds the trained "
+              "weights", meta.get("steps") == TRAIN[cfg.name]["steps"]
+              and moved > 0, metadata=meta, wq0_moved=moved)
+    params = tree_map(lambda p: p.to(DEVICE), cpu_params)
+    del cpu_params
+    L, outs, report = cfg.num_layers, {}, {"phase": "train_publish_serve",
+                                           "metadata": meta}
+    for backend in (None, "ref"):
+        tag = backend or "cuda"
+        eng = ServingEngine(cfg, params, max_batch=4,
+                            cache_len=SERVE_CACHE_LEN, attn_backend=backend,
+                            device=DEVICE)
+        reqs = serve_requests(np, cfg, SEED + 80, n=4, max_new=16,
+                              shared_prefix=0)
+        kops.reset_launches()                        # the main path starts
+        eng.generate_batch(reqs)
+        torch.cuda.synchronize()
+        counts = kops.launches()                     # read just after
+        sched = eng.scheduler()
+        want = {k: 0 for k in counts}
+        if backend is None:
+            want["flash_attention"] = L * full_prefills(sched, len(reqs))
+            want["decode_attention"] = L * sched.decode_steps
+        run.check("train_publish_serve", f"{tag}: launches (B8 {L} x full "
+                  f"prefills, B6 {L} x decode steps)", counts == want,
+                  launches={k: v for k, v in counts.items() if v})
+        outs[tag] = [r.output for r in reqs]
+        report[tag] = {"launches": {k: v for k, v in counts.items() if v},
+                       "decode_steps": sched.decode_steps,
+                       "tokens": [len(o) for o in outs[tag]]}
+        del eng
+    run.check("train_publish_serve", "greedy tokens on cuda equal ref",
+              outs["cuda"] == outs["ref"] and all(
+                  len(o) == 16 for o in outs["cuda"]))
+    report["tokens_equal_ref"] = outs["cuda"] == outs["ref"]
+    emit(report)
+    return report["cuda"]["launches"].get("flash_attention", 0)
+
+
+CLI_TRAIN_STEPS = 2
+
+
+def _quiet(fn, *args):
+    """fn(*args) with its printed lines kept: (result, the last lines)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().strip().splitlines()[-6:]
+
+
+def phase_cli(run, torch, np):
+    """The two command lines a user starts from, on the card with their
+    defaults (reduced configs, head_dim 32): ``launch.serve --model
+    tinyllama-1.1b`` on an empty store bootstraps a model and serves it
+    (B8 in prefill, B6 in decode), and its tokens equal a ``ref`` engine's
+    on the bootstrapped weights; ``launch.train`` (reduced TinyLlama) runs
+    on B9, its losses equal a ``ref`` run's."""
+    from repro_torch.checkpoint.ckpt import load_published
+    from repro_torch.core.modelstore import ModelStore
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve, train
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.serving.engine import ServingEngine
+    set_fp32_exact(torch)
+    rec = {"phase": "cli"}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as store:
+        kops.reset_launches()                        # the main path starts
+        _, rec["serve_out"] = _quiet(serve.main, [
+            "--store", store, "--model", "tinyllama-1.1b"])
+        torch.cuda.synchronize()
+        counts = kops.launches()                     # read just after
+        rec["serve_launches"] = {k: v for k, v in counts.items() if v}
+        run.check("cli", "launch.serve --model tinyllama-1.1b on an empty "
+                  "store: B8 in prefill and B6 in decode, nothing else",
+                  set(rec["serve_launches"]) == {"flash_attention",
+                                                 "decode_attention"},
+                  launches=rec["serve_launches"])
+        cfg, cpu_params, _ = load_published(ModelStore(store),
+                                            "tinyllama-1.1b")
+        params = tree_map(lambda p: p.to(DEVICE), cpu_params)
+        outs = {}
+        for backend in (None, "ref"):
+            eng = ServingEngine(cfg, params, max_batch=4, cache_len=128,
+                                attn_backend=backend, device=DEVICE)
+            reqs = serve_requests(np, cfg, SEED + 85, n=4, max_new=16,
+                                  lo=5, hi=100, shared_prefix=0)
+            eng.generate_batch(reqs)
+            outs[backend or "cuda"] = [r.output for r in reqs]
+        run.check("cli", f"the bootstrapped {cfg.name} (head_dim "
+                  f"{cfg.resolved_head_dim}): greedy tokens on cuda equal "
+                  "ref", outs["cuda"] == outs["ref"]
+                  and all(len(o) == 16 for o in outs["cuda"]))
+        rec["bootstrapped"] = {"num_layers": cfg.num_layers,
+                               "head_dim": cfg.resolved_head_dim,
+                               "tokens_equal_ref": outs["cuda"] == outs["ref"]}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as store:
+        argv = ["--steps", str(CLI_TRAIN_STEPS), "--publish", store]
+        kops.reset_launches()                        # the main path starts
+        got, rec["train_out"] = _quiet(train.main, argv)
+        torch.cuda.synchronize()
+        counts = kops.launches()                     # read just after
+        L = load_published(ModelStore(store), "tinyllama-1.1b")[0].num_layers
+    steps = CLI_TRAIN_STEPS
+    want = {k: 0 for k in counts}
+    want.update(flash_attention_fwd=2 * L * steps,
+                flash_attention_dq=L * steps, flash_attention_dkv=L * steps)
+    rec["train_launches"] = {k: v for k, v in counts.items() if v}
+    run.check("cli", f"launch.train {' '.join(argv[:2])}: launches (forward "
+              f"2 x {L} x steps under remat, dq and dk/dv {L} x steps)",
+              counts == want, launches=rec["train_launches"])
+    (_, want_losses), _ = _quiet(lambda: train.train(
+        "tinyllama-1.1b", steps=steps, batch=8, seq=128, device=DEVICE,
+        backend="ref"))
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want_losses)]
+    rec["train_losses"] = {"cuda": got, "ref": want_losses, "rel": rel}
+    run.check("cli", f"launch.train losses equal a ref run's (rtol "
+              f"{TRAIN_LOSS_RTOL})", len(rel) == steps
+              and all(math.isfinite(x) for x in got)
+              and max(rel) <= TRAIN_LOSS_RTOL, rel=rel)
+    emit(rec)
+    return rec["serve_launches"], rec["train_launches"]
+
+
+def flash_bound(kernel, b, s, h, kvh, d, elem=4):
+    """(seconds from bytes, seconds from operations) of one call at these
+    shapes, causal with no window: each input read once and each output
+    written once; per visible (query, key) pair 2*D flops per product,
+    2 products in the forward, 3 in dq (q.k, dO.v, ds.k), 4 in dk/dv
+    (q.k, dO.v, p^T dO, ds^T q), at the fp32 peak."""
+    pairs = b * h * s * (s + 1) // 2
+    q_bytes, kv_bytes, row_bytes = b * s * h * d * elem, b * s * kvh * d * elem, b * h * s * 4
+    if kernel in ("flash_attention", "flash_attention_fwd"):
+        nbytes = 2 * q_bytes + 2 * kv_bytes
+        nbytes += row_bytes if kernel == "flash_attention_fwd" else 0
+        products = 2
+    elif kernel == "flash_attention_dq":
+        nbytes = 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+        products = 3
+    else:
+        nbytes = 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
+        products = 4
+    return nbytes / PEAK_HBM_BYTES, 2 * d * products * pairs / PEAK_FP32_FLOPS
+
+
+TRAIN_GROUPS = (("flash_fwd", "flash forward (B9)"),
+                ("flash_dq", "flash dq (B9)"),
+                ("flash_dkv", "flash dk/dv (B9)"),
+                ("gemm", "matmul (cuBLAS)"), ("Gemm", "matmul (cuBLAS)"),
+                ("gemv", "matmul (cuBLAS)"))
+
+
+def _profile_train_step(torch, cfg, params, opt, state, batch):
+    """Device time by part over one train step (torch.profiler): the
+    optimizer's kernels are those that start after a synchronize placed
+    between the backward and ``opt.update``; the idle share counts that
+    synchronize.  The profiler also puts the "optimizer" range itself on
+    the device timeline; it is a span over kernels, not one, and is not
+    summed."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch import models
+    from repro_torch.optim.adamw import tree_items, tree_map
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss, _ = models.get_module(cfg).loss_fn(cfg, params, batch)
+        it = iter(torch.autograd.grad(loss, [p for _, p in
+                                             tree_items(params)]))
+        grads = tree_map(lambda p: next(it), params)
+        torch.cuda.synchronize()
+        with record_function("optimizer"):
+            opt.update(grads, state, params)
+        float(loss.detach())
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    events = list(prof.events())
+    opt_start = min(e.time_range.start for e in events
+                    if e.name == "optimizer")
+    parts, spans = {}, []
+    for e in events:
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") \
+                or e.name == "optimizer":
+            continue
+        spans.append((e.time_range.start, e.time_range.start + e.device_time))
+        if e.time_range.start >= opt_start:
+            part = "optimizer (AdamW)"
+        else:
+            part = next((p for key, p in TRAIN_GROUPS if key in e.name),
+                        "other (norms, RoPE, SiLU, loss, copies)")
+        parts[part] = parts.get(part, 0.0) + e.device_time
+    busy, end = 0.0, float("-inf")          # the union of kernel spans
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return {"wall_ms_per_step": wall_us / 1e3,
+            "device_ms_per_step": busy / 1e3 if spans else "not measured",
+            "device_kernel_ms_sum": sum(parts.values()) / 1e3,
+            "device_idle_share": 1 - busy / wall_us if spans
+            else "not measured",
+            "device_kernels_per_step": len(spans),
+            "device_ms_by_part": {k: v / 1e3 for k, v in parts.items()}}
+
+
+def phase_train_times(run, torch, np, tiny_np, card):
+    """TinyLlama-1.1B, batch 4 x 2048: train tokens/s over 3 steps of
+    make_train_step after a warm one (host clock around synchronised
+    steps); device time per step by part and the idle share
+    (torch.profiler over one step); B8 and each B9 kernel per launch at
+    the train shapes against the bound, the plain version and SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim.adamw import AdamW, cosine_schedule, tree_map
+    set_fp32_exact(torch)
+    cfg = get_config("tinyllama-1.1b")
+    kw = TRAIN[cfg.name]
+    b, s = kw["batch"], kw["seq"]
+    params = tree_map(lambda p: p.requires_grad_(),
+                      params_from_numpy(tiny_np, DEVICE, cfg=cfg))
+    opt = AdamW(lr=cosine_schedule(3e-4, 20, 100))
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                  global_batch=b, seed=SEED))
+    params, state, m = step_fn(params, state, to_device(data.batch(0), DEVICE))
+    float(m["loss"])                                 # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(1, 4):
+        params, state, m = step_fn(params, state,
+                                   to_device(data.batch(step), DEVICE))
+        float(m["loss"])                             # the trainer's one read
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = {"phase": "train_times", "card": card["nvidia_smi"],
+           "model": cfg.name, "batch": b, "seq": s, "timed_steps": 3,
+           "train_tokens_per_s": 3 * b * s / wall,
+           "step_s": wall / 3,
+           "step_profile": _profile_train_step(
+               torch, cfg, params, opt, state,
+               to_device(data.batch(4), DEVICE))}
+    del params, state, m, step_fn
+    torch.cuda.empty_cache()
+
+    # each kernel at the train shapes: random fp32 inputs, causal
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 95)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=DEVICE)
+    q, do = randn(b, s, h, d), randn(b, s, h, d)
+    k, v = randn(b, s, kvh, d), randn(b, s, kvh, d)
+    o, lse = fa.flash_fwd_lse(q, k, v)
+    res = (q, k, v, do, lse, fa.dsum_of(o, do))
+    calls = {
+        "flash_attention": (lambda: kops.flash_attention(q, k, v),
+                            lambda: ref.flash_attention_ref(q, k, v)),
+        "flash_attention_fwd": (lambda: fa.flash_fwd_lse(q, k, v),
+                                lambda: ref.flash_fwd_lse_ref(q, k, v)),
+        "flash_attention_dq": (lambda: fa.flash_dq(*res),
+                               lambda: ref.flash_dq_ref(*res)),
+        "flash_attention_dkv": (lambda: fa.flash_dkv(*res),
+                                lambda: ref.flash_dkv_ref(*res)),
+    }
+    # the library: SDPA on (B, H, S, D) with K/V heads repeated outside
+    # the timing (the memory-efficient backend takes fp32 and no GQA)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_err = float((sdpa().transpose(1, 2) - o).abs().max())
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        torch.autograd.grad(out, leaves, dot)
+    # the library's backward alone: one call gives dq, dk and dv per query
+    # head from the forward's saved (out, lse), as dq and dk/dv do together
+    # (the group sum of dk/dv is left out of the timing)
+    eff = torch.ops.aten._scaled_dot_product_efficient_attention
+    out_l, lse_l, seed_l, off_l = eff(qt, kt, vt, None, True, 0.0, True)
+
+    def sdpa_bwd():
+        return torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+            dot, qt, kt, vt, None, out_l, lse_l, seed_l, off_l, 0.0,
+            [True, True, True, False], True)
+    dq_l, dk_l, dv_l, _ = sdpa_bwd()
+    g = h // kvh
+    lib_grads = (dq_l.transpose(1, 2),
+                 dk_l.transpose(1, 2).reshape(b, s, kvh, g, d).sum(3),
+                 dv_l.transpose(1, 2).reshape(b, s, kvh, g, d).sum(3))
+    mine = (fa.flash_dq(*res),) + fa.flash_dkv(*res)
+    lib_bwd_rel = max(float((x - y).norm() / y.norm())
+                      for x, y in zip(lib_grads, mine))
+    del dq_l, dk_l, dv_l, lib_grads, mine
+    sdpa_ms = time_ms(torch, sdpa, iters=5, reps=3)
+    sdpa_bwd_ms = time_ms(torch, sdpa_bwd, iters=3, reps=3)
+    sdpa_fb_ms = time_ms(torch, sdpa_fwd_bwd, iters=3, reps=3)
+    run.check("train_times", "SDPA computes the kernel's function "
+              "(atol 1e-4)", lib_err <= 1e-4, err=lib_err)
+    run.check("train_times", "the library backward computes the kernels' "
+              f"dq, dk, dv (||d|| / ||g|| <= {TRAIN_GRAD_REL})",
+              lib_bwd_rel <= TRAIN_GRAD_REL, rel=lib_bwd_rel)
+    kernels = {}
+    for name, (fn, plain) in calls.items():
+        b_s, o_s = flash_bound(name, b, s, h, kvh, d)
+        kernels[name] = {
+            "ms": time_ms(torch, fn, iters=5, reps=3),
+            "plain_ms": time_ms(torch, plain, iters=1, reps=3),
+            "library_ms": sdpa_ms if name in ("flash_attention",
+                                              "flash_attention_fwd")
+            else sdpa_bwd_ms,
+            "library_call": "scaled_dot_product_attention (forward)"
+            if name in ("flash_attention", "flash_attention_fwd")
+            else "_scaled_dot_product_efficient_attention_backward "
+                 "(dq, dk and dv in one call)",
+            "library_fwd_bwd_ms": sdpa_fb_ms,
+            "bytes_s": b_s, "ops_s": o_s, "bound_ms": 1e3 * max(b_s, o_s),
+            "bound_by": "bytes" if b_s >= o_s else "operations",
+            "shape": {"batch": b, "seq": s, "heads": h, "kv_heads": kvh,
+                      "head_dim": d, "causal": True, "dtype": "float32"}}
+    rec["kernels"] = kernels
+    rec["sdpa_fwd_ms"], rec["sdpa_fwd_bwd_ms"] = sdpa_ms, sdpa_fb_ms
+    rec["sdpa_bwd_ms"] = sdpa_bwd_ms
+    rec["sdpa_vs_kernel_max_abs"] = lib_err
+    rec["sdpa_bwd_vs_kernels_rel"] = lib_bwd_rel
+    emit(rec)
+    return kernels
+
+
+def kernel_rows(totals, b2, dec, flash, nin_launches, serve_launches,
+                train_launches, max_err):
     """The ``{"kernels": [...]}`` entries: slice 1's four kernels and B2
     timed over one NIN forward at batch 8; B6 and B7 per launch at the
-    serving path's batch-8 shapes."""
+    serving path's batch-8 shapes; B8 and B9's three kernels per launch
+    at the train shapes, B8's launches from the serve path's prefills and
+    B9's from the train path."""
     rows = []
     for name, (source, replaces) in SOURCES.items():
         t = (totals or {}).get(name, {})
@@ -1290,6 +1912,23 @@ def kernel_rows(totals, b2, dec, nin_launches, serve_launches, max_err):
             "ms_per": "one launch (one layer of a decode step), TinyLlama, "
                       "batch 8, " + ("paged int8" if "paged" in name
                                      else "ring fp32")})
+    for name, (source, replaces) in FLASH_SOURCES.items():
+        t = (flash or {}).get(name, {})
+        b8 = name == "flash_attention"
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": ((serve_launches if b8 else train_launches)
+                         or {}).get(name, 0),
+            "launches_on": "serve (prefill)" if b8 else "train",
+            "max_abs_err": max_err.get(name),
+            "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
+            "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+            "library_ms": t.get("library_ms"),
+            "library_call": t.get("library_call"),
+            "library_fwd_bwd_ms": t.get("library_fwd_bwd_ms"),
+            "ms_per": "one launch (one layer), TinyLlama heads, batch 4 x "
+                      "2048, fp32, causal"})
     return rows
 
 
@@ -1343,8 +1982,12 @@ def main() -> int:
     del engine
     # slice 2: TinyLlama / Qwen3 through ServingEngine and MultiModelServer
     timed("decode_kernels", phase_decode_kernels, run, torch)
+    timed("flash_kernels", phase_flash_kernels, run, torch)
+    # the serve and train command lines with their defaults (reduced
+    # configs, head_dim 32)
+    timed("cli", phase_cli, run, torch, np)
     served = timed("serve", phase_serve, run, torch, np, card)
-    serve_launches = dec = None
+    serve_launches = dec = tiny_np = None
     if served is not None:
         cfg, tiny_np, params, engines, serve_launches = served
         del engines
@@ -1355,8 +1998,22 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as store_root:
             timed("multimodel", phase_multimodel, run, torch, np, tiny_np,
                   pathlib.Path(store_root))
-    kernels = kernel_rows(totals, b2, dec, nin_launches, serve_launches,
-                          run.max_err)
+    # slice 3: TinyLlama / Qwen3 training through launch.train, then the
+    # trained TinyLlama published and served
+    torch.cuda.empty_cache()
+    if tiny_np is None:
+        tiny_np = numpy_weights(np, get_config("tinyllama-1.1b"), SEED)
+    train_launches = flash = None
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as store_root:
+        train_launches = timed("train", phase_train, run, torch, np, tiny_np,
+                               store_root)
+        if train_launches is not None:
+            timed("train_publish_serve", phase_train_publish_serve, run,
+                  torch, np, tiny_np, store_root)
+    flash = timed("train_times", phase_train_times, run, torch, np, tiny_np,
+                  card)
+    kernels = kernel_rows(totals, b2, dec, flash, nin_launches,
+                          serve_launches, train_launches, run.max_err)
     for k in kernels:
         run.check("summary", f"{k['name']} launched on the main path",
                   k["launches"] > 0)

@@ -13,6 +13,7 @@ from typing import Dict, Union
 from repro_torch.kernels import conv2d as _conv
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import elementwise as _ew
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import pool as _pool
 from repro_torch.kernels import softmax as _sm
@@ -22,14 +23,16 @@ from repro_torch.kernels.decode_attention import (
     decode_attention, decode_attention_paged, decode_attention_paged_q8,
     decode_attention_q8)
 from repro_torch.kernels.elementwise import elementwise, relu
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention_bwd import flash_attention_trainable
 from repro_torch.kernels.matmul import matmul
 from repro_torch.kernels.pool import pool2d
 from repro_torch.kernels.softmax import softmax
 
 __all__ = ["KERNELS", "conv2d", "decode_attention", "decode_attention_paged",
            "decode_attention_paged_q8", "decode_attention_q8", "elementwise",
-           "launches", "matmul", "pool2d", "relu", "reset_launches",
-           "softmax"]
+           "flash_attention", "flash_attention_trainable", "launches",
+           "matmul", "pool2d", "relu", "reset_launches", "softmax"]
 
 KERNELS: Dict[str, Union[CudaKernel, CompositeKernel]] = {
     "matmul": _mm.KERNEL,
@@ -41,6 +44,10 @@ KERNELS: Dict[str, Union[CudaKernel, CompositeKernel]] = {
     "decode_attention_q8": _da.RING_Q8,
     "decode_attention_paged": _da.PAGED,
     "decode_attention_paged_q8": _da.PAGED_Q8,
+    "flash_attention": _fa.FWD,              # B8
+    "flash_attention_fwd": _fa.FWD_LSE,      # B9: forward with lse
+    "flash_attention_dq": _fa.DQ,            # B9: dq
+    "flash_attention_dkv": _fa.DKV,          # B9: dk/dv
 }
 
 

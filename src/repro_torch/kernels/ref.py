@@ -177,3 +177,85 @@ def decode_attention_paged_q8_ref(q, k_pool, v_pool, k_scale, v_scale,
     ks = paged_gather(k_scale, page_table, layout=layout)
     vs = paged_gather(v_scale, page_table, layout=layout)
     return decode_attention_q8_ref(q, k, v, ks, vs, valid_len, layout=layout)
+
+
+# ---------------------------------------------------------------------------
+# B8 / B9: full-sequence flash attention, its forward with logsumexp and
+# the FlashAttention-2 backward pieces
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0):
+    """q: (B, S, H, D); k, v: (B, S, KV, D): full-sequence attention with
+    the score matrix materialized (the model's ``attention_full``)."""
+    from repro_torch.models.common import attention_full
+    return attention_full(q, k, v, causal=causal, window=window)
+
+
+def _repeat_heads(x, groups):
+    """(B, S, KV, D) -> (B, S, KV*groups, D), query head h on KV head
+    h // groups."""
+    return x.repeat_interleave(groups, dim=2)
+
+
+def _flash_probs(q, k, lse, causal, window):
+    """Scaled, masked fp32 scores (B, H, Sq, Sk) of q against k, and with
+    ``lse`` (B, H, Sq) the probabilities exp(s - lse) (0 where masked)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    kr = _repeat_heads(k, h // k.shape[2])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * (
+        1.0 / math.sqrt(d))
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, -1e30)
+    if lse is None:
+        return s
+    return torch.exp(s - lse[..., None])
+
+
+def flash_fwd_lse_ref(q, k, v, *, causal=True, window=0):
+    """(o in q's dtype (B, S, H, D), lse fp32 (B, H, S)): the forward of
+    B9, with lse = m + log(max(l, 1e-30)) so that exp(s - lse) in the
+    backward are the forward's probabilities."""
+    s = _flash_probs(q, k, None, causal, window)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = torch.clamp_min(p.sum(dim=-1), 1e-30)
+    vr = _repeat_heads(v, q.shape[2] // v.shape[2]).float()
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vr) / l.transpose(1, 2)[..., None]
+    return o.to(q.dtype), m + torch.log(l)
+
+
+def _flash_ds(q, k, v, do, lse, dsum, causal, window):
+    """p and ds = p * (dO v^T - dsum) * scale, (B, H, Sq, Sk);
+    dsum = rowsum(dO * o) (B, H, Sq)."""
+    p = _flash_probs(q, k, lse, causal, window)
+    vr = _repeat_heads(v, q.shape[2] // v.shape[2]).float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vr)
+    return p, p * (dp - dsum[..., None]) * (1.0 / math.sqrt(q.shape[-1]))
+
+
+def flash_dq_ref(q, k, v, do, lse, dsum, *, causal=True, window=0):
+    """dq (B, S, H, D) in q's dtype: ds k, summed over the keys."""
+    _, ds = _flash_ds(q, k, v, do, lse, dsum, causal, window)
+    kr = _repeat_heads(k, q.shape[2] // k.shape[2]).float()
+    return torch.einsum("bhqk,bkhd->bqhd", ds, kr).to(q.dtype)
+
+
+def flash_dkv_ref(q, k, v, do, lse, dsum, *, causal=True, window=0):
+    """(dk, dv) (B, S, KV, D) in k's and v's dtypes: p^T dO and ds^T q
+    per query head, then summed over each KV head's group of G."""
+    p, ds = _flash_ds(q, k, v, do, lse, dsum, causal, window)
+    b, sk, kvh, d = k.shape
+    g = q.shape[2] // kvh
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dk = dk.reshape(b, sk, kvh, g, d).sum(3)
+    dv = dv.reshape(b, sk, kvh, g, d).sum(3)
+    return dk.to(k.dtype), dv.to(v.dtype)

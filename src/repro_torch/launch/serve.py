@@ -55,7 +55,7 @@ def ensure_model(store: ModelStore, arch: str, *, seed: int = 0):
     print(f"bootstrapped {rec.name}:{rec.version} (random reduced weights)")
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--store", default="/tmp/repro_store")
     ap.add_argument("--model", action="append", default=None,
@@ -84,7 +84,7 @@ def main():
                     help="default TTFT budget (seconds) for goodput")
     ap.add_argument("--slo-itl", type=float, default=None, metavar="S",
                     help="default inter-token-latency budget (seconds)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     model_names = args.model or ["tinyllama-1.1b", "qwen3-0.6b"]
     # a Telemetry bundle exists whenever any observability surface is on;
     # metrics-only runs keep the tracer's memory bound tiny

@@ -1,7 +1,8 @@
 """Model registry: family -> module, plus uniform entry points.
 
 The port of ``repro.models``.  Ported families: the dense transformer
-(``dense`` and ``vlm``, the serving path) and the paper's CNNs (``cnn``).
+(``dense`` and ``vlm``: training through ``loss_fn`` and serving) and the
+paper's CNNs (``cnn``).
 The others raise ``NotImplementedError`` naming the ROADMAP item that
 ports them.
 """

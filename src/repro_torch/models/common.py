@@ -1,10 +1,10 @@
-"""Shared model components for serving: param templates, norms, RoPE,
-attention, and the KV-cache writes.
+"""Shared model components: param templates, norms, RoPE, attention, the
+KV-cache writes and the loss.
 
-The port of the serving half of ``repro.models.common``.  Parameters are
-nested dicts of tensors whose structure is described once by a template
-tree of ``P`` leaves, as in the JAX package, so the store format and
-``convert.params_from_numpy`` stay one-to-one with it.
+The port of the serving and training parts of ``repro.models.common``.
+Parameters are nested dicts of tensors whose structure is described once
+by a template tree of ``P`` leaves, as in the JAX package, so the store
+format and ``convert.params_from_numpy`` stay one-to-one with it.
 
 Two parity hazards live here.  ``rms_norm`` scales by ``(1 + weight)``
 (the norm weights start at zero), which ``torch.nn.RMSNorm`` does not.
@@ -71,7 +71,8 @@ def init_params(template, generator: torch.Generator,
             return torch.zeros(p.shape, dtype=dtype, device=device)
         if p.init == "ones":
             return torch.ones(p.shape, dtype=dtype, device=device)
-        x = torch.randn(p.shape, generator=generator, dtype=torch.float32)
+        x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
         return (p.std * x).to(dtype=dtype, device=device)
     return map_template(leaf, template)
 
@@ -397,3 +398,61 @@ def decode_attention_named(q, k_cache, v_cache, valid_len, *,
     if paged:
         kw.update(page_table=page_table)
     return fn(q, k_cache, v_cache, valid_len, layout=layout, **kw)
+
+
+FLASH_BACKENDS = ("ref", "cuda")
+
+
+def resolve_flash_backend(name: Optional[str], device=None) -> str:
+    """``None``/'auto' -> 'cuda' on a CUDA device, 'ref' elsewhere; 'ref'
+    and 'cuda' as they are; any other name raises."""
+    if name in (None, "auto"):
+        return "cuda" if torch.device(device or "cpu").type == "cuda" else "ref"
+    if name not in FLASH_BACKENDS:
+        raise ValueError(f"unknown flash attention backend {name!r} "
+                         f"(known: {list(FLASH_BACKENDS)} or 'auto')")
+    return name
+
+
+def flash_backend_of(decode_backend: Optional[str]) -> Optional[str]:
+    """The flash attention backend that goes with a decode backend name:
+    its family ('ref' for 'ref', 'paged_ref_q8', ...; 'cuda' for the
+    kernels), None for None/'auto' (both then resolve by device)."""
+    if decode_backend in (None, "auto"):
+        return None
+    return "ref" if "ref" in decode_backend else "cuda"
+
+
+def flash_attention_named(q, k, v, *, causal: bool = True, window: int = 0,
+                          backend: Optional[str] = None):
+    """Full-sequence attention (prefill and training) through a named
+    backend: 'ref' (:func:`attention_chunked`), 'cuda' (the flash kernels:
+    B9's differentiable forward when grad is on and an input requires
+    it, else B8), or None/'auto' (cuda on a CUDA tensor, ref on a CPU
+    one).  q (B, S, H, D); k, v (B, S, KV, D)."""
+    name = resolve_flash_backend(backend, q.device)
+    if name == "ref":
+        return attention_chunked(q, k, v, causal=causal, window=window)
+    from repro_torch.kernels import ops as kops
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return kops.flash_attention_trainable(q, k, v, causal, window)
+    return kops.flash_attention(q, k, v, causal=causal, window=window)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Mean next-token cross entropy. logits (B, S, V), labels (B, S);
+    with ``mask`` (B, S) the mean over the unmasked positions."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

@@ -1,19 +1,23 @@
 """Dense decoder-only transformer (llama / qwen / tinyllama families): the
-serving path.
+training and serving paths.
 
 The port of ``repro.models.transformer``.  Parameters keep the JAX tree,
 layers stacked along a leading L axis; the JAX package's ``lax.scan``
 over layers becomes a Python loop over views ``params["layers"][n][l]``
 and over the layer views ``cache[...][l]`` of the (L, ...) caches, which
 the decode step updates in place.  The products stay ``torch.matmul``
-(the JAX package leaves them to XLA outside any Pallas kernel); decode
-attention goes through the op registry's named backends.
+(the JAX package leaves them to XLA outside any Pallas kernel);
+full-sequence attention goes through ``flash_attention_named`` and decode
+attention through the op registry's named backends.  ``jax.checkpoint``
+per layer becomes ``torch.utils.checkpoint`` (non-reentrant), so a
+training step on the kernels runs each layer's flash forward twice.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantize import quantize_into
@@ -91,14 +95,16 @@ def _qkv(cfg: ArchConfig, lp, x, positions):
 
 
 def attn(cfg: ArchConfig, lp, x, *, window: int = 0, q_offset: int = 0,
-         positions=None):
-    """Self-attention over a full sequence (prefill).  Returns
-    (output, (k, v)) so callers can populate a KV cache."""
+         positions=None, backend=None):
+    """Self-attention over a full sequence (train / prefill) through the
+    flash attention ``backend`` (None: the kernel on a CUDA tensor).
+    Returns (output, (k, v)) so callers can populate a KV cache."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :] + q_offset
     q, k, v = _qkv(cfg, lp, x, positions)
-    out = cm.attention_chunked(q, k, v, causal=True, window=window)
+    out = cm.flash_attention_named(q, k, v, causal=True, window=window,
+                                   backend=backend)
     return out.reshape(b, s, cfg.q_dim) @ lp["wo"], (k, v)
 
 
@@ -170,14 +176,37 @@ def _embed(cfg: ArchConfig, params, tokens):
 # ---------------------------------------------------------------------------
 
 
-def forward(cfg: ArchConfig, params, tokens, *, window: int = 0):
-    """tokens (B, S) -> logits (B, S, V)."""
+def _block(cfg: ArchConfig, lp, x, window, backend):
+    x = x + attn(cfg, lp, x, window=window, backend=backend)[0]
+    return x + mlp(cfg, lp, x)
+
+
+def forward(cfg: ArchConfig, params, tokens, *, window: int = 0,
+            remat: bool = True, backend=None):
+    """tokens (B, S) -> logits (B, S, V).  With ``remat`` and grad on,
+    each layer keeps only its input for the backward and runs again
+    there (``jax.checkpoint`` in the JAX package).  The stacked layer
+    weights are unbound once, so their gradients are stacked once."""
     x = _embed(cfg, params, tokens)
+    layers = {k: w.unbind(0) for k, w in params["layers"].items()}
     for l in range(cfg.num_layers):
-        lp = _layer(params, l)
-        x = x + attn(cfg, lp, x, window=window)[0]
-        x = x + mlp(cfg, lp, x)
+        lp = {k: w[l] for k, w in layers.items()}
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_block, cfg, lp, x, window, backend,
+                           use_reentrant=False)
+        else:
+            x = _block(cfg, lp, x, window, backend)
     return _logits(cfg, params, x)
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, window: int = 0,
+            backend=None):
+    """Next-token cross entropy of ``batch`` {"tokens", "labels"} (B, S):
+    (loss, {"loss": loss})."""
+    logits = forward(cfg, params, batch["tokens"], window=window,
+                     backend=backend)
+    loss = cm.softmax_xent(logits[:, :-1], batch["labels"][:, 1:])
+    return loss, {"loss": loss}
 
 
 _KV_DTYPES = {None: None, "bf16": torch.bfloat16, "int8": torch.int8}
@@ -327,17 +356,18 @@ def _decode_step_batch_paged(cfg: ArchConfig, params, x, cache, pos, *,
 
 
 def prefill(cfg: ArchConfig, params, tokens, cache_len: int,
-            *, window: int = 0, cache_dtype=torch.bfloat16):
+            *, window: int = 0, cache_dtype=torch.bfloat16, backend=None):
     """Run the full prompt, returning logits and a populated ring cache.
     A prompt longer than ``cache_len`` keeps its last ``cache_len``
-    tokens, rolled so that token t lives at slot t % cache_len."""
+    tokens, rolled so that token t lives at slot t % cache_len.
+    ``backend`` names the flash attention backend (see :func:`attn`)."""
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
     cache = init_cache(cfg, b, cache_len, cache_dtype, device=x.device)
     keep = min(s, cache_len)
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
-        a, (k, v) = attn(cfg, lp, x, window=window)
+        a, (k, v) = attn(cfg, lp, x, window=window, backend=backend)
         x = x + a
         x = x + mlp(cfg, lp, x)
         # (B, S, KV, D) -> bksd (B, KV, S, D)

@@ -44,6 +44,7 @@ import torch
 
 from repro_torch import models
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import common as cm
 from repro_torch.runtime.faults import FaultInjector
 from repro_torch.runtime.pagepool import GARBAGE_PAGE, PagePool
 from repro_torch.runtime.roofline import HWSpec, RooflineAccountant
@@ -212,6 +213,7 @@ class ContinuousBatchingScheduler:
                 raise ValueError(f"unknown attn_backend {attn_backend!r}: "
                                  f"{e}") from None
         self.attn_backend = attn_backend
+        self._prefill_backend = cm.flash_backend_of(attn_backend)
         self.pending: Deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * max_slots
         self._steps_left = np.zeros(max_slots, np.int64)
@@ -378,7 +380,8 @@ class ContinuousBatchingScheduler:
         logits, cache1 = self.mod.prefill(self.cfg, self.params,
                                           self._upload(toks),
                                           self._prefill_len,
-                                          cache_dtype=torch.float32)
+                                          cache_dtype=torch.float32,
+                                          backend=self._prefill_backend)
         # quantize/cast AFTER the float prefill, once per admission
         cache1 = self.mod.cache_to_kv_dtype(self.cfg, cache1, self.kv_dtype)
         first = _sample(self._generator, logits[:, -1], self._temp(req))[0]

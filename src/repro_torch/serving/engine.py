@@ -27,6 +27,7 @@ import torch
 from repro_torch import models
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.modelstore import ModelStore
+from repro_torch.models.common import flash_backend_of
 from repro_torch.runtime.base import DeviceRuntime, resolve_device
 from repro_torch.runtime.scheduler import (ContinuousBatchingScheduler,
                                            Request, _sample)
@@ -186,7 +187,8 @@ class ServingEngine:
         t0 = time.perf_counter()
         logits, cache = self.mod.prefill(
             self.cfg, self.params, torch.from_numpy(toks).to(self.device),
-            self.cache_len, cache_dtype=torch.float32)
+            self.cache_len, cache_dtype=torch.float32,
+            backend=flash_backend_of(self.attn_backend))
         last = logits[:, -1]
         stats.prefill_s = time.perf_counter() - t0
         pos = plen

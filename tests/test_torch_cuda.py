@@ -206,3 +206,120 @@ def test_decode_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         kops.decode_attention(q, k.transpose(2, 3), k.transpose(2, 3), 4,
                               layout="bksd")
+
+
+# ---------------------------------------------------------------------------
+# B8 / B9: full-sequence flash attention and its backward against the plain
+# versions.  fp32: rtol 1e-4 / atol 1e-5 on outputs and lse, 1e-3 / 1e-4 on
+# grads (the JAX suite's bar for the fused backward); bf16: 2e-2 / 3e-2
+# (the plain version rounds p to bf16 before the PV product, the kernel
+# keeps it in fp32).
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+             torch.bfloat16: dict(rtol=2e-2, atol=3e-2)}
+FLASH_GRAD_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-4),
+                  torch.bfloat16: dict(rtol=2e-2, atol=3e-2)}
+
+
+def _qkv(dev, b, s, h, kvh, d, dtype, seed=0):
+    return (randn(dev, b, s, h, d, seed=seed).to(dtype),
+            randn(dev, b, s, kvh, d, seed=seed + 1).to(dtype),
+            randn(dev, b, s, kvh, d, seed=seed + 2).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("b,s,h,kvh,d", [(1, 1, 32, 4, 64), (2, 5, 32, 4, 64),
+                                         (1, 127, 16, 8, 128),
+                                         (2, 300, 32, 4, 64),
+                                         (2, 5, 8, 1, 32),
+                                         (1, 300, 8, 4, 32)])
+def test_flash_attention_kernels(dev, b, s, h, kvh, d, window, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(dev, b, s, h, kvh, d, dtype)
+    do = randn(dev, b, s, h, d, seed=7).to(dtype)
+    kw = dict(causal=True, window=window)
+    close(kops.flash_attention(q, k, v, **kw).float(),
+          ref.flash_attention_ref(q, k, v, **kw).float(), **FLASH_TOL[dtype])
+    o, lse = fa.flash_fwd_lse(q, k, v, **kw)
+    o_ref, lse_ref = ref.flash_fwd_lse_ref(q, k, v, **kw)
+    close(o.float(), o_ref.float(), **FLASH_TOL[dtype])
+    close(lse, lse_ref, **FLASH_TOL[torch.float32])
+    res = (q, k, v, do, lse_ref, fa.dsum_of(o_ref, do))
+    close(fa.flash_dq(*res, **kw).float(), ref.flash_dq_ref(*res, **kw).float(),
+          **FLASH_GRAD_TOL[dtype])
+    for got, want in zip(fa.flash_dkv(*res, **kw), ref.flash_dkv_ref(*res, **kw)):
+        close(got.float(), want.float(), **FLASH_GRAD_TOL[dtype])
+
+
+def test_flash_attention_trainable_grads_on_the_card(dev):
+    """B9 through autograd against autograd of the materialized attention,
+    GQA 8:1 with a window."""
+    from repro_torch.models.common import attention_full
+    q, k, v = _qkv(dev, 2, 200, 32, 4, 64, torch.float32, seed=3)
+    grads = []
+    for fn in (lambda *x: kops.flash_attention_trainable(*x, True, 64),
+               lambda *x: attention_full(*x, causal=True, window=64)):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = fn(*leaves)
+        torch.sin(o).sum().backward()
+        grads.append([o.detach()] + [x.grad for x in leaves])
+    close(grads[0][0], grads[1][0], **FLASH_TOL[torch.float32])
+    for got, want in zip(grads[0][1:], grads[1][1:]):
+        close(got, want, **FLASH_GRAD_TOL[torch.float32])
+
+
+def test_flash_attention_is_causal(dev):
+    """A perturbed last token leaves every earlier output unchanged."""
+    q, k, v = _qkv(dev, 1, 130, 16, 8, 128, torch.float32, seed=5)
+    base = kops.flash_attention(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, -1] += 10.0
+    v2[:, -1] += 10.0
+    pert = kops.flash_attention(q, k2, v2)
+    torch.cuda.synchronize()
+    assert torch.equal(base[:, :-1], pert[:, :-1])
+    assert float((base[:, -1] - pert[:, -1]).abs().max()) > 1e-3
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q, k, v = _qkv(dev, 1, 8, 4, 2, 48, torch.float32)
+    with pytest.raises(ValueError):                      # head_dim 48
+        kops.flash_attention(q, k, v)
+    q, k, v = _qkv(dev, 1, 8, 4, 2, 64, torch.float32)
+    with pytest.raises(TypeError):
+        kops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):                      # H not a multiple of KV
+        kops.flash_attention(q[:, :, :3], k, v)
+    with pytest.raises(ValueError):
+        kops.flash_attention(q, k.cpu(), v)
+
+
+# ---------------------------------------------------------------------------
+# the command lines with their defaults: reduced configs, head_dim 32
+# ---------------------------------------------------------------------------
+
+
+def test_serve_cli_bootstraps_and_prefills_on_the_card(dev, tmp_path):
+    from repro_torch.launch import serve
+    kops.reset_launches()
+    serve.main(["--store", str(tmp_path), "--model", "tinyllama-1.1b",
+                "--requests", "2", "--max-new", "4"])
+    counts = {k: n for k, n in kops.launches().items() if n}
+    assert set(counts) == {"flash_attention", "decode_attention"}
+
+
+def test_train_cli_runs_on_the_card_and_matches_ref(dev, tmp_path):
+    """The trainer's defaults (reduced TinyLlama, 2 layers) on B9: launches
+    and losses against a ``ref`` run from the same seed (rtol 1e-4)."""
+    from repro_torch.launch import train
+    kops.reset_launches()
+    got = train.main(["--steps", "2", "--batch", "2", "--seq", "64",
+                      "--publish", str(tmp_path)])
+    counts = {k: n for k, n in kops.launches().items() if n}
+    assert counts == {"flash_attention_fwd": 8, "flash_attention_dq": 4,
+                      "flash_attention_dkv": 4}
+    _, want = train.train("tinyllama-1.1b", steps=2, batch=2, seq=64,
+                          device=dev, backend="ref")
+    np.testing.assert_allclose(got, want, rtol=1e-4)

@@ -1,0 +1,217 @@
+"""B8 / B9 parity: the port's full-sequence flash attention and its
+FlashAttention-2 backward against the JAX package's Pallas kernels
+(interpret mode on the CPU), on the same numpy inputs.
+
+On the CPU the wrappers run their plain versions (``kernels/ref.py``):
+B8 is the materialized attention, B9's forward returns (o, lse) and its
+backward is the plain FA-2 recompute from (q, k, v, o, lse, dO), run
+through the port's ``torch.autograd.Function``.  So these tests hold the
+port's recompute arithmetic, its GQA group sums and its masks against
+the reference's kernels; the CUDA kernels are held against the same
+plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
+
+Tolerances: fp32 outputs rtol 1e-4 / atol 1e-5 (both sides compute in
+fp32 and differ in summation order only); fp32 gradients rtol 1e-3 /
+atol 1e-4, the JAX suite's own bar for its fused backward
+(tests/test_kernels.py); bf16 rtol 3e-2 / atol 3e-2, the JAX suite's bf16
+bar (the plain version rounds p to bf16 before the PV product, the
+Pallas kernel keeps it in fp32).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels.flash_attention_bwd import _bwd as jbwd
+from repro.kernels.flash_attention_bwd import _fwd as jfwd
+from repro.kernels.flash_attention_bwd import \
+    flash_attention_trainable as jtrainable
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.models import common as tcm
+
+from conftest import assert_close
+
+OUT_TOL = dict(rtol=1e-4, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
+BF16_TOL = dict(rtol=3e-2, atol=3e-2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def qkv(b, s, h, kv, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+
+
+def t(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+# ---------------------------------------------------------------------------
+# B8: forward, at the JAX suite's shapes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s,h,kv,d", [(256, 8, 8, 64),   # MHA
+                                      (256, 8, 4, 64),   # GQA
+                                      (512, 4, 1, 64),   # MQA
+                                      (128, 2, 2, 128)])
+def test_flash_attention_head_layouts_match_pallas(s, h, kv, d):
+    q, k, v = qkv(2, s, h, kv, d)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = tops.flash_attention(t(q), t(k), t(v))
+    assert_close(got, want, **OUT_TOL)
+
+
+@pytest.mark.parametrize("window", [32, 64, 128])
+def test_flash_attention_sliding_window_matches_pallas(window):
+    q, k, v = qkv(1, 256, 4, 2, 32, seed=1)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), window=window)
+    got = tops.flash_attention(t(q), t(k), t(v), window=window)
+    assert_close(got, want, **OUT_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_dtypes_match_pallas(dtype):
+    q, k, v = qkv(1, 128, 4, 4, 64, seed=2)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jops.flash_attention(*(jnp.asarray(x, jdt) for x in (q, k, v)))
+    got = tops.flash_attention(*(t(x).to(tdt) for x in (q, k, v)))
+    assert got.dtype == tdt
+    tol = OUT_TOL if dtype == "float32" else BF16_TOL
+    assert_close(got.float(), jnp.asarray(want, jnp.float32), **tol)
+
+
+def test_flash_attention_is_causal():
+    """Perturbing the last token leaves every earlier output unchanged."""
+    q, k, v = qkv(1, 128, 2, 2, 32, seed=3)
+    base = tops.flash_attention(t(q), t(k), t(v))
+    k[:, -1] += 10.0
+    v[:, -1] += 10.0
+    pert = tops.flash_attention(t(q), t(k), t(v))
+    np.testing.assert_allclose(base[:, :-1], pert[:, :-1], rtol=1e-5)
+    assert float((base[:, -1] - pert[:, -1]).abs().max()) > 1e-3
+
+
+# ---------------------------------------------------------------------------
+# B9: the forward's lse and each backward piece against the Pallas kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("h,kv,window", [(4, 4, 0), (4, 2, 0), (4, 1, 0),
+                                         (4, 2, 32)])
+def test_flash_backward_pieces_match_pallas(h, kv, window):
+    """(o, lse) of the forward, then dq and the group-summed dk/dv from
+    the same residuals and dO, piece by piece."""
+    b, s, d = 1, 128, 32
+    q, k, v = qkv(b, s, h, kv, d, seed=4)
+    do = np.random.default_rng(5).standard_normal((b, s, h, d)) \
+        .astype(np.float32)
+    kw = dict(causal=True, window=window, block_q=64, block_k=64,
+              interpret=True)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    jo_flat, jlse = jfwd(jq, jk, jv, **kw)
+    jo = jo_flat.reshape(b, h, s, d).transpose(0, 2, 1, 3)
+    jdq, jdk, jdv = jbwd((jq, jk, jv, jo, jlse), jdo, **kw)
+
+    o, lse = tfa.flash_fwd_lse(t(q), t(k), t(v), causal=True, window=window)
+    assert_close(o, jo, **OUT_TOL)
+    assert_close(lse, np.asarray(jlse).reshape(b, h, s), **OUT_TOL)
+    # the backward pieces from the reference's own residuals
+    lse_r = t(np.asarray(jlse).reshape(b, h, s))
+    res = (t(q), t(k), t(v), t(do), lse_r, tfa.dsum_of(t(jo), t(do)))
+    assert_close(tfa.flash_dq(*res, causal=True, window=window), jdq,
+                 **GRAD_TOL)
+    dk, dv = tfa.flash_dkv(*res, causal=True, window=window)
+    assert_close(dk, jdk, **GRAD_TOL)
+    assert_close(dv, jdv, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("h,kv,window", [(4, 4, 0), (4, 2, 0), (4, 1, 0),
+                                         (4, 2, 32)])
+def test_flash_attention_trainable_grads_match_pallas(h, kv, window):
+    """The autograd Function's gradients of sum(sin(o)) against jax.grad
+    of the Pallas custom VJP (tests/test_kernels.py:419-446's shapes)."""
+    q, k, v = qkv(1, 128, h, kv, 32, seed=6)
+
+    def jloss(q, k, v):
+        return jnp.sum(jnp.sin(jtrainable(q, k, v, True, window, 64, 64,
+                                          True)))
+    jo = jtrainable(*map(jnp.asarray, (q, k, v)), True, window, 64, 64, True)
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+
+    leaves = [t(x).requires_grad_() for x in (q, k, v)]
+    o = tops.flash_attention_trainable(*leaves, True, window)
+    torch.sin(o).sum().backward()
+    assert_close(o.detach(), jo, **OUT_TOL)
+    for name, leaf, want in zip("qkv", leaves, jg):
+        assert_close(leaf.grad, want, **GRAD_TOL, err_msg=f"d{name}")
+
+
+def test_flash_attention_trainable_bf16_grads_keep_dtypes():
+    q, k, v = qkv(1, 64, 4, 2, 32, seed=7)
+    leaves = [t(x).to(torch.bfloat16).requires_grad_() for x in (q, k, v)]
+    o = tops.flash_attention_trainable(*leaves)
+    o.float().square().sum().backward()
+    assert o.dtype == torch.bfloat16
+    assert all(x.grad.dtype == torch.bfloat16 for x in leaves)
+    ref = [t(x).requires_grad_() for x in (q, k, v)]
+    tref.flash_attention_ref(*ref).square().sum().backward()
+    for leaf, want in zip(leaves, ref):
+        assert_close(leaf.grad.float(), want.grad, rtol=5e-2, atol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# the named backends of the model's full-sequence attention
+# ---------------------------------------------------------------------------
+
+
+def test_flash_attention_named_resolves_and_agrees():
+    q, k, v = (t(x) for x in qkv(2, 96, 4, 2, 32, seed=8))
+    assert tcm.resolve_flash_backend(None, "cpu") == "ref"
+    assert tcm.resolve_flash_backend("auto", "cpu") == "ref"
+    assert tcm.resolve_flash_backend(None, torch.device("cuda")) == "cuda"
+    with pytest.raises(ValueError, match="unknown flash attention backend"):
+        tcm.flash_attention_named(q, k, v, backend="pallas")
+    ref_out = tcm.flash_attention_named(q, k, v, window=40)
+    assert torch.equal(ref_out, tcm.attention_chunked(q, k, v, window=40))
+    for name in ("ref", "cuda"):
+        got = tcm.flash_attention_named(q, k, v, window=40, backend=name)
+        assert_close(got, ref_out, **OUT_TOL)
+    assert tcm.flash_backend_of(None) is None
+    assert tcm.flash_backend_of("paged_ref_q8") == "ref"
+    assert tcm.flash_backend_of("paged_cuda") == "cuda"
+
+
+def test_cpu_flash_calls_count_no_launch():
+    tops.reset_launches()
+    q, k, v = (t(x).requires_grad_() for x in qkv(1, 16, 2, 1, 64, seed=9))
+    tops.flash_attention(q, k, v)
+    tops.flash_attention_trainable(q, k, v).sum().backward()
+    assert tops.launches() == {n: 0 for n in tops.KERNELS}
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: tops.flash_attention(x, x, x),
+    lambda x: tfa.flash_fwd_lse(x, x, x),
+    lambda x: tfa.flash_dq(x, x, x, x, x[..., 0].transpose(1, 2),
+                           x[..., 0].transpose(1, 2)),
+    lambda x: tfa.flash_dkv(x, x, x, x, x[..., 0].transpose(1, 2),
+                            x[..., 0].transpose(1, 2)),
+])
+def test_flash_wrappers_never_fall_back(call):
+    """A tensor that is not on the CPU launches the kernel or raises."""
+    with pytest.raises(ValueError, match="CUDA device"):
+        call(torch.empty(1, 8, 2, 64, device="meta"))

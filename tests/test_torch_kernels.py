@@ -168,12 +168,14 @@ def test_port_imports_neither_jax_nor_repro():
 def test_importing_the_kernels_builds_nothing():
     import repro_torch.core.engine  # noqa: F401  imports every wrapper
     import repro_torch.serving.engine  # noqa: F401  and the serving path
+    import repro_torch.launch.train  # noqa: F401  and the training path
     assert _build._library is None and _build.build_seconds is None
     assert set(tops.KERNELS) == {
         "matmul", "conv2d", "pool2d", "elementwise", "softmax",
         "decode_attention",
         "decode_attention_q8", "decode_attention_paged",
-        "decode_attention_paged_q8"}
+        "decode_attention_paged_q8", "flash_attention",
+        "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"}
 
 
 def test_cpu_tensors_take_the_plain_version_without_counting():
