@@ -57,6 +57,26 @@ its seconds:
                   share; B8/B9 per launch at the train shapes against the
                   bound, the plain versions and the library (SDPA forward;
                   the efficient-attention backward for dq and dk/dv)
+  slice 4, RWKV-6 serving and the meta-selector:
+  wkv_kernels     B10 against its plain version evaluated in fp64: B 1, 4,
+                  8, T 1 to 2048, heads 40 x 64 and 8 x 32, decays in
+                  (0, 1) and w = 0; nothing written past T
+  wkv_times       B10 per launch at 1 x 300 and 8 x 2048 (40 x 64) against
+                  its bound and its plain version (no library call)
+  serve_rwkv6     RWKV-6 Finch 3B at full width through ServingEngine,
+                  batch 8, on the kernels and on ``ref``: tokens, B10 32 x
+                  full prefills, 8 ticks under sync debug mode "error",
+                  paged and int8 asked for (ring kept, state unchanged),
+                  each layer's prefill output and state within 1e-4 on
+                  the same input (end to end reported beside the model's
+                  sensitivity to a 1e-7 input change); decode tokens/s,
+                  TTFT, a decode step's device time by part
+  selector        TinyLlama-1.1B, Qwen3-0.6B and RWKV-6 3B (int8 artifact)
+                  behind MultiModelServer(max_resident=3) and the
+                  meta-selector fitted on the card: 6 rounds, every pick
+                  its label, B10 in the RWKV rounds; switch_s per round
+  (cli also runs ``launch.serve --model rwkv6-3b`` and ``launch.train
+  --arch rwkv6-3b`` against ``ref``)
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check or
@@ -741,14 +761,16 @@ def poison(torch, case):
 
 def numpy_weights(np, cfg, seed):
     """fp32 weights at the scales of common.init_params, from one numpy
-    seed (norm weights start at zero, as there)."""
+    seed (norm weights start at zero and group-norm scales at one, as
+    there)."""
     from repro_torch.models import param_template
     from repro_torch.models.common import map_template
     rng = np.random.default_rng(seed)
 
     def leaf(p):
-        if p.init == "zeros":
-            return np.zeros(p.shape, np.float32)
+        if p.init in ("zeros", "ones"):
+            return (np.zeros if p.init == "zeros" else np.ones)(p.shape,
+                                                               np.float32)
         x = rng.standard_normal(p.shape, dtype=np.float32)
         x *= np.float32(p.std)
         return x
@@ -1647,8 +1669,75 @@ def phase_cli(run, torch, np):
               f"{TRAIN_LOSS_RTOL})", len(rel) == steps
               and all(math.isfinite(x) for x in got)
               and max(rel) <= TRAIN_LOSS_RTOL, rel=rel)
+    rec["rwkv6"] = _cli_rwkv6(run, torch, np)
     emit(rec)
     return rec["serve_launches"], rec["train_launches"]
+
+
+def _cli_rwkv6(run, torch, np):
+    """The command lines on RWKV-6 (reduced: 2 layers, 8 heads of N 32):
+    ``launch.serve --model rwkv6-3b`` on an empty store runs B10 in
+    prefill and nothing else, its tokens equal a ``ref`` engine's on the
+    bootstrapped weights; ``launch.train --arch rwkv6-3b`` trains through
+    the plain chunked WKV on every backend (B10 has no backward), its
+    losses equal a ``ref`` run's."""
+    from repro_torch.checkpoint.ckpt import load_published
+    from repro_torch.core.modelstore import ModelStore
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve, train
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.serving.engine import ServingEngine
+    rec = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as store:
+        kops.reset_launches()                        # the main path starts
+        _, rec["serve_out"] = _quiet(serve.main, [
+            "--store", store, "--model", RWKV_ARCH])
+        torch.cuda.synchronize()
+        counts = kops.launches()                     # read just after
+        rec["serve_launches"] = {k: v for k, v in counts.items() if v}
+        cfg, cpu_params, _ = load_published(ModelStore(store), RWKV_ARCH)
+        run.check("cli", f"launch.serve --model {RWKV_ARCH} on an empty "
+                  "store: B10 in prefill, nothing else",
+                  set(rec["serve_launches"]) == {"rwkv6_chunked"}
+                  and rec["serve_launches"]["rwkv6_chunked"]
+                  % cfg.num_layers == 0, launches=rec["serve_launches"])
+        params = tree_map(lambda p: p.to(DEVICE), cpu_params)
+        outs = {}
+        for backend in (None, "ref"):
+            eng = ServingEngine(cfg, params, max_batch=4, cache_len=128,
+                                attn_backend=backend, device=DEVICE)
+            reqs = serve_requests(np, cfg, SEED + 86, n=4, max_new=16,
+                                  lo=5, hi=100, shared_prefix=0)
+            eng.generate_batch(reqs)
+            outs[backend or "cuda"] = [r.output for r in reqs]
+        run.check("cli", f"the bootstrapped {cfg.name} (N "
+                  f"{cfg.rwkv_head_dim}): greedy tokens on cuda equal ref",
+                  outs["cuda"] == outs["ref"]
+                  and all(len(o) == 16 for o in outs["cuda"]))
+        rec["bootstrapped"] = {"num_layers": cfg.num_layers,
+                               "head_size": cfg.rwkv_head_dim,
+                               "tokens_equal_ref": outs["cuda"] == outs["ref"]}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as store:
+        argv = ["--arch", RWKV_ARCH, "--steps", str(CLI_TRAIN_STEPS),
+                "--publish", store]
+        kops.reset_launches()                        # the main path starts
+        got, rec["train_out"] = _quiet(train.main, argv)
+        torch.cuda.synchronize()
+        rec["train_launches"] = {k: v for k, v in kops.launches().items()
+                                 if v}                # read just after
+    run.check("cli", f"launch.train --arch {RWKV_ARCH}: no kernel launch "
+              "(the WKV is differentiated through the plain scan)",
+              rec["train_launches"] == {}, launches=rec["train_launches"])
+    (_, want), _ = _quiet(lambda: train.train(
+        RWKV_ARCH, steps=CLI_TRAIN_STEPS, batch=8, seq=128, device=DEVICE,
+        backend="ref"))
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    rec["train_losses"] = {"cuda": got, "ref": want, "rel": rel}
+    run.check("cli", f"launch.train --arch {RWKV_ARCH} losses equal a ref "
+              f"run's (rtol {TRAIN_LOSS_RTOL})", len(rel) == CLI_TRAIN_STEPS
+              and all(math.isfinite(x) for x in got)
+              and max(rel) <= TRAIN_LOSS_RTOL, rel=rel)
+    return rec
 
 
 def flash_bound(kernel, b, s, h, kvh, d, elem=4):
@@ -1864,13 +1953,498 @@ def phase_train_times(run, torch, np, tiny_np, card):
     return kernels
 
 
-def kernel_rows(totals, b2, dec, flash, nin_launches, serve_launches,
-                train_launches, max_err):
+# ---------------------------------------------------------------------------
+# slice 4: RWKV-6 Finch 3B serving on B10, and the meta-selector
+# ---------------------------------------------------------------------------
+
+WKV_SOURCE = ("src/repro_torch/kernels/csrc/rwkv6_chunk.cu",
+              "src/repro/kernels/rwkv6_chunk.py:73")
+WKV_BATCHES = (1, 4, 8)
+WKV_SEQS = (1, 5, 16, 33, 300, 2048)
+WKV_HEADS = ((40, 64), (8, 32))      # RWKV-6 3B's (H, N), the reduced one's
+# rtol, atol against the plain version evaluated in fp64 on the same fp32
+# inputs: the kernel computes in fp64 and rounds once, while the fp32 plain
+# version is itself ~1e-5 off near cancellations and ~1e-3 off where w = 0
+# puts |cum| near 1000 (fp32 spacing ~6e-5 in the exponents)
+WKV_TOL = (1e-4, 1e-5)
+# B10 timed at the serving prefill's shape and at a long batched one
+WKV_TIMES = ((1, 300, 40, 64), (8, 2048, 40, 64))
+RWKV_ARCH = "rwkv6-3b"
+RWKV_TOL = 1e-4             # a layer's prefill output and state, cuda vs ref
+SELECTOR_MODELS = ("tinyllama-1.1b", "qwen3-0.6b", RWKV_ARCH)
+
+
+def wkv_inputs(torch, gen, b, t, h, n, w_zero=False):
+    """r, k, v ~ N(0, 1) drawn separately (r != k), decays uniform in
+    (0, 1) with every third token's exactly 0 when ``w_zero``, and the
+    bonus u, on the card."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE)
+    r, k, v = randn(b, t, h, n), randn(b, t, h, n), randn(b, t, h, n)
+    w = torch.rand(b, t, h, n, generator=gen, device=DEVICE)
+    if w_zero:
+        w[:, ::3] = 0.0
+    return [r, k, v, w, randn(h, n)]
+
+
+def wkv_flops(b, t, h, n, c=16):
+    """Operations of one B10 call, per (batch, head, chunk) of c tokens:
+    the c(c-1)/2 pairs j < i (r*k*exp(.) summed over N: 4N, the exp
+    counted as one), the c diagonal bonus terms (3N), att.v over the
+    c(c+1)/2 pairs j <= i (2N), the decayed r and k (2 * 2cN), the
+    inter-chunk product (r decayed).S (2cN^2) and the state update
+    (2cN^2 + N^2)."""
+    pairs, tri = c * (c - 1) // 2, c * (c + 1) // 2
+    per_chunk = (4 * n * pairs + 3 * n * c + 2 * n * tri + 4 * c * n
+                 + 4 * c * n * n + n * n)
+    return b * h * (-(-t // c)) * per_chunk
+
+
+def wkv_bytes(b, t, h, n, elem=4):
+    """Bytes B10 must move: r, k, v, w and u read once, out and the fp32
+    state written once."""
+    return elem * (5 * b * t * h * n + h * n) + 4 * b * h * n * n
+
+
+def phase_wkv_kernels(run, torch):
+    """B10 against its plain version evaluated in fp64 on the same inputs:
+    B 1, 4 and 8, T 1 to 2048, RWKV-6 3B's heads (40 of 64) and the
+    reduced config's (8 of 32), decays in (0, 1), and at B 4 also with
+    w = 0 entries.  ``out`` is the head of a NaN-filled buffer and the
+    state NaN-filled: every row < T and every state entry must be
+    written, nothing past them.  The fp32 plain version's own distance
+    from the fp64 one is reported beside the kernel's."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_chunk as rw
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 80)
+    rtol, atol = WKV_TOL
+    s = {"checks": 0, "failed": 0, "max_abs_err": 0.0,
+         "fp32_plain_max_abs_err": 0.0, "rtol": rtol, "atol": atol,
+         "reference": "the plain version (wkv_chunked) in fp64"}
+    for h, n in WKV_HEADS:
+        for b in WKV_BATCHES:
+            for t in WKV_SEQS:
+                for w_zero in ((False, True) if b == 4 else (False,)):
+                    x = wkv_inputs(torch, gen, b, t, h, n, w_zero)
+                    size = b * t * h * n
+                    buf = torch.full((size + 4096,), math.nan, device=DEVICE)
+                    out = buf[:size].view(b, t, h, n)
+                    state = torch.full((b, h, n, n), math.nan, device=DEVICE)
+                    rw.rwkv6_chunked_into(*x, out, state)
+                    want = ref.rwkv6_chunked_ref(*(y.double() for y in x))
+                    plain = ref.rwkv6_chunked_ref(*x)
+                    torch.cuda.synchronize()
+                    case = f"B={b} T={t} H={h} N={n} w0={w_zero}"
+                    for what, got, w64, w32 in zip(("out", "state"),
+                                                   (out, state), want, plain):
+                        err, bad = compare(torch, got, w64, rtol, atol)
+                        s["checks"] += 1
+                        s["max_abs_err"] = max(s["max_abs_err"], err)
+                        s["fp32_plain_max_abs_err"] = max(
+                            s["fp32_plain_max_abs_err"],
+                            float((w32.double() - w64).abs().max()))
+                        if not run.check("wkv_kernels", f"{case} {what} "
+                                         f"(rtol {rtol}, atol {atol})",
+                                         bad == 0, max_abs_err=err,
+                                         mismatches=bad):
+                            s["failed"] += 1
+                    s["checks"] += 1
+                    if not run.check("wkv_kernels", f"{case}: nothing "
+                                     "written past T",
+                                     bool(torch.isnan(buf[size:]).all())):
+                        s["failed"] += 1
+                    del x, buf, out, state, want, plain
+    run.max_err["rwkv6_chunked"] = s["max_abs_err"]
+    emit({"phase": "wkv_kernels", "result": s})
+
+
+def phase_wkv_times(run, torch, card):
+    """B10 per launch (CUDA events, median of 7 x 20) at the serving
+    prefill's shape and at 8 x 2048, against its bound and its plain
+    version.  No single PyTorch call computes the WKV recurrence, so
+    there is no library time."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 81)
+    out = {}
+    for b, t, h, n in WKV_TIMES:
+        x = wkv_inputs(torch, gen, b, t, h, n)
+        ms = time_ms(torch, lambda: kops.rwkv6_chunked(*x))
+        plain_ms = time_ms(torch, lambda: ref.rwkv6_chunked_ref(*x), iters=2,
+                           reps=3)
+        b_s = wkv_bytes(b, t, h, n) / PEAK_HBM_BYTES
+        o_s = wkv_flops(b, t, h, n) / PEAK_FP32_FLOPS
+        rec = {"shape": [b, t, h, n], "ms": ms, "plain_ms": plain_ms,
+               "bytes": wkv_bytes(b, t, h, n), "flops": wkv_flops(b, t, h, n),
+               "bound_ms": 1e3 * max(b_s, o_s),
+               "bound_by": "bytes" if b_s >= o_s else "operations",
+               "library_ms": None, "ctas": b * h}
+        rec["ms_over_bound"] = ms / rec["bound_ms"]
+        out[f"{b}x{t}x{h}x{n}"] = rec
+        del x
+    emit({"phase": "wkv_times", "card": card["nvidia_smi"], "times": out})
+    return out
+
+
+def _kernel_time_by_part(prof, ticks, wall_us):
+    """Device time per step by part from a profile whose WKV steps ran
+    inside ``record_function("wkv_step")`` ranges: the kernels launched
+    in those ranges are the WKV step, the other cuBLAS kernels the
+    matmuls, the rest other work."""
+    events = prof.events()
+    total_us = gemm_us = 0.0
+    kernels = 0
+    for e in events:
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") \
+                or e.name == "wkv_step":
+            continue
+        kernels += 1
+        total_us += e.device_time
+        if any(key in e.name for key in ("gemm", "Gemm", "gemv")):
+            gemm_us += e.device_time
+
+    def under(e):
+        yield from e.kernels
+        for c in e.cpu_children:
+            yield from under(c)
+    wkv = [k for e in events if e.name == "wkv_step"
+           and not str(getattr(e, "device_type", "")).endswith("CUDA")
+           for k in under(e)]
+    wkv_us = sum(k.duration for k in wkv)
+    wkv_gemm_us = sum(k.duration for k in wkv
+                      if any(key in k.name for key in ("gemm", "Gemm", "gemv")))
+    parts = {"matmul (cuBLAS)": (gemm_us - wkv_gemm_us) / ticks,
+             "WKV step (wkv_step: outer product, einsum, decay)":
+                 wkv_us / ticks,
+             "other (norms, ddlerp, group norm, sampling)":
+                 (total_us - gemm_us - wkv_us + wkv_gemm_us) / ticks}
+    return {"ticks": ticks, "wall_ms_per_step": wall_us / ticks / 1e3,
+            "device_ms_per_step": total_us / ticks / 1e3,
+            "device_idle_share": 1 - total_us / wall_us,
+            "device_kernels_per_step": kernels / ticks,
+            "wkv_step_attributed": bool(wkv),
+            "device_ms_by_part": {k: v / 1e3 for k, v in parts.items()}}
+
+
+def _profile_rwkv_ticks(torch, sched, ticks):
+    """``ticks`` decode ticks with every lane live under torch.profiler,
+    each layer's WKV step in a ``wkv_step`` range."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import rwkv6 as rw6
+    step = rw6.wkv_step
+
+    def traced(*args):
+        with record_function("wkv_step"):
+            return step(*args)
+    rw6.wkv_step = traced
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                sched.tick()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+    finally:
+        rw6.wkv_step = step
+    return _kernel_time_by_part(prof, ticks, wall_us)
+
+
+def _prefill_layerwise(torch, cfg, params, toks):
+    """Each layer's time mix on the ``ref`` trajectory's input, through
+    B10 and through the plain version: (what, max abs error, count out of
+    RWKV_TOL) of its output and of its wkv state, per layer."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import rwkv6 as rw6
+    out = []
+    with torch.inference_mode():
+        x = params["embed"][toks]
+        for l in range(cfg.num_layers):
+            lp = rw6._layer(params, l)
+            xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            a, _, s = rw6.time_mix(cfg, lp, xn)
+            a_ref, _, s_ref = rw6.time_mix(cfg, lp, xn, backend="ref")
+            out.append(("time_mix_out",
+                        *compare(torch, a, a_ref, RWKV_TOL, RWKV_TOL)))
+            out.append(("wkv", *compare(torch, s, s_ref, RWKV_TOL, RWKV_TOL)))
+            x = x + a_ref
+            c, _ = rw6.channel_mix(cfg, lp, cm.rms_norm(x, lp["ln2"],
+                                                        cfg.norm_eps))
+            x = x + c
+    return out
+
+
+def _prefill_end_to_end(torch, cfg, params, toks):
+    """Relative distance of the full prefill's logits and wkv state, cuda
+    against ref, beside the distance of two ``ref`` prefills whose
+    embeddings differ by a relative 1e-7 (fp32 rounding): the model's own
+    sensitivity, which a kernel cannot undercut."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import rwkv6 as rw6
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    def run_layers(x, backend):
+        states = []
+        for l in range(cfg.num_layers):
+            lp = rw6._layer(params, l)
+            a, _, s = rw6.time_mix(cfg, lp, cm.rms_norm(
+                x, lp["ln1"], cfg.norm_eps), backend=backend)
+            x = x + a
+            c, _ = rw6.channel_mix(cfg, lp, cm.rms_norm(
+                x, lp["ln2"], cfg.norm_eps))
+            x = x + c
+            states.append(s)
+        return rw6._logits(cfg, params, x), torch.stack(states)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 94)
+    with torch.inference_mode():
+        x0 = params["embed"][toks]
+        noisy = x0 * (1 + 1e-7 * torch.randn(x0.shape, generator=gen,
+                                              device=DEVICE))
+        lg, st = run_layers(x0, None)
+        lg_ref, st_ref = run_layers(x0, "ref")
+        lg_noisy, st_noisy = run_layers(noisy, "ref")
+    return {"logits_rel_cuda_vs_ref": rel(lg, lg_ref),
+            "logits_rel_ref_1e-7_noise": rel(lg_noisy, lg_ref),
+            "wkv_rel_cuda_vs_ref": rel(st, st_ref),
+            "wkv_rel_ref_1e-7_noise": rel(st_noisy, st_ref),
+            "logits_max_abs_cuda_vs_ref": float((lg - lg_ref).abs().max())}
+
+
+def phase_serve_rwkv6(run, torch, np, card):
+    """RWKV-6 Finch 3B at full width (32 layers, d 2560, 40 heads of 64,
+    3.10 B parameters, fp32) through ServingEngine at batch 8: the 16
+    greedy requests of serve_requests on the kernels (B10 in prefill)
+    and on ``ref``, tokens equal; B10 launches 32 x full prefills and
+    none on ``ref``; 8 ticks under sync debug mode "error"; paged asked
+    for, ring kept; int8 asked for, state unchanged.  The prefill of 4
+    prompts: every layer's time-mix output and wkv state on both
+    backends from the same input within 1e-4, and the end-to-end logits
+    and state reported beside the model's own sensitivity (at full
+    depth, a relative 1e-7 change of the embeddings moves the logits by
+    1e-3 to 1e-1, so no fp32 evaluation holds an end-to-end 1e-4).  Then
+    a warm run's decode tokens/s, TTFT and prefill seconds, and a decode
+    step's device time by part."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import rwkv6 as rw6
+    from repro_torch.serving.engine import ServingEngine
+    set_fp32_exact(torch)
+    cfg = get_config(RWKV_ARCH)
+    t0 = time.perf_counter()
+    np_params = numpy_weights(np, cfg, SEED + 3)
+    t_make = time.perf_counter() - t0
+    params = params_from_numpy(np_params, DEVICE, cfg=cfg)   # leaf by leaf
+    del np_params
+    torch.cuda.synchronize()
+    emit({"phase": "serve_rwkv6", "model": cfg.name,
+          "params": cfg.param_count(), "weights_make_s": t_make,
+          "weights_to_device_s": time.perf_counter() - t0 - t_make})
+    L = cfg.num_layers
+    outs, recs, caches = {}, {}, {}
+    kops.reset_launches()                            # the main path starts
+    for backend in (None, "ref"):
+        window = sync_window(torch) if backend is None else None
+        eng = ServingEngine(cfg, params, max_batch=8,
+                            cache_len=SERVE_CACHE_LEN, attn_backend=backend,
+                            faults=window, device=DEVICE)
+        reqs = serve_requests(np, cfg, SEED + 90)
+        before = kops.launches()
+        t1 = time.perf_counter()
+        try:
+            stats = eng.generate_batch(reqs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        after = kops.launches()
+        sched = eng.scheduler()
+        tag = backend or "cuda"
+        launched = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        want = {"rwkv6_chunked": L * len(reqs)} if backend is None else {}
+        run.check("serve_rwkv6", f"{tag}: B10 launches = {L} x full "
+                  "prefills, no other kernel", launched == want,
+                  launches=launched)
+        run.check("serve_rwkv6", f"{tag}: host_syncs == retired requests",
+                  sched.host_syncs == len(reqs), host_syncs=sched.host_syncs)
+        run.check("serve_rwkv6", f"{tag}: every request generated "
+                  f"{SERVE_MAX_NEW} tokens", all(
+                      len(r.output) == SERVE_MAX_NEW and r.done
+                      and all(0 <= x < cfg.vocab_size for x in r.output)
+                      for r in reqs))
+        rec = {"phase": "serve_rwkv6", "config": tag, "wall_s": wall,
+               "launches": launched, "decode_steps": sched.decode_steps,
+               "tokens": stats.tokens_out, "prefill_s": stats.prefill_s,
+               "decode_s": stats.decode_s,
+               "decode_tokens_per_s": stats.tok_per_s}
+        if backend is None:
+            rec["sync_window"] = {"start_tick": window.start,
+                                  "ok": window.done}
+            run.check("serve_rwkv6", "8 ticks under sync debug mode 'error' "
+                      "with no retirement", window.done, start=window.start)
+        emit(rec)
+        recs[tag] = rec
+        outs[tag] = [r.output for r in reqs]
+        caches[tag] = sched.state["cache"]
+    counts = kops.launches()                         # read just after
+    match = sum(a == b for a, b in zip(outs["cuda"], outs["ref"]))
+    run.check("serve_rwkv6", "greedy tokens on cuda equal ref",
+              outs["cuda"] == outs["ref"], requests_equal=match)
+    # a paged layout is asked for and the ring is kept; int8 leaves the
+    # fp32 state as it is: the same tokens and the same final state
+    for name, opts in (("paged", {"kv_layout": "paged", "page_size": 16}),
+                       ("int8", {"kv_dtype": "int8"})):
+        eng = ServingEngine(cfg, params, max_batch=8,
+                            cache_len=SERVE_CACHE_LEN, device=DEVICE, **opts)
+        reqs = serve_requests(np, cfg, SEED + 90)
+        eng.generate_batch(reqs)
+        sched = eng.scheduler()
+        cache = sched.state["cache"]
+        same = all(torch.equal(cache[k], caches["cuda"][k]) for k in cache)
+        ok = (sched.kv_layout == "ring"
+              and [r.output for r in reqs] == outs["cuda"] and same
+              and all(c.dtype == torch.float32 for c in cache.values()))
+        run.check("serve_rwkv6", f"{name} asked for: ring layout, fp32 state, "
+                  "tokens and final state equal the ring fp32 run's", ok,
+                  layout=sched.kv_layout, state_equal=same)
+        emit({"phase": "serve_rwkv6", "config": name,
+              "layout": sched.kv_layout, "tokens_equal": ok,
+              "state_equal": same})
+    del caches
+    # prefill of 4 prompts, cuda against ref: layer by layer on the same
+    # input, then end to end beside the model's own sensitivity
+    worst = {"time_mix_out": 0.0, "wkv": 0.0}
+    e2e = []
+    for r in serve_requests(np, cfg, SEED + 90)[:4]:
+        toks = torch.tensor([r.prompt], device=DEVICE)
+        for key, err, bad in _prefill_layerwise(torch, cfg, params, toks):
+            worst[key] = max(worst[key], err)
+            run.check("serve_rwkv6", f"prefill {key}, prompt of "
+                      f"{len(r.prompt)}, every layer on the same input: "
+                      f"cuda vs ref (rtol/atol {RWKV_TOL})", bad == 0,
+                      max_abs_err=err, mismatches=bad)
+        e2e.append({"prompt": len(r.prompt),
+                    **_prefill_end_to_end(torch, cfg, params, toks)})
+    emit({"phase": "serve_rwkv6", "prefill_layerwise_max_abs": worst,
+          "rtol": RWKV_TOL, "atol": RWKV_TOL, "prefill_end_to_end": e2e})
+    # a warm run: decode tokens/s and TTFT from the scheduler's counters;
+    # then a decode step with 8 live lanes by part
+    eng = ServingEngine(cfg, params, max_batch=8, cache_len=SERVE_CACHE_LEN,
+                        device=DEVICE)
+    eng.generate_batch(serve_requests(np, cfg, SEED + 91, n=8, hi=50))
+    sched = eng.scheduler()
+    sched.metrics.reset()
+    stats = eng.generate_batch(serve_requests(np, cfg, SEED + 92))
+    ttft = sched.metrics.histogram("req.ttft_s").snapshot()
+    for r in serve_requests(np, cfg, SEED + 93, n=8):
+        sched.submit(r)
+    sched.tick()                                     # admits all 8
+    profile = _profile_rwkv_ticks(torch, sched, 3)
+    sched.run()
+    emit({"phase": "serve_rwkv6", "card": card["nvidia_smi"], "warm": True,
+          "requests": SERVE_REQUESTS, "max_new": SERVE_MAX_NEW,
+          "decode_tokens_per_s": stats.tok_per_s, "decode_s": stats.decode_s,
+          "prefill_s": stats.prefill_s, "ref_prefill_s": recs["ref"]["prefill_s"],
+          "cuda_prefill_s": recs["cuda"]["prefill_s"], "ttft_s": ttft,
+          "step_profile": profile})
+    return params, {"rwkv6_chunked": counts["rwkv6_chunked"]}
+
+
+def phase_selector(run, torch, np, tiny_np, rwkv_params, store_root):
+    """examples/serve_batched.py at full width: TinyLlama-1.1B and
+    Qwen3-0.6B (fp32) and the int8 artifact of RWKV-6 3B published into
+    one store; the meta-selector fitted on the card (location i prefers
+    model i); MultiModelServer(max_resident=3, selector=...) serves 6
+    rounds of 3 requests, each context picking its model; every pick is
+    its label, and the RWKV rounds launch B10 (32 x 3 prefills)."""
+    from repro_torch.checkpoint.ckpt import publish_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core.modelstore import ModelStore
+    from repro_torch.core.selector import ContextSpec, MetaSelector, featurize
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving.engine import MultiModelServer, Request
+    store = ModelStore(store_root)
+    cfgs = {n: get_config(n) for n in SELECTOR_MODELS}
+    t0 = time.perf_counter()
+    publish_checkpoint(store, "tinyllama-1.1b", cfgs["tinyllama-1.1b"],
+                       tiny_np)
+    publish_checkpoint(store, "qwen3-0.6b", cfgs["qwen3-0.6b"],
+                       numpy_weights(np, cfgs["qwen3-0.6b"], SEED + 1))
+    rec8 = publish_checkpoint(store, RWKV_ARCH, cfgs[RWKV_ARCH], rwkv_params,
+                              int8=True)            # quantized on the card
+    t_pub = time.perf_counter() - t0
+    spec = ContextSpec(num_locations=4, history_classes=4)
+    feats, labels = [], []
+    for i in range(300):
+        feats.append(featurize(spec, hour=i % 24, weekday=i % 7,
+                               location=i % 3, history=np.eye(4)[i % 4]))
+        labels.append(i % 3)
+    feats, labels = torch.stack(feats), torch.tensor(labels)
+    sel = MetaSelector(spec, list(SELECTOR_MODELS), device=DEVICE,
+                       generator=torch.Generator(DEVICE).manual_seed(SEED))
+    t1 = time.perf_counter()
+    loss = sel.fit(feats, labels)
+    fit_s = time.perf_counter() - t1
+    acc = sel.accuracy(feats, labels)
+    run.check("selector", "the selector fits its contexts (accuracy 1.0)",
+              acc == 1.0, accuracy=acc, loss=loss)
+    server = MultiModelServer(store, max_resident=3, selector=sel,
+                              max_batch=4, cache_len=96, device=DEVICE)
+    rng = np.random.default_rng(SEED + 95)
+    rounds = []
+    for i in range(6):
+        loc = i % 3
+        ctx = featurize(spec, hour=9 + i, weekday=2, location=loc,
+                        history=np.eye(4)[0])
+        reqs = [Request(uid=3 * i + j, prompt=rng.integers(1, 250, 12)
+                        .tolist(), max_new_tokens=8) for j in range(3)]
+        kops.reset_launches()
+        t1 = time.perf_counter()
+        stats = server.serve(reqs, context_feats=ctx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        model, switch_s = server.switch_log[-1]
+        launched = {k: v for k, v in kops.launches().items() if v}
+        rounds.append({"round": i, "location": loc, "model": model,
+                       "switch_s": switch_s, "wall_s": wall,
+                       "tokens": stats.tokens_out,
+                       "decode_tok_per_s": stats.tok_per_s,
+                       "launches": launched})
+        run.check("selector", f"round {i}: location {loc} picks "
+                  f"{SELECTOR_MODELS[loc]}", model == SELECTOR_MODELS[loc],
+                  picked=model)
+        run.check("selector", f"round {i}: 3 x 8 tokens",
+                  stats.tokens_out == 24)
+        if model == RWKV_ARCH:
+            run.check("selector", f"round {i}: B10 launches = 32 x 3 "
+                      "prefills", launched == {"rwkv6_chunked": 32 * 3},
+                      launches=launched)
+        else:
+            run.check("selector", f"round {i}: B8 in prefill, B6 in decode",
+                      set(launched) == {"flash_attention",
+                                        "decode_attention"},
+                      launches=launched)
+    emit({"phase": "selector", "publish_s": t_pub, "fit_s": fit_s,
+          "fit_loss": loss, "accuracy": acc,
+          "rwkv_int8_artifact_bytes": rec8.manifest["weights_bytes"],
+          "rounds": rounds, "hits": server.cache.hits,
+          "misses": server.cache.misses})
+    run.check("selector", "resident cache: 3 misses, then 3 hits",
+              (server.cache.hits, server.cache.misses) == (3, 3))
+
+
+def kernel_rows(totals, b2, dec, flash, wkv, nin_launches, serve_launches,
+                train_launches, rwkv_launches, max_err):
     """The ``{"kernels": [...]}`` entries: slice 1's four kernels and B2
     timed over one NIN forward at batch 8; B6 and B7 per launch at the
     serving path's batch-8 shapes; B8 and B9's three kernels per launch
     at the train shapes, B8's launches from the serve path's prefills and
-    B9's from the train path."""
+    B9's from the train path; B10 per launch at the RWKV-6 prefill's
+    shape, its launches from the RWKV-6 serve path."""
     rows = []
     for name, (source, replaces) in SOURCES.items():
         t = (totals or {}).get(name, {})
@@ -1929,6 +2503,19 @@ def kernel_rows(totals, b2, dec, flash, nin_launches, serve_launches,
             "library_fwd_bwd_ms": t.get("library_fwd_bwd_ms"),
             "ms_per": "one launch (one layer), TinyLlama heads, batch 4 x "
                       "2048, fp32, causal"})
+    t = (wkv or {}).get("1x300x40x64", {})
+    rows.append({
+        "name": "rwkv6_chunked", "route": "cuda", "source": WKV_SOURCE[0],
+        "replaces": WKV_SOURCE[1],
+        "launches": (rwkv_launches or {}).get("rwkv6_chunked", 0),
+        "launches_on": "serve_rwkv6 (prefill)",
+        "max_abs_err": max_err.get("rwkv6_chunked"),
+        "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
+        "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes the WKV",
+        "ms_per": "one launch (one layer), RWKV-6 3B prefill, 1 x 300 x 40 "
+                  "x 64, fp32"})
     return rows
 
 
@@ -2012,8 +2599,23 @@ def main() -> int:
                   torch, np, tiny_np, store_root)
     flash = timed("train_times", phase_train_times, run, torch, np, tiny_np,
                   card)
-    kernels = kernel_rows(totals, b2, dec, flash, nin_launches,
-                          serve_launches, train_launches, run.max_err)
+    # slice 4: RWKV-6 Finch 3B served on B10, then the three families
+    # behind the meta-selector
+    torch.cuda.empty_cache()
+    timed("wkv_kernels", phase_wkv_kernels, run, torch)
+    wkv = timed("wkv_times", phase_wkv_times, run, torch, card)
+    served_rwkv = timed("serve_rwkv6", phase_serve_rwkv6, run, torch, np,
+                        card)
+    rwkv_launches = None
+    if served_rwkv is not None:
+        rwkv_params, rwkv_launches = served_rwkv
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as store_root:
+            timed("selector", phase_selector, run, torch, np, tiny_np,
+                  rwkv_params, store_root)
+        del rwkv_params
+    kernels = kernel_rows(totals, b2, dec, flash, wkv, nin_launches,
+                          serve_launches, train_launches, rwkv_launches,
+                          run.max_err)
     for k in kernels:
         run.check("summary", f"{k['name']} launched on the main path",
                   k["launches"] > 0)

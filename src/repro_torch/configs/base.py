@@ -4,8 +4,9 @@ The port keeps its own copy of the config schema so that it imports
 nothing of the JAX package.  The fields are the JAX package's, one for
 one, so a spec that either package publishes (``dataclasses.asdict`` of
 the config) loads in the other.  Registered here: the two CNN configs of
-the paper's inference path and the two dense transformers of the serving
-path.  ``reduced()`` derives the CPU test variant from the same config.
+the paper's inference path, the two dense transformers of the serving
+path and RWKV-6 Finch 3B.  ``reduced()`` derives the CPU test variant
+from the same config.
 """
 from __future__ import annotations
 
@@ -99,7 +100,7 @@ def list_configs():
 def _ensure_loaded():
     # import every config module so its @register runs
     from repro_torch.configs import (  # noqa: F401
-        lenet_mnist, nin_cifar10, qwen3_0_6b, tinyllama_1_1b)
+        lenet_mnist, nin_cifar10, qwen3_0_6b, rwkv6_3b, tinyllama_1_1b)
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:

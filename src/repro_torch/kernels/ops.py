@@ -16,6 +16,7 @@ from repro_torch.kernels import elementwise as _ew
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import pool as _pool
+from repro_torch.kernels import rwkv6_chunk as _rwkv
 from repro_torch.kernels import softmax as _sm
 from repro_torch.kernels._build import CompositeKernel, CudaKernel
 from repro_torch.kernels.conv2d import conv2d
@@ -27,12 +28,14 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention_bwd import flash_attention_trainable
 from repro_torch.kernels.matmul import matmul
 from repro_torch.kernels.pool import pool2d
+from repro_torch.kernels.rwkv6_chunk import rwkv6_chunked
 from repro_torch.kernels.softmax import softmax
 
 __all__ = ["KERNELS", "conv2d", "decode_attention", "decode_attention_paged",
            "decode_attention_paged_q8", "decode_attention_q8", "elementwise",
            "flash_attention", "flash_attention_trainable", "launches",
-           "matmul", "pool2d", "relu", "reset_launches", "softmax"]
+           "matmul", "pool2d", "relu", "reset_launches", "rwkv6_chunked",
+           "softmax"]
 
 KERNELS: Dict[str, Union[CudaKernel, CompositeKernel]] = {
     "matmul": _mm.KERNEL,
@@ -48,6 +51,7 @@ KERNELS: Dict[str, Union[CudaKernel, CompositeKernel]] = {
     "flash_attention_fwd": _fa.FWD_LSE,      # B9: forward with lse
     "flash_attention_dq": _fa.DQ,            # B9: dq
     "flash_attention_dkv": _fa.DKV,          # B9: dk/dv
+    "rwkv6_chunked": _rwkv.KERNEL,           # B10
 }
 
 

@@ -259,3 +259,21 @@ def flash_dkv_ref(q, k, v, do, lse, dsum, *, causal=True, window=0):
     dk = dk.reshape(b, sk, kvh, g, d).sum(3)
     dv = dv.reshape(b, sk, kvh, g, d).sum(3)
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# B10: the chunked RWKV-6 WKV
+# ---------------------------------------------------------------------------
+
+
+def rwkv6_chunked_ref(r, k, v, w, u):
+    """B10's plain version: the model's chunked scan (16-token chunks,
+    exponents clipped to [-60, 0]) from a zero state; (out, state)."""
+    from repro_torch.models.rwkv6 import wkv_chunked
+    return wkv_chunked(r, k, v, w, u)
+
+
+def rwkv6_ref(r, k, v, w, u, s0=None):
+    """Token-by-token RWKV6 recurrence (B, T, H, N): the oracle of both."""
+    from repro_torch.models.rwkv6 import wkv_scan
+    return wkv_scan(r, k, v, w, u, s0=s0)

@@ -1,8 +1,9 @@
 """Model registry: family -> module, plus uniform entry points.
 
 The port of ``repro.models``.  Ported families: the dense transformer
-(``dense`` and ``vlm``: training through ``loss_fn`` and serving) and the
-paper's CNNs (``cnn``).
+(``dense`` and ``vlm``: training through ``loss_fn`` and serving), RWKV-6
+(``ssm``: serving, and training through ``loss_fn`` on its plain chunked
+WKV) and the paper's CNNs (``cnn``).
 The others raise ``NotImplementedError`` naming the ROADMAP item that
 ports them.
 """
@@ -14,7 +15,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common
 
 # family -> the ROADMAP item (queue A) that ports it
-_NOT_PORTED = {"moe": "A12 (models/moe.py)", "ssm": "A12 (models/rwkv6.py)",
+_NOT_PORTED = {"moe": "A12 (models/moe.py)",
                "hybrid": "A12 (models/rglru.py)",
                "audio": "A12 (models/encdec.py)"}
 
@@ -24,6 +25,9 @@ def get_module(cfg: ArchConfig):
     if fam in ("dense", "vlm"):
         from repro_torch.models import transformer
         return transformer
+    if fam == "ssm":
+        from repro_torch.models import rwkv6
+        return rwkv6
     if fam == "cnn":
         from repro_torch.models import cnn
         return cnn

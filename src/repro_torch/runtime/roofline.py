@@ -63,8 +63,9 @@ class HWSpec:
     hbm_bw: float
 
     @classmethod
-    def detect(cls, device="cpu", dtype=torch.float32) -> "HWSpec":
-        """The row for ``device``: the CPU row on the CPU, the H100 row on
+    def detect(cls, device, dtype=torch.float32) -> "HWSpec":
+        """The row for ``device`` (no default: a CUDA caller must not get
+        the CPU row by omission): the CPU row on the CPU, the H100 row on
         an H100 80GB HBM3; any other card raises (pass ``hw=``).  The
         flops peak is the one of ``dtype``, the type the products run
         in."""
@@ -99,11 +100,19 @@ class RooflineAccountant:
     def __init__(self, cfg, cache: Dict[str, Any], params=None, *,
                  batch: int, paged: bool = False, page_size: int = 0,
                  pages_per_lane: int = 0, block: int = 1,
-                 hw: Optional[HWSpec] = None, device="cpu"):
+                 hw: Optional[HWSpec] = None):
         self.cfg = cfg
         leaves = list(_leaves(params)) if params is not None else []
         dtype = leaves[0].dtype if leaves else torch.float32
-        self.hw = hw or HWSpec.detect(device, dtype)
+        if hw is None:
+            # the peaks of the device the cache lives on
+            devices = {t.device for t in _leaves(dict(cache))}
+            if len(devices) != 1:
+                raise ValueError("RooflineAccountant: the cache leaves must "
+                                 "lie on one device (or pass hw=), got "
+                                 f"{sorted(map(str, devices))}")
+            hw = HWSpec.detect(devices.pop(), dtype)
+        self.hw = hw
         self._spec = REGISTRY.op("decode_attention")
         heads = max(1, cfg.num_heads)
         kv = max(1, cfg.num_kv_heads)

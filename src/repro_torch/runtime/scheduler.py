@@ -252,8 +252,7 @@ class ContinuousBatchingScheduler:
         self.roofline = RooflineAccountant(
             cfg, self.state["cache"], params, batch=max_slots,
             paged=self._paged, page_size=page_size,
-            pages_per_lane=getattr(self, "pages_per_lane", 0), hw=hw,
-            device=self.device)
+            pages_per_lane=getattr(self, "pages_per_lane", 0), hw=hw)
         # achieved-vs-roofline window anchor: (bytes, flops, tokens,
         # decode_s) at the last utilization record
         self._rf_anchor = (0.0, 0.0, 0, 0.0)

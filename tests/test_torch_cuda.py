@@ -323,3 +323,113 @@ def test_train_cli_runs_on_the_card_and_matches_ref(dev, tmp_path):
     _, want = train.train("tinyllama-1.1b", steps=2, batch=2, seq=64,
                           device=dev, backend="ref")
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# B10: the chunked RWKV-6 WKV, and the RWKV-6 family on it
+# ---------------------------------------------------------------------------
+
+
+def _wkv_inputs(dev, b, t, h, n, *, w_zero=False, seed=0,
+                dtype=torch.float32):
+    """r, k, v ~ N(0, 1) drawn separately (r != k), decays uniform in
+    (0, 1), every third token's 0 with ``w_zero``; the bonus u fp32."""
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn(b, t, h, n, generator=g) for _ in range(3))
+    w = torch.rand(b, t, h, n, generator=g)
+    if w_zero:
+        w[:, ::3] = 0.0
+    u = torch.randn(h, n, generator=g)
+    return [x.to(dev, dtype) for x in (r, k, v, w)] + [u.to(dev)]
+
+
+@pytest.mark.parametrize("w_zero", [False, True], ids=["w", "w0"])
+@pytest.mark.parametrize("b,t,h,n", [(1, 1, 40, 64), (2, 5, 8, 32),
+                                     (1, 16, 8, 32), (3, 33, 40, 64),
+                                     (2, 300, 8, 32), (1, 300, 40, 64)])
+def test_rwkv6_chunked_kernel(dev, b, t, h, n, w_zero):
+    """B10 against its plain version evaluated in fp64 on the same fp32
+    inputs (rtol 1e-4, atol 1e-5: the kernel's arithmetic is fp64, the
+    fp32 plain version is itself ~1e-5 off near cancellations and w = 0).
+    r != k, so a transposed state fails.  ``out`` is the head of a
+    NaN-filled buffer whose tail must stay NaN: no row past T is
+    written."""
+    from repro_torch.kernels import rwkv6_chunk as rw
+    x = _wkv_inputs(dev, b, t, h, n, w_zero=w_zero, seed=t + n)
+    want_o, want_s = ref.rwkv6_chunked_ref(*(y.double() for y in x))
+    size = b * t * h * n
+    buf = torch.full((size + 4096,), float("nan"), device=dev)
+    out = buf[:size].view(b, t, h, n)
+    state = torch.full((b, h, n, n), float("nan"), device=dev)
+    rw.rwkv6_chunked_into(*x, out, state)
+    close(out.double(), want_o, rtol=1e-4, atol=1e-5)
+    close(state.double(), want_s, rtol=1e-4, atol=1e-5)
+    assert torch.isnan(buf[size:]).all()
+    o2, s2 = kops.rwkv6_chunked(*x)
+    torch.cuda.synchronize()
+    assert torch.equal(o2, out) and torch.equal(s2, state)
+
+
+def test_rwkv6_chunked_kernel_bf16(dev):
+    """bf16 r, k, v, w with fp32 arithmetic: out in bf16 within its
+    rounding (2^-9 relative), the fp32 state at the fp32 bar."""
+    x = _wkv_inputs(dev, 2, 45, 8, 64, seed=4, dtype=torch.bfloat16)
+    want_o, want_s = ref.rwkv6_chunked_ref(*(y.double() for y in x))
+    out, state = kops.rwkv6_chunked(*x)
+    assert out.dtype == torch.bfloat16 and state.dtype == torch.float32
+    close(out.double(), want_o, rtol=4e-3, atol=1e-3)
+    close(state.double(), want_s, rtol=1e-4, atol=1e-5)
+
+
+def test_rwkv6_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    from repro_torch.models import rwkv6 as rw6
+    r, k, v, w, u = _wkv_inputs(dev, 1, 8, 2, 48)
+    with pytest.raises(ValueError, match=r"\(32, 64\)"):   # head size 48
+        kops.rwkv6_chunked(r, k, v, w, u)
+    r, k, v, w, u = _wkv_inputs(dev, 1, 8, 2, 32)
+    with pytest.raises(TypeError):
+        kops.rwkv6_chunked(r.half(), k.half(), v.half(), w.half(), u)
+    with pytest.raises(ValueError):
+        kops.rwkv6_chunked(r, k[:, :4], v, w, u)
+    with pytest.raises(ValueError):
+        kops.rwkv6_chunked(r, k.cpu(), v, w, u)
+    s0 = torch.zeros(1, 2, 32, 32, device=dev)
+    with pytest.raises(ValueError, match="zero state"):
+        rw6.wkv_named(r, k, v, w, u, s0=s0, backend="cuda")
+
+
+def test_rwkv6_served_on_the_kernels_equals_ref(dev):
+    """Reduced RWKV-6 (N 32) through ServingEngine: greedy tokens on the
+    kernels equal ``ref``'s, B10 launches num_layers x prefills there and
+    never on ``ref``."""
+    from repro_torch import models
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = reduced(get_config("rwkv6-3b"))
+    params = models.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                device=dev)
+    outs, counts = {}, {}
+    for backend in (None, "ref"):
+        reqs = [Request(uid=i, prompt=list(range(3, 3 + n)), max_new_tokens=8)
+                for i, n in enumerate((5, 17, 1, 40))]
+        kops.reset_launches()
+        ServingEngine(cfg, params, max_batch=2, cache_len=64,
+                      attn_backend=backend, device=dev).generate_batch(reqs)
+        counts[backend] = kops.launches()["rwkv6_chunked"]
+        outs[backend] = [r.output for r in reqs]
+    assert outs[None] == outs["ref"]
+    assert counts == {None: cfg.num_layers * 4, "ref": 0}
+
+
+def test_rwkv6_train_cli_matches_ref(dev, tmp_path):
+    """launch.train --arch rwkv6-3b (reduced): losses on the card equal a
+    ``ref`` run's; with grad on, the WKV is the plain chunked scan on
+    every backend, so B10 is not launched."""
+    from repro_torch.launch import train
+    kops.reset_launches()
+    got = train.main(["--arch", "rwkv6-3b", "--steps", "2", "--batch", "2",
+                      "--seq", "64", "--publish", str(tmp_path)])
+    assert kops.launches()["rwkv6_chunked"] == 0
+    _, want = train.train("rwkv6-3b", steps=2, batch=2, seq=64, device=dev,
+                          backend="ref")
+    np.testing.assert_allclose(got, want, rtol=1e-4)

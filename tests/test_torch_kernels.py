@@ -175,7 +175,8 @@ def test_importing_the_kernels_builds_nothing():
         "decode_attention",
         "decode_attention_q8", "decode_attention_paged",
         "decode_attention_paged_q8", "flash_attention",
-        "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"}
+        "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
+        "rwkv6_chunked"}
 
 
 def test_cpu_tensors_take_the_plain_version_without_counting():
@@ -183,6 +184,8 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     x = t(rand(2, 4, 8, 8))
     tops.relu(tops.pool2d(x))
     tops.softmax(tops.matmul(x.reshape(2, -1), t(rand(256, 5))))
+    r = x.reshape(2, 8, 1, 32)
+    tops.rwkv6_chunked(r, r, r, r.sigmoid(), r[0, 0])
     assert tops.launches() == {k: 0 for k in tops.KERNELS}
 
 
@@ -191,6 +194,8 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     lambda x: tops.pool2d(x.reshape(1, 1, 4, 4)),
     lambda x: tops.softmax(x.reshape(2, 8)),
     lambda x: tops.matmul(x.reshape(4, 4), x.reshape(4, 4)),
+    lambda x: tops.rwkv6_chunked(*[x.reshape(1, 1, 1, 16)] * 4,
+                                 x.reshape(1, 16)),
 ])
 def test_non_cpu_tensor_never_falls_back(call):
     """A tensor that is not on the CPU launches the kernel or raises: a
