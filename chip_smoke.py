@@ -35,8 +35,9 @@ its seconds:
   serve_times     decode tokens/s and TTFT (scheduler counters), device time
                   per step and idle share, B6/B7 per launch against bound,
                   plain version and SDPA
-  multimodel      TinyLlama-1.1B and Qwen3-0.6B (and its int8 artifact)
-                  through MultiModelServer: hits, misses, switch log
+  multimodel      TinyLlama-1.1B and Qwen3-0.6B (and its int8 artifact),
+                  full width, cut to 8 layers, through MultiModelServer:
+                  hits, misses, switch log
   slice 3, training, then publish and serve:
   flash_kernels   B8 and B9 (forward, dq, dk/dv) against their plain
                   versions: TinyLlama and Qwen3 heads (head_dim 64, 128)
@@ -71,12 +72,31 @@ its seconds:
                   the same input (end to end reported beside the model's
                   sensitivity to a 1e-7 input change); decode tokens/s,
                   TTFT, a decode step's device time by part
-  selector        TinyLlama-1.1B, Qwen3-0.6B and RWKV-6 3B (int8 artifact)
-                  behind MultiModelServer(max_resident=3) and the
+  selector        TinyLlama-1.1B, Qwen3-0.6B and RWKV-6 3B (int8 artifact),
+                  full width, cut to 8 layers, behind
+                  MultiModelServer(max_resident=3) and the
                   meta-selector fitted on the card: 6 rounds, every pick
                   its label, B10 in the RWKV rounds; switch_s per round
-  (cli also runs ``launch.serve --model rwkv6-3b`` and ``launch.train
-  --arch rwkv6-3b`` against ``ref``)
+  slice 5, Granite-MoE serving and B11:
+  serve_moe       Granite-MoE 3B-A800M at full width and depth (32 layers,
+                  d 1536, 24/8 heads of 64, 40 experts top-8, 13.2 GB fp32)
+                  through ServingEngine, batch 8, on the kernels and on
+                  ``ref`` in ring fp32 and paged int8: tokens (streams part
+                  only at near-ties), B8 32 x full prefills and B6/B7 32 x
+                  decode steps, 8 ticks under sync debug mode "error"; each
+                  layer's prefill output on the same input within 1e-4,
+                  router flips counted; decode tokens/s, TTFT, a decode
+                  step's device time by part beside the weight bytes; then
+                  its int8 artifact (3.3 GB) published and served through
+                  MultiModelServer on both backends
+  int8_kernels    B11 bit-equal to its plain version: the JAX suite's
+                  shapes, all-127 int32 sums, ragged shapes, and the
+                  artifact's QTensors (layer 0's wq, expert 0's we_gate and
+                  we_down) against per-row int8 hidden states at M 8, 300,
+                  2048, launches counted; per launch at four of those shapes
+                  against the bound, the plain version and torch._int_mm
+  (cli also runs ``launch.serve`` and ``launch.train`` with ``--model`` /
+  ``--arch`` rwkv6-3b and granite-moe-3b-a800m against ``ref``)
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check or
@@ -593,6 +613,8 @@ DECODE_FAMILY = {"decode_attention": ("decode_attention", "decode_attention_q8")
                                             "decode_attention_paged_q8")}
 # both sides compute in fp32 from the same stored values
 DECODE_TOL = (1e-4, 1e-5)                           # rtol, atol
+# (KV, G, D): TinyLlama, Qwen3, Granite-MoE and the reduced Granite
+DECODE_HEADS = ((4, 8, 64), (8, 2, 64), (8, 3, 64), (2, 4, 32))
 SERVE_REQUESTS = 16
 SERVE_MAX_NEW = 48
 SERVE_CACHE_LEN = 1024
@@ -683,9 +705,10 @@ def decode_call(kops, ref, case, layout, plain=False):
 
 def phase_decode_kernels(run, torch):
     """B6 and B7 against their plain versions on the card: TinyLlama heads
-    (KV 4, G 8) and Qwen3 heads (KV 8, G 2), B 1 and 8, S 1024, ragged
-    valid lengths, fp32/bf16/int8 caches, both layouts; then slots past
-    valid_len set to NaN must not change the output."""
+    (KV 4, G 8), Qwen3 heads (KV 8, G 2), Granite-MoE heads (KV 8, G 3)
+    at D 64 and the reduced Granite's (KV 2, G 4) at D 32, B 1 and 8,
+    S 1024, ragged valid lengths, fp32/bf16/int8 caches, both layouts;
+    then slots past valid_len set to NaN must not change the output."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
     dev = torch.device(DEVICE)
@@ -694,7 +717,7 @@ def phase_decode_kernels(run, torch):
     summary = {}
     for paged in (False, True):
         fam = "decode_attention_paged" if paged else "decode_attention"
-        for kvh, g in ((4, 8), (8, 2)):
+        for kvh, g, d in DECODE_HEADS:
             for b, valid in ((1, [1]), (1, [777]), (8, None)):
                 if paged and b == 1:
                     continue
@@ -702,7 +725,7 @@ def phase_decode_kernels(run, torch):
                     for layout in ("bksd", "bskd"):
                         case = decode_case(torch, gen, dev, b=b, kvh=kvh, g=g,
                                            dtype=dtype, layout=layout,
-                                           paged=paged, valid=valid)
+                                           paged=paged, valid=valid, d=d)
                         got = decode_call(kops, ref, case, layout)
                         want = decode_call(kops, ref, case, layout, plain=True)
                         torch.cuda.synchronize()
@@ -714,7 +737,7 @@ def phase_decode_kernels(run, torch):
                         s["checks"] += 1
                         s["max_abs_err"] = max(s["max_abs_err"], err)
                         what = (f"{fam} {dtype} {layout} B={b} KV={kvh} G={g} "
-                                f"(rtol {rtol}, atol {atol})")
+                                f"D={d} (rtol {rtol}, atol {atol})")
                         if not run.check("decode_kernels", what, bad == 0,
                                          max_abs_err=err, mismatches=bad):
                             s["failed"] += 1
@@ -775,6 +798,57 @@ def numpy_weights(np, cfg, seed):
         x *= np.float32(p.std)
         return x
     return map_template(leaf, param_template(cfg))
+
+
+WEIGHT_CHUNK = 1 << 24          # elements per independently seeded draw
+
+
+def numpy_weights_chunked(np, cfg, seed):
+    """As :func:`numpy_weights`, drawn on every core: chunk j of leaf i
+    from its own generator, ``SeedSequence(seed, spawn_key=(i, j))``, on
+    a pool of threads (numpy fills without the GIL), so the draws do not
+    depend on the number of threads and 3 B parameters take seconds,
+    not a minute.  The models of earlier slices keep numpy_weights' one
+    serial stream, so the inputs of their checks stay as they were."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.models import param_template
+    from repro_torch.models.common import map_template
+    drawn = []
+
+    def leaf(p):
+        if p.init in ("zeros", "ones"):
+            return (np.zeros if p.init == "zeros" else np.ones)(p.shape,
+                                                               np.float32)
+        x = np.empty(p.shape, np.float32)
+        drawn.append((x, np.float32(p.std)))
+        return x
+    tree = map_template(leaf, param_template(cfg))
+
+    def fill(job):
+        i, j = job
+        x, std = drawn[i]
+        part = x.reshape(-1)[j * WEIGHT_CHUNK:(j + 1) * WEIGHT_CHUNK]
+        rng = np.random.default_rng(np.random.SeedSequence(seed,
+                                                           spawn_key=(i, j)))
+        rng.standard_normal(out=part, dtype=np.float32)
+        part *= std
+    jobs = [(i, j) for i, (x, _) in enumerate(drawn)
+            for j in range(-(-x.size // WEIGHT_CHUNK))]
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        list(pool.map(fill, jobs))
+    return tree
+
+
+SWAP_LAYERS = 8     # depth of the models the model-swap phases publish
+
+
+def cut_depth(cfg, tree, n=SWAP_LAYERS):
+    """(cfg, tree) with only the first ``n`` layers: the width, and so
+    every kernel shape, stays the model's."""
+    import dataclasses
+    return (dataclasses.replace(cfg, num_layers=n),
+            {**tree, "layers": {k: v[:n] for k, v in tree["layers"].items()}})
 
 
 def serve_requests(np, cfg, seed, n=None, max_new=None, lo=5, hi=300,
@@ -956,7 +1030,8 @@ def divergence_gaps(torch, cfg, params, reqs, got, want):
     """For each request whose two greedy streams part: the gap between
     the two chosen tokens' logits in an fp32 forward over the prompt and
     the shared prefix of the output."""
-    from repro_torch.models import transformer as tf
+    from repro_torch import models
+    mod = models.get_module(cfg)
     gaps = []
     with torch.inference_mode():
         for r, a, b in zip(reqs, got, want):
@@ -964,7 +1039,8 @@ def divergence_gaps(torch, cfg, params, reqs, got, want):
                 continue
             j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
             toks = torch.tensor([r.prompt + a[:j]], device=DEVICE)
-            lg = tf.forward(cfg, params, toks, backend="ref")[0, -1]
+            out = mod.forward(cfg, params, toks, backend="ref")
+            lg = (out[0] if isinstance(out, tuple) else out)[0, -1]
             gaps.append(float((lg[a[j]] - lg[b[j]]).abs()))
     return gaps
 
@@ -1038,17 +1114,18 @@ def phase_teacher_forced(run, torch, np, cfg, params):
 
 
 def phase_multimodel(run, torch, np, tiny_np, store_root):
-    """TinyLlama-1.1B and Qwen3-0.6B at full width, published with
-    publish_checkpoint (Qwen3 also as int8), served through
-    MultiModelServer(max_resident=2) in the order A, B, A, B, then the
-    int8 artifact: resident-cache hits, misses and the switch log."""
+    """TinyLlama-1.1B and Qwen3-0.6B at full width and SWAP_LAYERS deep,
+    published with publish_checkpoint (Qwen3 also as int8), served
+    through MultiModelServer(max_resident=2) in the order A, B, A, B,
+    then the int8 artifact: resident-cache hits, misses and the switch
+    log."""
     from repro_torch.checkpoint.ckpt import load_published, publish_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.core.modelstore import ModelStore
     from repro_torch.serving.engine import MultiModelServer
     store = ModelStore(store_root)
-    qwen = get_config("qwen3-0.6b")
-    tiny = get_config("tinyllama-1.1b")
+    qwen = cut_depth(get_config("qwen3-0.6b"), {"layers": {}})[0]
+    tiny, tiny_np = cut_depth(get_config("tinyllama-1.1b"), tiny_np)
     t0 = time.perf_counter()
     qwen_np = numpy_weights(np, qwen, SEED + 1)
     as_torch = lambda tree: {k: as_torch(v) if isinstance(v, dict)
@@ -1321,7 +1398,9 @@ FLASH_SOURCES = {
 # H, KV, D: the full models', and the reduced configs' that the serve and
 # train command lines bootstrap by default (head_dim 32)
 FLASH_HEADS = {"tinyllama": (32, 4, 64), "qwen3": (16, 8, 128),
-               "tinyllama-reduced": (8, 1, 32), "qwen3-reduced": (8, 4, 32)}
+               "granite-moe": (24, 8, 64),
+               "tinyllama-reduced": (8, 1, 32), "qwen3-reduced": (8, 4, 32),
+               "granite-moe-reduced": (8, 2, 32)}
 FLASH_SEQS = (1, 5, 64, 127, 300, 1024, 2048)
 # rtol, atol.  fp32: outputs and lse differ from the plain versions in
 # summation order only; grads take the JAX suite's bar for its fused
@@ -1338,8 +1417,9 @@ TRAIN_GRAD_REL = 1e-3                       # ||g_cuda - g_ref|| / ||g_ref||
 
 def phase_flash_kernels(run, torch):
     """B8, B9's forward (o and lse), dq and dk/dv against their plain
-    versions: TinyLlama and Qwen3 heads, full (head_dim 64 and 128) and
-    reduced (head_dim 32), B 1 and 4, S 1 to 2048 (ragged
+    versions: TinyLlama, Qwen3 and Granite-MoE heads (G 8, 2 and 3),
+    full (head_dim 64 and 128) and reduced (head_dim 32), B 1 and 4, S 1
+    to 2048 (ragged
     against the 64-row tiles), causal with window 0 and 256, fp32 and
     bf16; then a perturbed future token."""
     from repro_torch.kernels import flash_attention as fa
@@ -1669,18 +1749,28 @@ def phase_cli(run, torch, np):
               f"{TRAIN_LOSS_RTOL})", len(rel) == steps
               and all(math.isfinite(x) for x in got)
               and max(rel) <= TRAIN_LOSS_RTOL, rel=rel)
-    rec["rwkv6"] = _cli_rwkv6(run, torch, np)
+    rec["rwkv6"] = _cli_arch(run, torch, np, RWKV_ARCH, SEED + 86,
+                             {"rwkv6_chunked"}, lambda L, steps: {})
+    rec["moe"] = _cli_arch(
+        run, torch, np, MOE_ARCH, SEED + 87,
+        {"flash_attention", "decode_attention"},
+        lambda L, steps: {"flash_attention_fwd": 2 * L * steps,
+                          "flash_attention_dq": L * steps,
+                          "flash_attention_dkv": L * steps})
     emit(rec)
     return rec["serve_launches"], rec["train_launches"]
 
 
-def _cli_rwkv6(run, torch, np):
-    """The command lines on RWKV-6 (reduced: 2 layers, 8 heads of N 32):
-    ``launch.serve --model rwkv6-3b`` on an empty store runs B10 in
-    prefill and nothing else, its tokens equal a ``ref`` engine's on the
-    bootstrapped weights; ``launch.train --arch rwkv6-3b`` trains through
-    the plain chunked WKV on every backend (B10 has no backward), its
-    losses equal a ``ref`` run's."""
+def _cli_arch(run, torch, np, arch, seed, serve_kernels, train_want):
+    """The command lines on another family's reduced config: ``launch.serve
+    --model arch`` on an empty store launches ``serve_kernels`` and
+    nothing else, each a multiple of num_layers times, and its tokens
+    equal a ``ref`` engine's on the bootstrapped weights; ``launch.train
+    --arch arch`` launches ``train_want(num_layers, steps)`` and its
+    losses equal a ``ref`` run's.  RWKV-6 (2 layers, 8 heads of N 32): B10
+    in prefill, no kernel in training (the WKV is differentiated through
+    the plain scan).  Granite-MoE (2 layers, 8/2 heads of 32, 4 experts
+    top-2): B8 and B6 in serving, B9 in training."""
     from repro_torch.checkpoint.ckpt import load_published
     from repro_torch.core.modelstore import ModelStore
     from repro_torch.kernels import ops as kops
@@ -1691,49 +1781,49 @@ def _cli_rwkv6(run, torch, np):
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as store:
         kops.reset_launches()                        # the main path starts
         _, rec["serve_out"] = _quiet(serve.main, [
-            "--store", store, "--model", RWKV_ARCH])
+            "--store", store, "--model", arch])
         torch.cuda.synchronize()
         counts = kops.launches()                     # read just after
         rec["serve_launches"] = {k: v for k, v in counts.items() if v}
-        cfg, cpu_params, _ = load_published(ModelStore(store), RWKV_ARCH)
-        run.check("cli", f"launch.serve --model {RWKV_ARCH} on an empty "
-                  "store: B10 in prefill, nothing else",
-                  set(rec["serve_launches"]) == {"rwkv6_chunked"}
-                  and rec["serve_launches"]["rwkv6_chunked"]
-                  % cfg.num_layers == 0, launches=rec["serve_launches"])
+        cfg, cpu_params, _ = load_published(ModelStore(store), arch)
+        run.check("cli", f"launch.serve --model {arch} on an empty store: "
+                  f"{sorted(serve_kernels)} {cfg.num_layers} x n times, "
+                  "nothing else", set(rec["serve_launches"]) == serve_kernels
+                  and all(v % cfg.num_layers == 0
+                          for v in rec["serve_launches"].values()),
+                  launches=rec["serve_launches"])
         params = tree_map(lambda p: p.to(DEVICE), cpu_params)
         outs = {}
         for backend in (None, "ref"):
             eng = ServingEngine(cfg, params, max_batch=4, cache_len=128,
                                 attn_backend=backend, device=DEVICE)
-            reqs = serve_requests(np, cfg, SEED + 86, n=4, max_new=16,
+            reqs = serve_requests(np, cfg, seed, n=4, max_new=16,
                                   lo=5, hi=100, shared_prefix=0)
             eng.generate_batch(reqs)
             outs[backend or "cuda"] = [r.output for r in reqs]
-        run.check("cli", f"the bootstrapped {cfg.name} (N "
-                  f"{cfg.rwkv_head_dim}): greedy tokens on cuda equal ref",
-                  outs["cuda"] == outs["ref"]
+        run.check("cli", f"the bootstrapped {cfg.name}: greedy tokens on "
+                  "cuda equal ref", outs["cuda"] == outs["ref"]
                   and all(len(o) == 16 for o in outs["cuda"]))
         rec["bootstrapped"] = {"num_layers": cfg.num_layers,
-                               "head_size": cfg.rwkv_head_dim,
+                               "head_dim": cfg.resolved_head_dim,
                                "tokens_equal_ref": outs["cuda"] == outs["ref"]}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as store:
-        argv = ["--arch", RWKV_ARCH, "--steps", str(CLI_TRAIN_STEPS),
+        argv = ["--arch", arch, "--steps", str(CLI_TRAIN_STEPS),
                 "--publish", store]
         kops.reset_launches()                        # the main path starts
         got, rec["train_out"] = _quiet(train.main, argv)
         torch.cuda.synchronize()
         rec["train_launches"] = {k: v for k, v in kops.launches().items()
                                  if v}                # read just after
-    run.check("cli", f"launch.train --arch {RWKV_ARCH}: no kernel launch "
-              "(the WKV is differentiated through the plain scan)",
-              rec["train_launches"] == {}, launches=rec["train_launches"])
+    want = train_want(cfg.num_layers, CLI_TRAIN_STEPS)
+    run.check("cli", f"launch.train --arch {arch}: launches {want}",
+              rec["train_launches"] == want, launches=rec["train_launches"])
     (_, want), _ = _quiet(lambda: train.train(
-        RWKV_ARCH, steps=CLI_TRAIN_STEPS, batch=8, seq=128, device=DEVICE,
+        arch, steps=CLI_TRAIN_STEPS, batch=8, seq=128, device=DEVICE,
         backend="ref"))
     rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
     rec["train_losses"] = {"cuda": got, "ref": want, "rel": rel}
-    run.check("cli", f"launch.train --arch {RWKV_ARCH} losses equal a ref "
+    run.check("cli", f"launch.train --arch {arch} losses equal a ref "
               f"run's (rtol {TRAIN_LOSS_RTOL})", len(rel) == CLI_TRAIN_STEPS
               and all(math.isfinite(x) for x in got)
               and max(rel) <= TRAIN_LOSS_RTOL, rel=rel)
@@ -2355,12 +2445,13 @@ def phase_serve_rwkv6(run, torch, np, card):
 
 
 def phase_selector(run, torch, np, tiny_np, rwkv_params, store_root):
-    """examples/serve_batched.py at full width: TinyLlama-1.1B and
-    Qwen3-0.6B (fp32) and the int8 artifact of RWKV-6 3B published into
-    one store; the meta-selector fitted on the card (location i prefers
-    model i); MultiModelServer(max_resident=3, selector=...) serves 6
-    rounds of 3 requests, each context picking its model; every pick is
-    its label, and the RWKV rounds launch B10 (32 x 3 prefills)."""
+    """examples/serve_batched.py at full width and SWAP_LAYERS deep:
+    TinyLlama-1.1B and Qwen3-0.6B (fp32) and the int8 artifact of RWKV-6
+    3B published into one store; the meta-selector fitted on the card
+    (location i prefers model i); MultiModelServer(max_resident=3,
+    selector=...) serves 6 rounds of 3 requests, each context picking its
+    model; every pick is its label, and the RWKV rounds launch B10
+    (layers x 3 prefills)."""
     from repro_torch.checkpoint.ckpt import publish_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.core.modelstore import ModelStore
@@ -2368,7 +2459,10 @@ def phase_selector(run, torch, np, tiny_np, rwkv_params, store_root):
     from repro_torch.kernels import ops as kops
     from repro_torch.serving.engine import MultiModelServer, Request
     store = ModelStore(store_root)
-    cfgs = {n: get_config(n) for n in SELECTOR_MODELS}
+    cfgs = {n: cut_depth(get_config(n), {"layers": {}})[0]
+            for n in SELECTOR_MODELS}
+    tiny_np = cut_depth(cfgs["tinyllama-1.1b"], tiny_np)[1]
+    rwkv_params = cut_depth(cfgs[RWKV_ARCH], rwkv_params)[1]
     t0 = time.perf_counter()
     publish_checkpoint(store, "tinyllama-1.1b", cfgs["tinyllama-1.1b"],
                        tiny_np)
@@ -2420,8 +2514,9 @@ def phase_selector(run, torch, np, tiny_np, rwkv_params, store_root):
         run.check("selector", f"round {i}: 3 x 8 tokens",
                   stats.tokens_out == 24)
         if model == RWKV_ARCH:
-            run.check("selector", f"round {i}: B10 launches = 32 x 3 "
-                      "prefills", launched == {"rwkv6_chunked": 32 * 3},
+            n = cfgs[RWKV_ARCH].num_layers
+            run.check("selector", f"round {i}: B10 launches = {n} x 3 "
+                      "prefills", launched == {"rwkv6_chunked": n * 3},
                       launches=launched)
         else:
             run.check("selector", f"round {i}: B8 in prefill, B6 in decode",
@@ -2437,14 +2532,533 @@ def phase_selector(run, torch, np, tiny_np, rwkv_params, store_root):
               (server.cache.hits, server.cache.misses) == (3, 3))
 
 
+# ---------------------------------------------------------------------------
+# slice 5: Granite-MoE 3B served on B8 and B6/B7, and B11 on its artifact
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_TOL = 1e-4          # a layer's output on the same input, cuda vs ref
+MOE_GAP = 2e-2          # fp32 logit gap of a near-tie where greedy streams part
+MOE_CONFIGS = {"ring-fp32": {},
+               "paged-int8": {"kv_layout": "paged", "page_size": 16,
+                              "kv_dtype": "int8"}}
+INT8_SOURCE = ("src/repro_torch/kernels/csrc/int8_matmul.cu",
+               "src/repro/kernels/int8_matmul.py:53")
+# (M, K, N): the JAX suite's shapes, all-127 int32 sums, ragged shapes
+INT8_SHAPES = ((128, 128, 128), (64, 512, 256), (8, 512, 8), (1, 1, 1),
+               (37, 130, 75), (17, 1000, 3))
+INT8_ROWS = (8, 300, 2048)      # a decode batch, a prompt, a long prompt
+# H100 SXM, NVIDIA's data sheet: dense int8 tensor-core operations
+PEAK_INT8_OPS = 1979e12
+MOE_PARTS = {"moe_route": "router, dispatch and combine",
+             "moe_experts": "expert einsums (bmm over every expert)"}
+OTHER_MM = "other matmul (q/k/v/o, logits)"
+OTHER = "other (norms, RoPE, cache writes, sampling)"
+
+
+def _is_device(e):
+    return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+
+def _is_gemm(name):
+    return any(key in name for key in ("gemm", "Gemm", "gemv"))
+
+
+def _profile_moe_ticks(torch, sched, ticks):
+    """Device time per decode step by part over ``ticks`` ticks with every
+    lane live (torch.profiler), the MoE pieces inside ``record_function``
+    ranges: attention (B6/B7), the expert einsums, the router with
+    dispatch and combine, the other matmuls and the rest; the idle share
+    and kernels per step."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import moe as tmoe
+    saved = {n: getattr(tmoe, n) for n in ("_route", "_dispatch", "_combine",
+                                           "_expert_ffn")}
+
+    def ranged(label, fn):
+        def inner(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return inner
+    for n, fn in saved.items():
+        setattr(tmoe, n, ranged("moe_experts" if n == "_expert_ffn"
+                                else "moe_route", fn))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                sched.tick()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+    finally:
+        for n, fn in saved.items():
+            setattr(tmoe, n, fn)
+    events = prof.events()
+
+    def under(e):
+        yield from e.kernels
+        for c in e.cpu_children:
+            yield from under(c)
+    parts, total, kernels = {}, 0.0, 0
+    for e in events:
+        if not _is_device(e) or e.name in MOE_PARTS:
+            continue
+        kernels += 1
+        total += e.device_time
+        part = "attention (B6/B7)" if "decode_attn" in e.name else \
+            OTHER_MM if _is_gemm(e.name) else OTHER
+        parts[part] = parts.get(part, 0.0) + e.device_time
+    for e in events:                 # kernels launched inside the ranges
+        if e.name in MOE_PARTS and not _is_device(e):
+            for k in under(e):
+                part = OTHER_MM if _is_gemm(k.name) else OTHER
+                parts[part] = parts.get(part, 0.0) - k.duration
+                parts[MOE_PARTS[e.name]] = \
+                    parts.get(MOE_PARTS[e.name], 0.0) + k.duration
+    return {"ticks": ticks, "wall_ms_per_step": wall_us / ticks / 1e3,
+            "device_ms_per_step": total / ticks / 1e3,
+            "device_idle_share": 1 - total / wall_us,
+            "device_kernels_per_step": kernels / ticks,
+            "device_ms_by_part": {k: v / ticks / 1e3
+                                  for k, v in parts.items()}}
+
+
+def _moe_prefill_layerwise(torch, cfg, params, toks):
+    """One prompt's prefill, layer by layer, on the ``ref`` trajectory:
+    each layer's attention (B8 against the plain version) and the whole
+    layer's output on the same input within MOE_TOL, tokens whose top-k
+    expert set flips between the two backends excluded and counted, with
+    the ref router's gap between its k-th and (k+1)-th probability there;
+    then the cuda trajectory end to end: per layer, the tokens routed to
+    another expert set than on ``ref``."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import transformer as tfm
+    k = cfg.experts_per_token
+    out = {"attn_max_abs": 0.0, "attn_bad": 0, "layer_max_abs": 0.0,
+           "layer_bad": 0, "flips_same_input": 0, "flip_gaps": [],
+           "flips_end_to_end": []}
+
+    def experts(x, lp):
+        xn = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        logits = xn.reshape(-1, cfg.d_model).float() @ lp["router"].float()
+        top = torch.topk(torch.softmax(logits, dim=-1), k + 1, dim=-1)
+        gap = top.values[:, k - 1] - top.values[:, k]
+        return top.indices[:, :k].sort(-1).values, gap
+    with torch.inference_mode():
+        x = x_cuda = params["embed"][toks]
+        for l in range(cfg.num_layers):
+            lp = tfm._layer(params, l)
+            a_c = tfm.attn(cfg, lp, x)[0]
+            a_r = tfm.attn(cfg, lp, x, backend="ref")[0]
+            err, bad = compare(torch, a_c, a_r, MOE_TOL, MOE_TOL)
+            out["attn_max_abs"] = max(out["attn_max_abs"], err)
+            out["attn_bad"] += bad
+            e_c, _ = experts(x + a_c, lp)
+            e_r, gap = experts(x + a_r, lp)
+            flip = (e_c != e_r).any(-1)
+            y_c = x + a_c + tmoe._ffn(cfg, lp, x + a_c)
+            y_r = x + a_r + tmoe._ffn(cfg, lp, x + a_r)
+            keep = ~flip.reshape(y_r.shape[:2])[..., None]
+            err, bad = compare(torch, torch.where(keep, y_c, 0),
+                               torch.where(keep, y_r, 0), MOE_TOL, MOE_TOL)
+            out["layer_max_abs"] = max(out["layer_max_abs"], err)
+            out["layer_bad"] += bad
+            n_flip = int(flip.sum())
+            out["flips_same_input"] += n_flip
+            if n_flip:
+                out["flip_gaps"] += gap[flip].tolist()
+            # the cuda trajectory, end to end
+            a = tfm.attn(cfg, lp, x_cuda)[0]
+            e_cuda, _ = experts(x_cuda + a, lp)
+            out["flips_end_to_end"].append(int((e_cuda != e_r).any(-1).sum()))
+            x_cuda = x_cuda + a + tmoe._ffn(cfg, lp, x_cuda + a)
+            x = y_r
+    out["max_flip_gap"] = max(out["flip_gaps"], default=None)
+    return out
+
+
+def _tokens_or_near_ties(torch, cfg, params, reqs, got, want):
+    """(ok, equal requests, logit gaps where streams part): greedy tokens
+    equal, or every stream that parts does so at a near-tie."""
+    gaps = divergence_gaps(torch, cfg, params, reqs, got, want)
+    equal = sum(a == b for a, b in zip(got, want))
+    return got == want or all(g <= MOE_GAP for g in gaps), equal, gaps
+
+
+def phase_serve_moe(run, torch, np, card, store_root):
+    """Granite-MoE 3B-A800M at full width and depth (32 layers, d 1536,
+    24/8 heads of 64, 40 experts top-8 of d_ff 512, vocab 49155, 3.30 B
+    parameters, 13.2 GB in fp32) through ServingEngine at batch 8, cache
+    1024: the 16 greedy requests of serve_requests on the kernels and on
+    ``ref`` in ring fp32 and paged int8; tokens equal ``ref`` (streams
+    part only at near-ties, fp32 logit gap <= MOE_GAP); B8 launches 32 x
+    full prefills and B6/B7 32 x decode steps, none on ``ref``; 8 ticks
+    under sync debug mode "error".  The prefill of 4 prompts layer by
+    layer on the same input within MOE_TOL, router flips counted.  A warm
+    run's decode tokens/s and TTFT, a decode step's device time by part,
+    the accountant's active weight bytes beside the whole bank's.  Then
+    the int8 artifact (3.3 GB) published into ``store_root`` and served
+    through MultiModelServer on both backends: tokens equal."""
+    from repro_torch.checkpoint.ckpt import publish_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.modelstore import ModelStore
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving.engine import MultiModelServer, ServingEngine
+    set_fp32_exact(torch)
+    cfg = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    np_params = numpy_weights_chunked(np, cfg, SEED + 4)
+    t_make = time.perf_counter() - t0
+    params = params_from_numpy(np_params, DEVICE, cfg=cfg)
+    del np_params
+    torch.cuda.synchronize()
+    emit({"phase": "serve_moe", "model": cfg.name,
+          "params": cfg.param_count(),
+          "active_params": cfg.active_param_count(),
+          "weights_make_s": t_make,
+          "weights_to_device_s": time.perf_counter() - t0 - t_make})
+    L = cfg.num_layers
+    path = {}
+    kops.reset_launches()                            # the main path starts
+    for name, opts in MOE_CONFIGS.items():
+        outs = {}
+        for backend in (None, "ref"):
+            window = sync_window(torch) if backend is None else None
+            eng = ServingEngine(cfg, params, max_batch=8,
+                                cache_len=SERVE_CACHE_LEN,
+                                attn_backend=backend, faults=window,
+                                device=DEVICE, **opts)
+            reqs = serve_requests(np, cfg, SEED + 100)
+            before = kops.launches()
+            t1 = time.perf_counter()
+            try:
+                stats = eng.generate_batch(reqs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            after = kops.launches()
+            sched = eng.scheduler()
+            tag = f"{name}/{backend or 'cuda'}"
+            launched = {k: after[k] - before[k] for k in after
+                        if after[k] != before[k]}
+            prefills = full_prefills(sched, len(reqs))
+            dec = "decode_attention_paged_q8" if "paged" in name \
+                else "decode_attention"
+            want = {"flash_attention": L * prefills,
+                    dec: L * sched.decode_steps} if backend is None else {}
+            run.check("serve_moe", f"{tag}: B8 {L} x full prefills, B6/B7 "
+                      f"{L} x decode steps, nothing else", launched == want,
+                      launches=launched, prefills=prefills,
+                      steps=sched.decode_steps)
+            run.check("serve_moe", f"{tag}: host_syncs == retired requests",
+                      sched.host_syncs == len(reqs),
+                      host_syncs=sched.host_syncs)
+            run.check("serve_moe", f"{tag}: every request generated "
+                      f"{SERVE_MAX_NEW} tokens", all(
+                          len(r.output) == SERVE_MAX_NEW and r.done
+                          and all(0 <= x < cfg.vocab_size for x in r.output)
+                          for r in reqs))
+            rec = {"phase": "serve_moe", "config": tag, "wall_s": wall,
+                   "launches": launched, "decode_steps": sched.decode_steps,
+                   "full_prefills": prefills, "tokens": stats.tokens_out,
+                   "prefill_s": stats.prefill_s, "decode_s": stats.decode_s,
+                   "decode_tokens_per_s": stats.tok_per_s}
+            if backend is None:
+                rec["sync_window"] = {"start_tick": window.start,
+                                      "ok": window.done}
+                run.check("serve_moe", f"{tag}: 8 ticks under sync debug "
+                          "mode 'error' with no retirement", window.done,
+                          start=window.start)
+            if sched._paged:
+                run.check("serve_moe", f"{tag}: prefix hits",
+                          sched.prefix_hits >= 1, hits=sched.prefix_hits)
+                sched.audit_pages()
+            emit(rec)
+            outs[backend or "cuda"] = [r.output for r in reqs]
+        ok, equal, gaps = _tokens_or_near_ties(torch, cfg, params, reqs,
+                                               outs["cuda"], outs["ref"])
+        run.check("serve_moe", f"{name}: greedy tokens on cuda equal ref, "
+                  f"streams parting only at near-ties (gap <= {MOE_GAP})",
+                  ok, requests_equal=equal, gaps=gaps)
+        emit({"phase": "serve_moe", "config": name,
+              "tokens_equal_ref": outs["cuda"] == outs["ref"],
+              "requests_equal": f"{equal}/{len(reqs)}",
+              "divergence_logit_gaps": gaps})
+    counts = kops.launches()                         # read just after
+    path = {"flash_attention": counts["flash_attention"],
+            "decode_attention": counts["decode_attention"],
+            "decode_attention_paged": counts["decode_attention_paged_q8"]}
+    emit({"phase": "serve_moe", "main_path_launches": path})
+    # the prefill of 4 prompts, layer by layer on the same input
+    layerwise = []
+    for r in serve_requests(np, cfg, SEED + 100)[:4]:
+        toks = torch.tensor([r.prompt], device=DEVICE)
+        res = _moe_prefill_layerwise(torch, cfg, params, toks)
+        res["prompt"] = len(r.prompt)
+        layerwise.append(res)
+        run.check("serve_moe", f"prefill of {len(r.prompt)} tokens, every "
+                  f"layer's attention on the same input: B8 vs ref "
+                  f"(rtol/atol {MOE_TOL})", res["attn_bad"] == 0,
+                  max_abs_err=res["attn_max_abs"])
+        run.check("serve_moe", f"prefill of {len(r.prompt)} tokens, every "
+                  f"layer's output on the same input, flipped tokens aside "
+                  f"(rtol/atol {MOE_TOL}); flips at near-ties only (router "
+                  "gap <= 1e-4)", res["layer_bad"] == 0
+                  and all(g <= 1e-4 for g in res["flip_gaps"]),
+                  max_abs_err=res["layer_max_abs"],
+                  flips=res["flips_same_input"], gaps=res["flip_gaps"])
+    emit({"phase": "serve_moe", "prefill_layerwise": layerwise})
+    # a warm run: decode tokens/s and TTFT, then a decode step by part
+    eng = ServingEngine(cfg, params, max_batch=8, cache_len=SERVE_CACHE_LEN,
+                        device=DEVICE)
+    eng.generate_batch(serve_requests(np, cfg, SEED + 101, n=8, hi=50))
+    sched = eng.scheduler()
+    sched.metrics.reset()
+    stats = eng.generate_batch(serve_requests(np, cfg, SEED + 102))
+    ttft = sched.metrics.histogram("req.ttft_s").snapshot()
+    for r in serve_requests(np, cfg, SEED + 103, n=8):
+        sched.submit(r)
+    sched.tick()                                     # admits all 8
+    profile = _profile_moe_ticks(torch, sched, 4)
+    sched.run()
+    bank = sum(w.numel() * w.element_size()
+               for w in params["layers"].values()) + \
+        params["embed"].numel() * 4 + params["final_ln"].numel() * 4
+    emit({"phase": "serve_moe", "card": card["nvidia_smi"], "warm": True,
+          "requests": SERVE_REQUESTS, "max_new": SERVE_MAX_NEW,
+          "decode_tokens_per_s": stats.tok_per_s, "decode_s": stats.decode_s,
+          "prefill_s": stats.prefill_s, "ttft_s": ttft,
+          "weight_bytes_per_step_accountant":
+              sched.roofline.weight_bytes_per_step,
+          "weight_bytes_whole_bank": bank,
+          "whole_bank_stream_ms": 1e3 * bank / PEAK_HBM_BYTES,
+          "step_profile": profile})
+    del eng, sched
+    # the int8 artifact through MultiModelServer on both backends
+    store = ModelStore(store_root)
+    t1 = time.perf_counter()
+    rec8 = publish_checkpoint(store, MOE_ARCH, cfg, params, int8=True)
+    t_pub = time.perf_counter() - t1
+    del params
+    torch.cuda.empty_cache()
+    outs, rounds = {}, []
+    for backend in (None, "ref"):
+        server = MultiModelServer(store, max_resident=1, max_batch=8,
+                                  cache_len=SERVE_CACHE_LEN,
+                                  attn_backend=backend, device=DEVICE)
+        reqs = serve_requests(np, cfg, SEED + 104, n=8, max_new=16, hi=100,
+                              shared_prefix=0)
+        kops.reset_launches()
+        t1 = time.perf_counter()
+        stats = server.serve(reqs, model=MOE_ARCH)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kops.launches().items() if v}
+        want = {"flash_attention", "decode_attention"} if backend is None \
+            else set()
+        run.check("serve_moe", f"int8 artifact via MultiModelServer "
+                  f"({backend or 'cuda'}): B8 and B6 only on cuda",
+                  set(launched) == want, launches=launched)
+        rounds.append({"backend": backend or "cuda",
+                       "wall_s": time.perf_counter() - t1,
+                       "switch_s": server.switch_log[-1][1],
+                       "tokens": stats.tokens_out,
+                       "decode_tok_per_s": stats.tok_per_s,
+                       "launches": launched})
+        outs[backend or "cuda"] = [r.output for r in reqs]
+        if backend == "ref":
+            served = next(iter(server._engines.values())).params
+            ok, equal, gaps = _tokens_or_near_ties(
+                torch, cfg, served, reqs, outs["cuda"], outs["ref"])
+            run.check("serve_moe", "int8 artifact: greedy tokens on cuda "
+                      "equal ref (near-ties aside)", ok,
+                      requests_equal=equal, gaps=gaps)
+            rounds[-1]["divergence_logit_gaps"] = gaps
+            del served
+        del server
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_moe", "int8_artifact_bytes":
+          rec8.manifest["weights_bytes"], "publish_s": t_pub,
+          "multimodel": rounds})
+    return path
+
+
+def int8_bound(m, k, n):
+    """(seconds from bytes, seconds from operations): the int8 operands
+    and fp32 scales read once, the fp32 output written once; 2MKN integer
+    operations at the int8 tensor-core peak."""
+    nbytes = m * k + k * n + 4 * (m + n) + 4 * m * n
+    return nbytes / PEAK_HBM_BYTES, 2 * m * k * n / PEAK_INT8_OPS
+
+
+def _device_us(torch, fn, n=20):
+    """(device µs per call of ``fn``, the kernel names): the spans of the
+    kernels torch.profiler records over ``n`` calls (the host's launch
+    gaps left out); None when it records none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if _is_device(e)]
+    us = sum(e.time_range.elapsed_us() for e in kernels) / n
+    return (us if kernels else None), sorted({e.name[:60] for e in kernels})
+
+
+def _int8_library(torch, a, b, sa, sb):
+    """torch._int_mm (cuBLASLt) + the same epilogue: it takes M > 16 and
+    K, N multiples of 8, so fewer rows are padded to 32 with zeros (the
+    padding is made once, outside the timed call)."""
+    acc = torch._int_mm(a, b)[:sa.shape[0]]
+    return acc.float() * sa[:, None] * sb[None, :]
+
+
+def phase_int8_kernels(run, torch, np, store_root, card):
+    """B11 against its plain version, bit-equal (torch.equal): the JAX
+    suite's shapes, all-127 sums in int32 and ragged shapes; then the
+    main path, ``kernels.ops.int8_matmul`` on the store's int8 Granite
+    artifact (``load_params(dequantize=False)``: QTensors scaled per
+    output column): b is layer 0's wq, expert 0's we_gate and we_down
+    with their stored scales, a the per-row int8 quantization of the
+    layer's normed hidden states (for we_down, expert 0's SwiGLU
+    activations) at M 8, 300 and 2048.  Then per launch (median of 7 x 20
+    CUDA-event runs, and the device time under torch.profiler) at four of
+    those shapes, against the bound, the plain version and torch._int_mm
+    with the epilogue."""
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.core.modelstore import ModelStore
+    from repro_torch.core.quantize import quantize
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(SEED + 110)
+    checks = []
+    for m, k, n in INT8_SHAPES:
+        if (m, k, n) == (8, 512, 8):
+            a = torch.full((m, k), 127, dtype=torch.int8)
+            b = torch.full((k, n), 127, dtype=torch.int8)
+            sa, sb = torch.ones(m), torch.ones(n)
+        else:
+            a = torch.randint(-127, 128, (m, k), generator=gen,
+                              dtype=torch.int8)
+            b = torch.randint(-127, 128, (k, n), generator=gen,
+                              dtype=torch.int8)
+            sa = torch.rand(m, generator=gen) + 0.01
+            sb = torch.rand(n, generator=gen) + 0.01
+        args = [x.to(dev) for x in (a, b, sa, sb)]
+        got = kops.int8_matmul(*args)
+        want = ref.int8_matmul_ref(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = torch.equal(got, want)
+        if (m, k, n) == (8, 512, 8):
+            ok = ok and bool((got == 512 * 127 * 127).all())
+        checks.append({"shape": [m, k, n], "bit_equal": ok,
+                       "max_abs_err": err})
+        run.check("int8_kernels", f"B11 M={m} K={k} N={n} bit-equal to the "
+                  "plain version", ok, max_abs_err=err)
+    # the main path's operands: the store's int8 artifact
+    rec = ModelStore(store_root).get(MOE_ARCH)
+    cfg = ArchConfig(**rec.load_spec()["arch"])
+    q = rec.load_params(dequantize=False)
+    lq = q["layers"]
+    lp = {key: (v.dequantize()[0] if hasattr(v, "dequantize") else v[0])
+          .to(dev) for key, v in lq.items()
+          if key in ("ln1", "ln2", "wq", "wk", "wv", "wo")}
+    embed = q["embed"].dequantize().to(dev)
+    weights = {"wq": (lq["wq"].q[0], lq["wq"].scale),
+               "we_gate": (lq["we_gate"].q[0, 0], lq["we_gate"].scale),
+               "we_down": (lq["we_down"].q[0, 0], lq["we_down"].scale)}
+    weights = {key: (w.contiguous().to(dev), s.to(dev))
+               for key, (w, s) in weights.items()}
+    wu = lq["we_up"].dequantize()[0, 0].to(dev)
+    wg = weights["we_gate"][0].float() * weights["we_gate"][1]
+    toks_rng = np.random.default_rng(SEED + 111)
+    operands = []
+    with torch.inference_mode():
+        for m in INT8_ROWS:
+            toks = torch.from_numpy(toks_rng.integers(
+                1, cfg.vocab_size, (1, m))).to(dev)
+            x = embed[toks]
+            xn1 = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)[0]
+            y = x + tfm.attn(cfg, lp, x, backend="ref")[0]
+            xn2 = cm.rms_norm(y, lp["ln2"], cfg.norm_eps)[0]
+            h = torch.nn.functional.silu(xn2 @ wg) * (xn2 @ wu)
+            for key, act in (("wq", xn1), ("we_gate", xn2), ("we_down", h)):
+                aq = quantize(act.contiguous(), axis=0)      # per row
+                operands.append((key, m, aq.q.contiguous(), aq.scale,
+                                 *weights[key]))
+    del embed, lp, wu, wg
+    kops.reset_launches()                            # the main path starts
+    outs = [kops.int8_matmul(a, b, sa, sb) for _, _, a, sa, b, sb in operands]
+    torch.cuda.synchronize()
+    launches = kops.launches()["int8_matmul"]        # read just after
+    run.check("int8_kernels", f"the artifact path launched B11 "
+              f"{len(operands)} times", launches == len(operands),
+              launches=launches)
+    real = []
+    for (key, m, a, sa, b, sb), got in zip(operands, outs):
+        want = ref.int8_matmul_ref(a, b, sa, sb)
+        err = float((got - want).abs().max())
+        ok = torch.equal(got, want) and bool(torch.isfinite(got).all())
+        real.append({"weight": key, "shape": [m, *b.shape], "bit_equal": ok,
+                     "max_abs_err": err})
+        run.max_err["int8_matmul"] = max(run.max_err.get("int8_matmul", 0.0),
+                                         err)
+        run.check("int8_kernels", f"B11 on the artifact's {key}, M={m} "
+                  f"({a.shape[0]} x {a.shape[1]} @ {b.shape[0]} x "
+                  f"{b.shape[1]}): bit-equal", ok, max_abs_err=err)
+    times = {}
+    for key, m in (("wq", INT8_ROWS[0]), ("wq", INT8_ROWS[1]),
+                   ("we_gate", INT8_ROWS[2]), ("we_down", INT8_ROWS[2])):
+        _, _, a, sa, b, sb = next(o for o in operands
+                                  if o[0] == key and o[1] == m)
+        a_lib = a if m > 16 else torch.cat([a, a.new_zeros(32 - m,
+                                                           a.shape[1])])
+        lib_err = float((_int8_library(torch, a_lib, b, sa, sb)
+                         - kops.int8_matmul(a, b, sa, sb)).abs().max())
+        b_s, o_s = int8_bound(*a.shape, b.shape[1])
+        times[f"{m}x{a.shape[1]}x{b.shape[1]}"] = {
+            "weight": key, "headline": (key, m) == ("wq", INT8_ROWS[1]),
+            "ms": time_ms(torch, lambda: kops.int8_matmul(a, b, sa, sb)),
+            "plain_ms": time_ms(torch,
+                                lambda: ref.int8_matmul_ref(a, b, sa, sb)),
+            "library_ms": time_ms(torch, lambda: _int8_library(
+                torch, a_lib, b, sa, sb)),
+            "library_rows": a_lib.shape[0],
+            "device_us": _device_us(torch, lambda: kops.int8_matmul(
+                a, b, sa, sb)),
+            "library_device_us": _device_us(torch, lambda: _int8_library(
+                torch, a_lib, b, sa, sb))[0],
+            "library_vs_kernel_max_abs": lib_err,
+            "bound_ms": 1e3 * max(b_s, o_s),
+            "bound_by": "bytes" if b_s >= o_s else "operations"}
+    emit({"phase": "int8_kernels", "card": card["nvidia_smi"],
+          "synthetic": checks, "artifact": real, "launches": launches,
+          "times": times})
+    return {"launches": launches, "times": times}
+
+
 def kernel_rows(totals, b2, dec, flash, wkv, nin_launches, serve_launches,
-                train_launches, rwkv_launches, max_err):
+                train_launches, rwkv_launches, int8, max_err):
     """The ``{"kernels": [...]}`` entries: slice 1's four kernels and B2
     timed over one NIN forward at batch 8; B6 and B7 per launch at the
     serving path's batch-8 shapes; B8 and B9's three kernels per launch
     at the train shapes, B8's launches from the serve path's prefills and
     B9's from the train path; B10 per launch at the RWKV-6 prefill's
-    shape, its launches from the RWKV-6 serve path."""
+    shape, its launches from the RWKV-6 serve path; B11 per launch at a
+    prompt's wq product (300 x 1536 x 1536) of the Granite-MoE int8
+    artifact, its launches from the artifact path, the other three
+    shapes beside it."""
     rows = []
     for name, (source, replaces) in SOURCES.items():
         t = (totals or {}).get(name, {})
@@ -2516,6 +3130,23 @@ def kernel_rows(totals, b2, dec, flash, wkv, nin_launches, serve_launches,
         "library_call": "none: no single PyTorch call computes the WKV",
         "ms_per": "one launch (one layer), RWKV-6 3B prefill, 1 x 300 x 40 "
                   "x 64, fp32"})
+    times = (int8 or {}).get("times", {})
+    t = next((v for v in times.values() if v["headline"]), {})
+    rows.append({
+        "name": "int8_matmul", "route": "cuda", "source": INT8_SOURCE[0],
+        "replaces": INT8_SOURCE[1],
+        "launches": (int8 or {}).get("launches", 0),
+        "launches_on": "int8_kernels (the Granite-MoE int8 artifact's wq, "
+                       "we_gate, we_down at M 8, 300, 2048)",
+        "max_abs_err": max_err.get("int8_matmul"),
+        "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
+        "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+        "library_ms": t.get("library_ms"),
+        "library_call": "torch._int_mm (cuBLASLt) + the epilogue",
+        "ms_per": "one launch, 300 x 1536 @ 1536 x 1536 (a prompt's wq), "
+                  "int8 -> fp32",
+        "other_shapes": {k: v for k, v in times.items()
+                         if not v["headline"]}})
     return rows
 
 
@@ -2613,9 +3244,18 @@ def main() -> int:
             timed("selector", phase_selector, run, torch, np, tiny_np,
                   rwkv_params, store_root)
         del rwkv_params
+    # slice 5: Granite-MoE 3B on B8 and B6/B7, its int8 artifact through
+    # MultiModelServer, and B11 on that artifact's QTensors
+    torch.cuda.empty_cache()
+    int8 = None
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as store_root:
+        if timed("serve_moe", phase_serve_moe, run, torch, np, card,
+                 store_root) is not None:
+            int8 = timed("int8_kernels", phase_int8_kernels, run, torch, np,
+                         store_root, card)
     kernels = kernel_rows(totals, b2, dec, flash, wkv, nin_launches,
                           serve_launches, train_launches, rwkv_launches,
-                          run.max_err)
+                          int8, run.max_err)
     for k in kernels:
         run.check("summary", f"{k['name']} launched on the main path",
                   k["launches"] > 0)

@@ -5,7 +5,8 @@ nothing of the JAX package.  The fields are the JAX package's, one for
 one, so a spec that either package publishes (``dataclasses.asdict`` of
 the config) loads in the other.  Registered here: the two CNN configs of
 the paper's inference path, the two dense transformers of the serving
-path and RWKV-6 Finch 3B.  ``reduced()`` derives the CPU test variant
+path, RWKV-6 Finch 3B and the two MoE decoders (Granite-MoE 3B-A800M,
+Qwen3-MoE 235B-A22B).  ``reduced()`` derives the CPU test variant
 from the same config.
 """
 from __future__ import annotations
@@ -100,7 +101,8 @@ def list_configs():
 def _ensure_loaded():
     # import every config module so its @register runs
     from repro_torch.configs import (  # noqa: F401
-        lenet_mnist, nin_cifar10, qwen3_0_6b, rwkv6_3b, tinyllama_1_1b)
+        granite_moe_3b_a800m, lenet_mnist, nin_cifar10, qwen3_0_6b,
+        qwen3_moe_235b_a22b, rwkv6_3b, tinyllama_1_1b)
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:

@@ -14,6 +14,7 @@ from repro_torch.kernels import conv2d as _conv
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import elementwise as _ew
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import int8_matmul as _i8
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import pool as _pool
 from repro_torch.kernels import rwkv6_chunk as _rwkv
@@ -26,6 +27,7 @@ from repro_torch.kernels.decode_attention import (
 from repro_torch.kernels.elementwise import elementwise, relu
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention_bwd import flash_attention_trainable
+from repro_torch.kernels.int8_matmul import int8_matmul
 from repro_torch.kernels.matmul import matmul
 from repro_torch.kernels.pool import pool2d
 from repro_torch.kernels.rwkv6_chunk import rwkv6_chunked
@@ -33,7 +35,8 @@ from repro_torch.kernels.softmax import softmax
 
 __all__ = ["KERNELS", "conv2d", "decode_attention", "decode_attention_paged",
            "decode_attention_paged_q8", "decode_attention_q8", "elementwise",
-           "flash_attention", "flash_attention_trainable", "launches",
+           "flash_attention", "flash_attention_trainable", "int8_matmul",
+           "launches",
            "matmul", "pool2d", "relu", "reset_launches", "rwkv6_chunked",
            "softmax"]
 
@@ -52,6 +55,7 @@ KERNELS: Dict[str, Union[CudaKernel, CompositeKernel]] = {
     "flash_attention_dq": _fa.DQ,            # B9: dq
     "flash_attention_dkv": _fa.DKV,          # B9: dk/dv
     "rwkv6_chunked": _rwkv.KERNEL,           # B10
+    "int8_matmul": _i8.KERNEL,               # B11
 }
 
 

@@ -277,3 +277,17 @@ def rwkv6_ref(r, k, v, w, u, s0=None):
     """Token-by-token RWKV6 recurrence (B, T, H, N): the oracle of both."""
     from repro_torch.models.rwkv6 import wkv_scan
     return wkv_scan(r, k, v, w, u, s0=s0)
+
+
+def int8_matmul_ref(a_q, b_q, a_scale, b_scale):
+    """a_q (M, K) int8 @ b_q (K, N) int8, summed exactly, then
+    ``float(acc) * a_scale[:, None] * b_scale[None, :]`` in fp32.  On the
+    CPU the sum is an int32 product; on the card, which has no int32
+    matmul, an fp64 product of the integer values, exact while
+    127^2 * K < 2^53, whose conversion to fp32 rounds as int32 -> fp32
+    does.  Both wrap no earlier than int32 does (K >= 133,145)."""
+    if a_q.device.type == "cpu":
+        acc = a_q.to(torch.int32) @ b_q.to(torch.int32)
+    else:
+        acc = a_q.double() @ b_q.double()
+    return acc.float() * a_scale.float()[:, None] * b_scale.float()[None, :]

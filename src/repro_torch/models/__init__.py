@@ -3,7 +3,8 @@
 The port of ``repro.models``.  Ported families: the dense transformer
 (``dense`` and ``vlm``: training through ``loss_fn`` and serving), RWKV-6
 (``ssm``: serving, and training through ``loss_fn`` on its plain chunked
-WKV) and the paper's CNNs (``cnn``).
+WKV), the mixture-of-experts decoder (``moe``: serving and training) and
+the paper's CNNs (``cnn``).
 The others raise ``NotImplementedError`` naming the ROADMAP item that
 ports them.
 """
@@ -15,8 +16,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common
 
 # family -> the ROADMAP item (queue A) that ports it
-_NOT_PORTED = {"moe": "A12 (models/moe.py)",
-               "hybrid": "A12 (models/rglru.py)",
+_NOT_PORTED = {"hybrid": "A12 (models/rglru.py)",
                "audio": "A12 (models/encdec.py)"}
 
 
@@ -25,6 +25,9 @@ def get_module(cfg: ArchConfig):
     if fam in ("dense", "vlm"):
         from repro_torch.models import transformer
         return transformer
+    if fam == "moe":
+        from repro_torch.models import moe
+        return moe
     if fam == "ssm":
         from repro_torch.models import rwkv6
         return rwkv6

@@ -300,31 +300,34 @@ def cache_to_kv_dtype(cfg: ArchConfig, cache, kv_dtype):
 
 
 def decode_step(cfg: ArchConfig, params, token, cache, pos, *,
-                window: int = 0):
+                window: int = 0, ffn=mlp):
     """token (B, 1) int; pos an int or 0-dim tensor, shared by the
-    lanes.  Writes the ring cache in place; returns (logits, cache)."""
+    lanes.  Writes the ring cache in place; returns (logits, cache).
+    ``ffn(cfg, lp, x)`` is the block after attention (the MoE family
+    passes its own)."""
     x = _embed(cfg, params, token)
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
         x = x + attn_decode(cfg, lp, x, cache["k"][l], cache["v"][l], pos,
                             window=window)
-        x = x + mlp(cfg, lp, x)
+        x = x + ffn(cfg, lp, x)
     return _logits(cfg, params, x), cache
 
 
 def decode_step_batch(cfg: ArchConfig, params, tokens, cache, pos, *,
-                      window: int = 0, attn_backend=None):
+                      window: int = 0, attn_backend=None, ffn=mlp):
     """Lane-major decode: tokens (B, 1); pos (B,) per-lane positions.
     The continuous-batching hot path: batched QKV projections, per-lane
     RoPE and cache writes, and one fused ragged attention call per layer.
     An int8 cache (``k_scale``) takes the quantizing write and the q8
-    attention; a paged cache (``page_table``) the pools.  Writes the
-    cache in place; returns (logits (B, 1, V), cache)."""
+    attention; a paged cache (``page_table``) the pools.  ``ffn`` as in
+    :func:`decode_step`.  Writes the cache in place; returns (logits
+    (B, 1, V), cache)."""
     x = _embed(cfg, params, tokens)
     if "page_table" in cache:
         return _decode_step_batch_paged(cfg, params, x, cache, pos,
                                         window=window,
-                                        attn_backend=attn_backend)
+                                        attn_backend=attn_backend, ffn=ffn)
     quantized = "k_scale" in cache
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
@@ -333,12 +336,12 @@ def decode_step_batch(cfg: ArchConfig, params, tokens, cache, pos, *,
         x = x + attn_decode_batch(cfg, lp, x, cache["k"][l], cache["v"][l],
                                   pos, window=window, backend=attn_backend,
                                   **scales)
-        x = x + mlp(cfg, lp, x)
+        x = x + ffn(cfg, lp, x)
     return _logits(cfg, params, x), cache
 
 
 def _decode_step_batch_paged(cfg: ArchConfig, params, x, cache, pos, *,
-                             window: int = 0, attn_backend=None):
+                             window: int = 0, attn_backend=None, ffn=mlp):
     """Paged twin of :func:`decode_step_batch`: per-layer pool views, the
     (B, W) page table shared by every layer."""
     pt = cache["page_table"]
@@ -351,16 +354,18 @@ def _decode_step_batch_paged(cfg: ArchConfig, params, x, cache, pos, *,
                                   cache["v_pages"][l], pos, window=window,
                                   backend=attn_backend, page_table=pt,
                                   **scales)
-        x = x + mlp(cfg, lp, x)
+        x = x + ffn(cfg, lp, x)
     return _logits(cfg, params, x), cache
 
 
 def prefill(cfg: ArchConfig, params, tokens, cache_len: int,
-            *, window: int = 0, cache_dtype=torch.bfloat16, backend=None):
+            *, window: int = 0, cache_dtype=torch.bfloat16, backend=None,
+            ffn=mlp):
     """Run the full prompt, returning logits and a populated ring cache.
     A prompt longer than ``cache_len`` keeps its last ``cache_len``
     tokens, rolled so that token t lives at slot t % cache_len.
-    ``backend`` names the flash attention backend (see :func:`attn`)."""
+    ``backend`` names the flash attention backend (see :func:`attn`),
+    ``ffn`` the block after attention (see :func:`decode_step`)."""
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
     cache = init_cache(cfg, b, cache_len, cache_dtype, device=x.device)
@@ -369,7 +374,7 @@ def prefill(cfg: ArchConfig, params, tokens, cache_len: int,
         lp = _layer(params, l)
         a, (k, v) = attn(cfg, lp, x, window=window, backend=backend)
         x = x + a
-        x = x + mlp(cfg, lp, x)
+        x = x + ffn(cfg, lp, x)
         # (B, S, KV, D) -> bksd (B, KV, S, D)
         cache["k"][l, :, :, :keep] = k[:, s - keep:].transpose(1, 2)
         cache["v"][l, :, :, :keep] = v[:, s - keep:].transpose(1, 2)

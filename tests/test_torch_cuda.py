@@ -129,9 +129,11 @@ def _scales(dev, shape, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("layout", ["bksd", "bskd"])
-@pytest.mark.parametrize("b,kvh,g", [(1, 4, 8), (8, 4, 8), (8, 8, 2)])
-def test_decode_attention_ring_kernel(dev, dtype, layout, b, kvh, g):
-    s, d = 1024, 64
+@pytest.mark.parametrize("b,kvh,g,d", [(1, 4, 8, 64), (8, 4, 8, 64),
+                                       (8, 8, 2, 64), (8, 8, 3, 64),
+                                       (8, 2, 4, 32)])
+def test_decode_attention_ring_kernel(dev, dtype, layout, b, kvh, g, d):
+    s = 1024
     shape = (b, kvh, s, d) if layout == "bksd" else (b, s, kvh, d)
     q = randn(dev, b, kvh * g, d)
     k, v = _cache(dev, shape, dtype, 1), _cache(dev, shape, dtype, 2)
@@ -234,7 +236,9 @@ def _qkv(dev, b, s, h, kvh, d, dtype, seed=0):
                                          (1, 127, 16, 8, 128),
                                          (2, 300, 32, 4, 64),
                                          (2, 5, 8, 1, 32),
-                                         (1, 300, 8, 4, 32)])
+                                         (1, 300, 8, 4, 32),
+                                         (2, 300, 24, 8, 64),
+                                         (1, 127, 8, 2, 32)])
 def test_flash_attention_kernels(dev, b, s, h, kvh, d, window, dtype):
     from repro_torch.kernels import flash_attention as fa
     q, k, v = _qkv(dev, b, s, h, kvh, d, dtype)
@@ -432,4 +436,99 @@ def test_rwkv6_train_cli_matches_ref(dev, tmp_path):
     assert kops.launches()["rwkv6_chunked"] == 0
     _, want = train.train("rwkv6-3b", steps=2, batch=2, seq=64, device=dev,
                           backend="ref")
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (64, 512, 256),
+                                   (1, 1, 1), (37, 130, 75), (17, 1000, 3),
+                                   (8, 1536, 1536), (300, 512, 1536)])
+def test_int8_matmul_kernel_is_bit_equal(dev, m, k, n):
+    """B11 against its plain version: the int32 sums are exact and the
+    epilogue rounds in the same order, so the results are equal."""
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    sa = torch.rand(m, generator=g) + 0.01
+    sb = torch.rand(n, generator=g) + 0.01
+    args = [x.to(dev) for x in (a, b, sa, sb)]
+    before = kops.launches()["int8_matmul"]
+    got = kops.int8_matmul(*args)
+    assert kops.launches()["int8_matmul"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.int8_matmul_ref(*args))
+    assert torch.equal(got.cpu(), ref.int8_matmul_ref(a, b, sa, sb))
+    full = torch.full((8, 512), 127, dtype=torch.int8, device=dev)
+    ones = torch.ones(8, device=dev)
+    assert torch.equal(kops.int8_matmul(full, full.t().contiguous(), ones,
+                                        ones),
+                       torch.full((8, 8), 512.0 * 127 * 127, device=dev))
+
+
+def test_int8_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    a = torch.zeros(4, 16, dtype=torch.int8, device=dev)
+    bt = torch.zeros(3, 16, dtype=torch.int8, device=dev)
+    sa, sb = torch.ones(4, device=dev), torch.ones(3, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        kops.int8_matmul(a, bt.t(), sa, sb)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kops.int8_matmul(a, bt.t().contiguous().cpu(), sa, sb)
+
+
+def test_moe_served_on_the_kernels_equals_ref(dev):
+    """Reduced Granite-MoE (8/2 heads of 32) through ServingEngine in
+    the ring fp32 and paged int8 forms: greedy tokens on the kernels
+    equal ``ref``'s; B8 launches num_layers x prefills and the decode
+    kernels num_layers x decode steps there, none on ``ref``; 8 ticks
+    run under sync debug mode "error"."""
+    from repro_torch import models
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = reduced(get_config("granite-moe-3b-a800m"))
+    params = models.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                device=dev)
+    L = cfg.num_layers
+    for opts, dec in (({}, "decode_attention"),
+                      ({"kv_layout": "paged", "page_size": 16,
+                        "kv_dtype": "int8"}, "decode_attention_paged_q8")):
+        outs = {}
+        for backend in (None, "ref"):
+            reqs = [Request(uid=i, prompt=list(range(3, 3 + n)),
+                            max_new_tokens=12)
+                    for i, n in enumerate((5, 17, 1, 40))]
+            eng = ServingEngine(cfg, params, max_batch=4, cache_len=64,
+                                attn_backend=backend, device=dev, **opts)
+            kops.reset_launches()
+            sched = eng.scheduler()
+            for r in reqs:
+                sched.submit(r)
+            sched.tick()                       # admits all four
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(8):
+                    sched.tick()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            sched.run()
+            got = {k: v for k, v in kops.launches().items() if v}
+            # a ring prefills every request; pages skip the prefix hits
+            prefills = sched.admissions - sched.prefix_hits \
+                if sched._paged else len(reqs)
+            want = {"flash_attention": L * prefills,
+                    dec: L * sched.decode_steps} if backend is None else {}
+            assert got == want, (backend, opts)
+            outs[backend] = [r.output for r in reqs]
+        assert outs[None] == outs["ref"], opts
+
+
+def test_moe_train_cli_matches_ref(dev, tmp_path):
+    """launch.train --arch granite-moe-3b-a800m (reduced): losses on the
+    card (B9 forward and backward) equal a ``ref`` run's."""
+    from repro_torch.launch import train
+    kops.reset_launches()
+    got = train.main(["--arch", "granite-moe-3b-a800m", "--steps", "2",
+                      "--batch", "2", "--seq", "64", "--publish",
+                      str(tmp_path)])
+    assert kops.launches()["flash_attention_dq"] == 2 * 2
+    _, want = train.train("granite-moe-3b-a800m", steps=2, batch=2, seq=64,
+                          device=dev, backend="ref")
     np.testing.assert_allclose(got, want, rtol=1e-4)

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import _build
@@ -138,6 +139,64 @@ def test_softmax_matches_pallas(r, n, scale):
 
 
 # ---------------------------------------------------------------------------
+# B11 int8 matmul: the JAX test shapes and ragged ones
+# ---------------------------------------------------------------------------
+
+
+def int8_operands(m, k, n, seed=0):
+    rng = np.random.default_rng(RNG_SEED + seed)
+    aq = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    bq = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    asc = (np.abs(rng.standard_normal(m)) + 0.01).astype(np.float32)
+    bsc = (np.abs(rng.standard_normal(n)) + 0.01).astype(np.float32)
+    return aq, bq, asc, bsc
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (64, 512, 256),
+                                   (1, 1, 1), (37, 130, 75), (17, 1000, 3)])
+def test_int8_matmul_matches_pallas(m, k, n):
+    args = int8_operands(m, k, n, seed=m + k + n)
+    want = jops.int8_matmul(*map(jnp.asarray, args), interpret=True)
+    tops.reset_launches()
+    got = tops.int8_matmul(*map(t, args))
+    assert tops.launches()["int8_matmul"] == 0      # the plain version
+    assert got.dtype == torch.float32
+    assert_close(got, want, rtol=1e-5, atol=0)
+
+
+def test_int8_matmul_accumulates_in_int32():
+    """512 * 127 * 127 overflows int16 but not int32."""
+    a = torch.full((8, 512), 127, dtype=torch.int8)
+    ones = torch.ones(8)
+    got = tops.int8_matmul(a, a.t().contiguous(), ones, ones)
+    assert torch.equal(got, torch.full((8, 8), 512.0 * 127 * 127))
+
+
+def test_int8_matmul_refuses_what_the_kernel_does_not_take():
+    a, b, sa, sb = map(t, int8_operands(4, 8, 3))
+    with pytest.raises(TypeError, match="int8"):
+        tops.int8_matmul(a.float(), b, sa, sb)
+    with pytest.raises(TypeError, match="float32"):
+        tops.int8_matmul(a, b, sa.double(), sb)
+    with pytest.raises(ValueError, match="scales"):
+        tops.int8_matmul(a, b, sb, sa)
+    with pytest.raises(ValueError, match="shapes"):
+        tops.int8_matmul(a, b.t(), sa, sb)
+
+
+@settings(max_examples=25, deadline=None)
+@given(m=st.integers(1, 32), k=st.integers(1, 64), n=st.integers(1, 32),
+       seed=st.integers(0, 2 ** 16))
+def test_int8_matmul_exact_integers(m, k, n, seed):
+    """With unit scales the result is the exact integer product (the
+    property test_properties.py holds the Pallas kernel to)."""
+    aq, bq, _, _ = int8_operands(m, k, n, seed=seed)
+    got = tops.int8_matmul(t(aq), t(bq), torch.ones(m), torch.ones(n))
+    want = aq.astype(np.int64) @ bq.astype(np.int64)
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), want)
+
+
+# ---------------------------------------------------------------------------
 # Rules of the port
 # ---------------------------------------------------------------------------
 
@@ -159,6 +218,9 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_repro():
     sources = _port_sources()
     assert len(sources) > 15
+    names = {p.relative_to(REPO).as_posix() for p in sources}
+    assert {"src/repro_torch/models/moe.py",
+            "src/repro_torch/kernels/int8_matmul.py"} <= names
     bad = [(p.relative_to(REPO).as_posix(), m) for p in sources
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -176,7 +238,7 @@ def test_importing_the_kernels_builds_nothing():
         "decode_attention_q8", "decode_attention_paged",
         "decode_attention_paged_q8", "flash_attention",
         "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
-        "rwkv6_chunked"}
+        "rwkv6_chunked", "int8_matmul"}
 
 
 def test_cpu_tensors_take_the_plain_version_without_counting():
@@ -186,6 +248,8 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     tops.softmax(tops.matmul(x.reshape(2, -1), t(rand(256, 5))))
     r = x.reshape(2, 8, 1, 32)
     tops.rwkv6_chunked(r, r, r, r.sigmoid(), r[0, 0])
+    q = x.reshape(8, 64).to(torch.int8)
+    tops.int8_matmul(q, q.t().contiguous(), x[0, 0, 0], x[0, 0, 0])
     assert tops.launches() == {k: 0 for k in tops.KERNELS}
 
 
@@ -196,6 +260,8 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     lambda x: tops.matmul(x.reshape(4, 4), x.reshape(4, 4)),
     lambda x: tops.rwkv6_chunked(*[x.reshape(1, 1, 1, 16)] * 4,
                                  x.reshape(1, 16)),
+    lambda x: tops.int8_matmul(*[x.reshape(4, 4).to(torch.int8)] * 2,
+                               x[:4], x[4:8]),
 ])
 def test_non_cpu_tensor_never_falls_back(call):
     """A tensor that is not on the CPU launches the kernel or raises: a
