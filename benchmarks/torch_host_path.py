@@ -1,0 +1,78 @@
+#!/usr/bin/env python3
+"""Host cost of the PyTorch/CUDA port's kernel launches and of a NIN
+request, for one tree of the port, on one CUDA card.
+
+    python3 benchmarks/torch_host_path.py [--src DIR] [--tag NAME]
+
+``repro_torch`` is imported from DIR (default: this checkout's ``src``),
+so that two trees of the port, say a commit and its parent unpacked with
+``git archive``, are compared on one card, one after the other (run them
+in turns: parent, change, change, parent).  The kernels of that tree are
+built as its own ``_build`` builds them.  The measurements are
+``chip_smoke.py``'s: host µs per launch of every wrapper beside one
+PyTorch call (``launch_path_cases``, 10,000 calls with no synchronise),
+then NIN-CIFAR10 published to a temporary store and served through
+``InferenceEngine``: batch-1 and batch-8 latency, batch-64 images/s, and
+device time by part and idle share over 20 requests at batch 1, 8 and 64.
+Prints JSON lines, the card's name and power limit in each; exits 2
+without a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import pathlib
+import sys
+import tempfile
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the directory that holds repro_torch")
+    ap.add_argument("--tag", default="this tree")
+    args = ap.parse_args(argv)
+    src = pathlib.Path(args.src).resolve()
+    sys.path.insert(0, str(src))
+    sys.path.insert(1, str(ROOT))
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_host_path: no CUDA card", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    import repro_torch
+    if pathlib.Path(repro_torch.__file__).resolve().parents[1] != src:
+        raise RuntimeError(f"repro_torch came from {repro_torch.__file__}")
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.importer import to_caffe_json
+    from repro_torch.core.modelstore import ModelStore
+    from repro_torch.models import cnn
+
+    cs.set_fp32_exact(torch)
+    card = cs.phase_device(torch)
+    head = {"tree": args.tag, "src": str(src), "card": card["nvidia_smi"]}
+    for row in cs.host_path_rows(torch):
+        cs.emit({"phase": "host_path", **head, "calls": cs.LAUNCH_CALLS,
+                 **row})
+    graph = cnn.graph_for(get_config("nin-cifar10"))
+    params = params_from_numpy(cs.numpy_params(np, graph, cs.SEED), "cpu",
+                               graph=graph)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as store_root:
+        store = ModelStore(pathlib.Path(store_root))
+        store.publish("nin-cifar10", to_caffe_json(graph, params)[0], params)
+        engine = InferenceEngine(store)
+        cs.emit({"phase": "host_path", **head,
+                 **cs.nin_end_to_end(torch, np, engine, "nin-cifar10",
+                                     graph.input_shape)})
+        cs.phase_profile(torch, np, engine, card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

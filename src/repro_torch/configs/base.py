@@ -101,8 +101,9 @@ def list_configs():
 def _ensure_loaded():
     # import every config module so its @register runs
     from repro_torch.configs import (  # noqa: F401
-        granite_moe_3b_a800m, lenet_mnist, nin_cifar10, qwen3_0_6b,
-        qwen3_moe_235b_a22b, rwkv6_3b, tinyllama_1_1b)
+        chameleon_34b, granite_moe_3b_a800m, lenet_mnist, llama3_8b,
+        nin_cifar10, qwen3_0_6b, qwen3_8b, qwen3_moe_235b_a22b, rwkv6_3b,
+        tinyllama_1_1b)
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:

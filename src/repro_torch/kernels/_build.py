@@ -9,7 +9,10 @@ is.  Nothing is built when a module is imported: the first launch of a
 kernel builds, or :func:`build` does so explicitly.
 
 A kernel is a :class:`CudaKernel`: one C entry point that returns
-``cudaGetLastError()``, plus a plain count of its launches.
+``cudaGetLastError()``, plus a plain count of its launches.  Its launch
+path is lean on the host (ints for pointers, the raw current stream),
+because at the CNN's shapes the host's cost per launch is larger than
+the kernel's device time.
 """
 from __future__ import annotations
 
@@ -121,12 +124,22 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _raw_stream_fn():
+    fn = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if fn is None:
+        raise RuntimeError("this torch build has no CUDA stream API")
+    return fn
+
+
 class CudaKernel:
     """One C entry point of the kernel library and the count of its launches.
 
-    ``launch`` passes pointers as ``c_void_p`` (from ``data_ptr()``), ints
-    as the declared ctypes, and the current stream last; it raises when the
-    entry point returns a CUDA error and counts only launches that did not.
+    ``launch(device_index, *args)`` passes pointers as ``data_ptr()``
+    ints (the argtypes declare them ``c_void_p``), ints as the declared
+    ctypes, and the device's current stream, as a raw ``cudaStream_t``
+    read without building a ``torch.cuda.Stream``, last; it raises when
+    the entry point returns a CUDA error and counts only launches that
+    did not.  The first launch builds the library and binds the symbol.
     """
 
     def __init__(self, symbol: str, argtypes: Sequence):
@@ -134,42 +147,34 @@ class CudaKernel:
         self.argtypes = list(argtypes) + [ctypes.c_void_p]   # + stream
         self.launches = 0
         self._fn = None
+        self._stream = None
 
-    def launch(self, device, *args) -> None:
-        if self._fn is None:
-            build()
-            fn = getattr(_library, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = self._fn(*args, stream)
-        if err != 0:
+    def _bind(self):
+        build()
+        fn = getattr(_library, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._stream = _raw_stream_fn()
+        self._fn = fn
+        return fn
+
+    def launch(self, device_index: int, *args) -> None:
+        fn = self._fn or self._bind()
+        err = fn(*args, self._stream(device_index))
+        if err:
             msg = _library.dlk_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} failed to launch: {msg} ({err})")
         self.launches += 1
 
 
-class CompositeKernel:
-    """A wrapper whose kernel is another one of the library (B2 conv2d is
-    im2col + the B1 launch): it counts its own launches beside the
-    count of the kernel it goes through."""
-
-    def __init__(self, via: CudaKernel):
-        self.via = via
-        self.launches = 0
-
-
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def check_cuda_f32(name: str, *tensors) -> None:
-    """Raise unless every tensor is fp32 on one CUDA device."""
-    dev = tensors[0].device
+def check_cuda_f32(name: str, *tensors) -> int:
+    """Raise unless every tensor is fp32 on one CUDA device; return that
+    device's index."""
+    index = tensors[0].get_device()
     for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
+        if not t.is_cuda or t.get_device() != index:
             raise ValueError(f"{name}: tensors must share one CUDA device, "
                              f"got {[str(x.device) for x in tensors]}")
-        if t.dtype != torch.float32:
+        if t.dtype is not torch.float32:
             raise TypeError(f"{name}: kernel takes float32, got {t.dtype}")
+    return index

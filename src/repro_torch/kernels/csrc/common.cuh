@@ -1,9 +1,12 @@
 // Shared pieces of the kernel library: activation codes (the same numbers
 // as ACT_CODES in repro_torch/kernels/elementwise.py), the activations in
-// fp32, and the error return every C entry point ends with.
+// fp32, the error return every C entry point ends with, and the opt-in to
+// more than 48 KB of dynamic shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 enum DlkAct : int {
   DLK_ACT_NONE = 0,
@@ -40,3 +43,23 @@ __device__ __forceinline__ float dlk_act(float x, int act) {
 // Every entry point returns this: a launch refused for its configuration
 // never runs, and only cudaGetLastError reports it.
 static inline int dlk_last_error() { return static_cast<int>(cudaGetLastError()); }
+
+// Above 48 KB a block's shared memory must be asked for: once per kernel
+// and device, at its first launch there (each launcher keeps its own
+// DlkSmemOnce in a function-local static).
+constexpr int DLK_MAX_DEVICES = 64;
+struct DlkSmemOnce {
+  std::atomic<bool> done[DLK_MAX_DEVICES];
+};
+
+template <typename K>
+int dlk_prepare_smem(K kern, size_t smem, DlkSmemOnce& once) {
+  int dev = 0;
+  if (cudaError_t err = cudaGetDevice(&dev)) return static_cast<int>(err);
+  const bool known = dev < DLK_MAX_DEVICES;
+  if (known && once.done[dev].load(std::memory_order_acquire)) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess && known) once.done[dev].store(true, std::memory_order_release);
+  return static_cast<int>(err);
+}

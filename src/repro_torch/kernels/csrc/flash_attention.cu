@@ -1,67 +1,82 @@
-// B8 + B9: full-sequence flash attention (prefill and training) with causal
-// and sliding-window masks and GQA, in fp32 or bf16: the forward, with the
-// per-row logsumexp when the backward needs it, and the FlashAttention-2
-// backward (dq, and dk/dv summed over each KV head's group).
+// B8 + B9: full-sequence flash attention (prefill, training, cross
+// attention) with causal and sliding-window masks and GQA, in fp32 or bf16:
+// the forward, with the per-row logsumexp when the backward needs it, and
+// the FlashAttention-2 backward (dq, and dk/dv summed over each KV head's
+// group).
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention (B8, body
 // _flash_kernel) and repro/kernels/flash_attention_bwd.py (B9: _fwd_kernel,
-// _dq_kernel, _dkv_kernel).  On the TPU the grid (B*H, S/bq, S/bk) walks
+// _dq_kernel, _dkv_kernel).  On the TPU the grid (B*H, Sq/bq, Sk/bk) walks
 // the KV axis in order and carries (m, l, acc) in VMEM scratch from one
 // grid step to the next; the inputs are transposed to (B*H, S, D) first,
-// S must be a multiple of the block, and every KV block is visited (the
-// mask zeroes the invisible ones).  dk/dv are computed per query head and
-// summed over the group outside the kernel.
+// Sq and Sk must be multiples of the blocks, and every KV block is visited
+// (the mask sets the invisible scores to -1e30).  dk/dv are computed per
+// query head and summed over the group outside the kernel.
 //
 // Bound on the H100: operations.  A 64 x 64 score tile costs 2*64*64*D
 // flops for QK^T and as many for PV against 2*64*D*4 bytes of K/V, so the
 // kernels sit far above the fp32 ridge (~20 flops per byte) at S >= 64.
 //
 // Design (fp32 FFMA, no tensor cores and no TF32):
-//  - one CTA of 256 threads per (query tile of 64 rows, head, batch) for the
-//    forward and dq, per (key tile of 64 rows, KV head, batch) for dk/dv;
+//  - q has Sq rows and k, v have Sk; query positions start at 0, as in the
+//    Pallas kernels (query i sees key j when j <= i if causal and
+//    j > i - window if windowed);
+//  - tile heights are tied to the head dim (Tiles<D>): 64 query and 64 key
+//    rows up to D 128, 32 and 32 at D 256, so that every kernel's shared
+//    tiles fit the 227 KB a block can have;
+//  - one CTA of 256 threads per (query tile, head, batch) for the forward
+//    and dq, per (key tile, KV head, batch) for dk/dv;
 //  - the loop over the other axis is inside the CTA and bounded by the
 //    causal and window limits, so a tile that no row can see is never
-//    loaded; the ragged edge of S is masked (rows and keys past S are
-//    zero-filled and masked), so S needs no padding;
-//  - tiles are read by strides straight from (B, S, H, D) / (B, S, KV, D)
+//    loaded; the ragged edges of Sq and Sk are masked (rows and keys past
+//    them are zero-filled, and a key past Sk has p = 0), so nothing is
+//    padded;
+//  - tiles are read by strides straight from (B, Sq, H, D) / (B, Sk, KV, D)
 //    (no transposes), converted to fp32 in shared memory;
 //  - thread (ty, tx) of a 16 x 16 grid owns rows ty + 16 i and score
-//    columns tx + 16 j (i, j < 4) of a 64 x 64 tile, and D / 16 output
-//    columns of its rows (4 tx + 64 j + e for head_dim 64 and 128, 2 tx + e
-//    for 32), so the row statistics of the online softmax stay in its
-//    registers and are reduced over 16 lanes by shuffles; products read
-//    float4 rows of padded shared tiles;
-//  - masked scores never enter the softmax: they count as -1e30 for the
-//    running max and as exactly 0 for p, so a row whose first visited tile
-//    is fully masked (a sliding window) carries l = 0 and acc = 0 instead
-//    of the reference's garbage that a later corr = 0 wipes;
+//    columns tx + 16 j of a score tile, and D / 16 output columns of its
+//    rows (4 tx + 64 j + e from head_dim 64 up, 2 tx + e for 32), so the
+//    row statistics of the online softmax stay in its registers and are
+//    reduced over 16 lanes by shuffles; products read float4 rows of padded
+//    shared tiles;
+//  - masking is the reference's arithmetic: a masked score is -1e30, and
+//    p = exp(s - m) (forward) or exp(s - lse) (backward).  A row that has
+//    seen no visible key yet has m = -1e30 and so p = 1 on its masked keys,
+//    which the first visible key's corr = exp(-1e30 - m) = 0 wipes exactly;
+//    a row that no key can see (Sq > Sk + window - 1 with a window) keeps
+//    p = 1 on every key, so its output is the mean of v and its lse
+//    -1e30 + log(Sk) = -1e30 in fp32, as the Pallas kernels give.  A CTA
+//    holding such rows visits every key tile (dk/dv: every query tile);
 //  - lse = m + log(max(l, 1e-30)), as the reference writes it, so the
 //    backward's exp(s - lse) are the forward's probabilities;
 //  - dk/dv: one CTA per key tile loops over the G query heads of its KV
 //    head and over the query tiles that can see it, accumulating dk and dv
-//    in fp32 registers, and writes the group sum once (the reference's
-//    per-head outputs and their sum over G are never stored).
+//    in fp32 registers (each tile's products summed apart, then added),
+//    and writes the group sum once (the reference's per-head outputs and
+//    their sum over G are never stored).
 //
 // Not yet done (a later PR): wgmma/TMA tensor-core tiles, bf16 products.
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <atomic>
-
 #include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;             // query rows per tile
-constexpr int BK = 64;             // key rows per tile
 constexpr int THREADS = 256;       // a 16 x 16 grid
-constexpr int PS = BK + 4;         // row stride of the 64 x 64 P / dS tiles
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
+// Query and key rows per tile for head dim D.
+template <int D>
+struct Tiles {
+  static constexpr int Q = D <= 128 ? 64 : 32;
+  static constexpr int K = D <= 128 ? 64 : 32;
+};
+
 struct Shape {
-  int S, H, KV, G;                 // sequence, query heads, KV heads, H / KV
+  int Sq, Sk, H, KV, G;            // query and key lengths, heads, H / KV
   int causal, window;
   float scale;
 };
@@ -94,7 +109,7 @@ __device__ __forceinline__ void st2(__nv_bfloat16* p, float x, float y) {
 }
 
 // The D / 16 output columns that thread tx owns in a row of D: float4
-// groups 4 tx + 64 j + e (e < 4) for D = 64 and 128, one float2 pair
+// groups 4 tx + 64 j + e (e < 4) from D = 64 up, one float2 pair
 // 2 tx + e (e < 2) for D = 32.
 template <int D>
 __device__ __forceinline__ void ld_cols(float (&x)[D / 16], const float* row,
@@ -127,29 +142,41 @@ __device__ __forceinline__ void st_cols(T* row, const float (&x)[D / 16],
   }
 }
 
+// The reference's mask of query position qp against key position kp.
 __device__ __forceinline__ bool visible(const Shape& sh, int qp, int kp) {
-  return qp < sh.S && kp < sh.S && (!sh.causal || kp <= qp) &&
-         (!sh.window || kp > qp - sh.window);
+  return (!sh.causal || kp <= qp) && (!sh.window || kp > qp - sh.window);
 }
 
-// Tile-aligned first key and the key bound that the query rows
-// [q0, q0 + BQ) can see: nothing outside [lo, hi) is visited.
+// Query rows from this position on see no key (only with a window).
+__device__ __forceinline__ int first_blind_row(const Shape& sh) {
+  return sh.window ? sh.Sk + sh.window - 1 : INT32_MAX;
+}
+
+// A tile-aligned first key and the key bound that the query rows
+// [q0, q0 + QR) can see: nothing outside [lo, hi) is visited.  Rows that
+// see no key take every key, as the reference does.
+template <int QR, int KR>
 __device__ __forceinline__ void key_range(const Shape& sh, int q0, int& lo,
                                           int& hi) {
-  const int q_last = min(q0 + BQ, sh.S) - 1;
-  hi = sh.causal ? q_last + 1 : sh.S;
+  const int q_last = min(q0 + QR, sh.Sq) - 1;
+  if (q_last >= first_blind_row(sh)) {
+    lo = 0;
+    hi = sh.Sk;
+    return;
+  }
+  hi = sh.causal ? min(q_last + 1, sh.Sk) : sh.Sk;
   lo = sh.window ? max(0, q0 - sh.window + 1) : 0;
-  lo = (lo / BK) * BK;
+  lo = (lo / KR) * KR;
 }
 
-// 64 rows of D elements, row r at src + r * row_stride, into a shared tile
-// of stride D + 4 as fp32; rows at or past `rows` are zero.
-template <int D, typename T>
+// ROWS rows of D elements, row r at src + r * row_stride, into a shared
+// tile of stride D + 4 as fp32; rows at or past `rows` are zero.
+template <int D, int ROWS, typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
                                           long long row_stride, int rows) {
   constexpr int V = D / 4, STR = D + 4;
 #pragma unroll 4
-  for (int i = threadIdx.x; i < 64 * V; i += THREADS) {
+  for (int i = threadIdx.x; i < ROWS * V; i += THREADS) {
     const int r = i / V, c = (i % V) * 4;
     float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (r < rows) x = ld4(src + r * row_stride + c);
@@ -157,27 +184,27 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
   }
 }
 
-// acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over two 64-row
-// shared tiles of stride D + 4.
-template <int D>
-__device__ __forceinline__ void dot_tile(float (&acc)[4][4], const float* A,
+// acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over two shared tiles
+// of stride D + 4.
+template <int D, int NI, int NJ>
+__device__ __forceinline__ void dot_tile(float (&acc)[NI][NJ], const float* A,
                                          const float* B, int ty, int tx) {
   constexpr int STR = D + 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < NI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
+    float4 a[NI], b[NJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = ld4(A + (ty + 16 * i) * STR + d);
+    for (int i = 0; i < NI; ++i) a[i] = ld4(A + (ty + 16 * i) * STR + d);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = ld4(B + (tx + 16 * j) * STR + d);
+    for (int j = 0; j < NJ; ++j) b[j] = ld4(B + (tx + 16 * j) * STR + d);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < NI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
         acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
         acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
@@ -186,23 +213,23 @@ __device__ __forceinline__ void dot_tile(float (&acc)[4][4], const float* A,
   }
 }
 
-// acc[i][e] += sum_c P[ty + 16 i][c] * M[c][column e of tx]: a 64 x 64
-// tile (stride PS) times a 64-row tile of stride D + 4.
-template <int D>
-__device__ __forceinline__ void pm_tile(float (&acc)[4][D / 16], const float* P,
+// acc[i][e] += sum_c P[ty + 16 i][c] * M[c][column e of tx] over c < NC: a
+// tile of stride NC + 4 times an NC-row tile of stride D + 4.
+template <int D, int NI, int NC>
+__device__ __forceinline__ void pm_tile(float (&acc)[NI][D / 16], const float* P,
                                         const float* M, int ty, int tx) {
-  constexpr int STR = D + 4;
+  constexpr int STR = D + 4, PS = NC + 4;
 #pragma unroll 2
-  for (int c = 0; c < 64; c += 4) {
-    float4 p[4];
+  for (int c = 0; c < NC; c += 4) {
+    float4 p[NI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = ld4(P + (ty + 16 * i) * PS + c);
+    for (int i = 0; i < NI; ++i) p[i] = ld4(P + (ty + 16 * i) * PS + c);
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
       float m[D / 16];
       ld_cols<D>(m, M + (c + cc) * STR, tx);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < NI; ++i) {
         const float pc = cc == 0 ? p[i].x : cc == 1 ? p[i].y
                        : cc == 2 ? p[i].z : p[i].w;
 #pragma unroll
@@ -210,6 +237,23 @@ __device__ __forceinline__ void pm_tile(float (&acc)[4][D / 16], const float* P,
       }
     }
   }
+}
+
+// acc += P M (pm_tile) through the zeroed scratch `part`.
+template <int D, int NI, int NC>
+__device__ __forceinline__ void add_tile(float (&acc)[NI][D / 16],
+                                         float (&part)[NI][D / 16],
+                                         const float* P, const float* M,
+                                         int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int e = 0; e < D / 16; ++e) part[i][e] = 0.0f;
+  pm_tile<D, NI, NC>(part, P, M, ty, tx);
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int e = 0; e < D / 16; ++e) acc[i][e] += part[i][e];
 }
 
 __device__ __forceinline__ float max16(float x) {
@@ -221,14 +265,14 @@ __device__ __forceinline__ float sum16(float x) {
   return x;
 }
 
-// Rows [0, 64) of a tile: row r of the accumulator acc[i] is row ty + 16 i;
-// writes acc / div (div = 1 when null) as T at dst + r * row_stride.
-template <int D, typename T>
+// Row r of the accumulator acc[i] is row ty + 16 i of a tile; writes
+// acc / div (div = 1 when null) as T at dst + r * row_stride for r < rows.
+template <int D, int NI, typename T>
 __device__ __forceinline__ void store_rows(T* dst, long long row_stride,
-                                           int rows, const float (&acc)[4][D / 16],
+                                           int rows, const float (&acc)[NI][D / 16],
                                            const float* div, int ty, int tx) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < NI; ++i) {
     const int r = ty + 16 * i;
     if (r >= rows) continue;
     float x[D / 16];
@@ -239,7 +283,7 @@ __device__ __forceinline__ void store_rows(T* dst, long long row_stride,
 }
 
 // ---------------------------------------------------------------------------
-// forward: o (B, S, H, D) and, with LSE, lse (B, H, S) fp32
+// forward: o (B, Sq, H, D) and, with LSE, lse (B, H, Sq) fp32
 // ---------------------------------------------------------------------------
 
 template <int D, typename T, bool LSE>
@@ -247,46 +291,48 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
           Shape sh) {
-  constexpr int STR = D + 4;
+  constexpr int QR = Tiles<D>::Q, KR = Tiles<D>::K;
+  constexpr int NI = QR / 16, NJ = KR / 16, STR = D + 4, PS = KR + 4;
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);   // BQ x STR
-  float* k_s = q_s + BQ * STR;                    // BK x STR
-  float* v_s = k_s + BK * STR;                    // BK x STR
-  float* p_s = v_s + BK * STR;                    // BQ x PS
-  const int nq = (sh.S + BQ - 1) / BQ;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * BQ;  // long rows first
+  float* q_s = reinterpret_cast<float*>(smem4);   // QR x STR
+  float* k_s = q_s + QR * STR;                    // KR x STR
+  float* v_s = k_s + KR * STR;                    // KR x STR
+  float* p_s = v_s + KR * STR;                    // QR x PS
+  const int nq = (sh.Sq + QR - 1) / QR;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * QR;  // long rows first
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / sh.G;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const long long qrow = static_cast<long long>(sh.H) * D;
   const long long krow = static_cast<long long>(sh.KV) * D;
-  const long long qoff = (static_cast<long long>(b) * sh.S + q0) * qrow + h * D;
-  const long long kbase = static_cast<long long>(b) * sh.S * krow + kvh * D;
-  load_tile<D>(q_s, q + qoff, qrow, sh.S - q0);
+  const long long qoff = (static_cast<long long>(b) * sh.Sq + q0) * qrow + h * D;
+  const long long kbase = static_cast<long long>(b) * sh.Sk * krow + kvh * D;
+  load_tile<D, QR>(q_s, q + qoff, qrow, sh.Sq - q0);
 
-  float m[4], l[4], acc[4][D / 16];
+  float m[NI], l[NI], acc[NI][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < NI; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.0f;
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.0f;
   }
   int lo, hi;
-  key_range(sh, q0, lo, hi);
-  for (int k0 = lo; k0 < hi; k0 += BK) {
+  key_range<QR, KR>(sh, q0, lo, hi);
+  for (int k0 = lo; k0 < hi; k0 += KR) {
     __syncthreads();                    // the previous tiles are consumed
-    load_tile<D>(k_s, k + kbase + k0 * krow, krow, sh.S - k0);
-    load_tile<D>(v_s, v + kbase + k0 * krow, krow, sh.S - k0);
+    load_tile<D, KR>(k_s, k + kbase + k0 * krow, krow, sh.Sk - k0);
+    load_tile<D, KR>(v_s, v + kbase + k0 * krow, krow, sh.Sk - k0);
     __syncthreads();
-    float s[4][4];
-    dot_tile<D>(s, q_s, k_s, ty, tx);
+    float s[NI][NJ];
+    dot_tile<D, NI, NJ>(s, q_s, k_s, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < NI; ++i) {
       const int qp = q0 + ty + 16 * i;
       float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = visible(sh, qp, k0 + tx + 16 * j) ? s[i][j] * sh.scale
+      for (int j = 0; j < NJ; ++j) {
+        const int kp = k0 + tx + 16 * j;
+        s[i][j] = kp < sh.Sk && visible(sh, qp, kp) ? s[i][j] * sh.scale
                                                     : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -294,9 +340,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       const float corr = expf(m[i] - m_new);
       float sum = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = visible(sh, qp, k0 + tx + 16 * j)
-                            ? expf(s[i][j] - m_new) : 0.0f;
+      for (int j = 0; j < NJ; ++j) {
+        const float p = k0 + tx + 16 * j < sh.Sk ? expf(s[i][j] - m_new) : 0.0f;
         p_s[(ty + 16 * i) * PS + tx + 16 * j] = p;
         sum += p;
       }
@@ -306,25 +351,25 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < D / 16; ++c) acc[i][c] *= corr;
     }
     __syncthreads();
-    pm_tile<D>(acc, p_s, v_s, ty, tx);
+    pm_tile<D, NI, KR>(acc, p_s, v_s, ty, tx);
   }
-  float lf[4];
+  float lf[NI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) lf[i] = fmaxf(l[i], 1e-30f);
-  store_rows<D>(o + qoff, qrow, sh.S - q0, acc, lf, ty, tx);
+  for (int i = 0; i < NI; ++i) lf[i] = fmaxf(l[i], 1e-30f);
+  store_rows<D, NI>(o + qoff, qrow, sh.Sq - q0, acc, lf, ty, tx);
   if (LSE && tx == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < NI; ++i) {
       const int qp = q0 + ty + 16 * i;
-      if (qp < sh.S)
-        lse[(static_cast<long long>(b) * sh.H + h) * sh.S + qp] =
+      if (qp < sh.Sq)
+        lse[(static_cast<long long>(b) * sh.H + h) * sh.Sq + qp] =
             m[i] + logf(lf[i]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// dq (B, S, H, D): sum over visible keys of ds k, ds = p (dO v^T - dsum) scale
+// dq (B, Sq, H, D): sum over the keys of ds k, ds = p (dO v^T - dsum) scale
 // ---------------------------------------------------------------------------
 
 template <int D, typename T>
@@ -333,62 +378,64 @@ flash_dq(const T* __restrict__ q, const T* __restrict__ k,
          const T* __restrict__ v, const T* __restrict__ dout,
          const float* __restrict__ lse, const float* __restrict__ dsum,
          T* __restrict__ dq, Shape sh) {
-  constexpr int STR = D + 4;
+  constexpr int QR = Tiles<D>::Q, KR = Tiles<D>::K;
+  constexpr int NI = QR / 16, NJ = KR / 16, STR = D + 4, PS = KR + 4;
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);   // BQ x STR
-  float* do_s = q_s + BQ * STR;                   // BQ x STR
-  float* k_s = do_s + BQ * STR;                   // BK x STR
-  float* v_s = k_s + BK * STR;                    // BK x STR
-  float* ds_s = v_s + BK * STR;                   // BQ x PS
-  const int nq = (sh.S + BQ - 1) / BQ;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * BQ;
+  float* q_s = reinterpret_cast<float*>(smem4);   // QR x STR
+  float* do_s = q_s + QR * STR;                   // QR x STR
+  float* k_s = do_s + QR * STR;                   // KR x STR
+  float* v_s = k_s + KR * STR;                    // KR x STR
+  float* ds_s = v_s + KR * STR;                   // QR x PS
+  const int nq = (sh.Sq + QR - 1) / QR;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * QR;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / sh.G;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const long long qrow = static_cast<long long>(sh.H) * D;
   const long long krow = static_cast<long long>(sh.KV) * D;
-  const long long qoff = (static_cast<long long>(b) * sh.S + q0) * qrow + h * D;
-  const long long kbase = static_cast<long long>(b) * sh.S * krow + kvh * D;
-  const long long row0 = (static_cast<long long>(b) * sh.H + h) * sh.S + q0;
-  load_tile<D>(q_s, q + qoff, qrow, sh.S - q0);
-  load_tile<D>(do_s, dout + qoff, qrow, sh.S - q0);
-  float lse_r[4], dsum_r[4], acc[4][D / 16];
+  const long long qoff = (static_cast<long long>(b) * sh.Sq + q0) * qrow + h * D;
+  const long long kbase = static_cast<long long>(b) * sh.Sk * krow + kvh * D;
+  const long long row0 = (static_cast<long long>(b) * sh.H + h) * sh.Sq + q0;
+  load_tile<D, QR>(q_s, q + qoff, qrow, sh.Sq - q0);
+  load_tile<D, QR>(do_s, dout + qoff, qrow, sh.Sq - q0);
+  float lse_r[NI], dsum_r[NI], acc[NI][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const bool in = q0 + ty + 16 * i < sh.S;
+  for (int i = 0; i < NI; ++i) {
+    const bool in = q0 + ty + 16 * i < sh.Sq;
     lse_r[i] = in ? lse[row0 + ty + 16 * i] : 0.0f;
     dsum_r[i] = in ? dsum[row0 + ty + 16 * i] : 0.0f;
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.0f;
   }
   int lo, hi;
-  key_range(sh, q0, lo, hi);
-  for (int k0 = lo; k0 < hi; k0 += BK) {
+  key_range<QR, KR>(sh, q0, lo, hi);
+  for (int k0 = lo; k0 < hi; k0 += KR) {
     __syncthreads();
-    load_tile<D>(k_s, k + kbase + k0 * krow, krow, sh.S - k0);
-    load_tile<D>(v_s, v + kbase + k0 * krow, krow, sh.S - k0);
+    load_tile<D, KR>(k_s, k + kbase + k0 * krow, krow, sh.Sk - k0);
+    load_tile<D, KR>(v_s, v + kbase + k0 * krow, krow, sh.Sk - k0);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_tile<D>(s, q_s, k_s, ty, tx);
-    dot_tile<D>(dp, do_s, v_s, ty, tx);
+    float s[NI][NJ], dp[NI][NJ];
+    dot_tile<D, NI, NJ>(s, q_s, k_s, ty, tx);
+    dot_tile<D, NI, NJ>(dp, do_s, v_s, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < NI; ++i) {
       const int qp = q0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = visible(sh, qp, k0 + tx + 16 * j)
-                            ? expf(s[i][j] * sh.scale - lse_r[i]) : 0.0f;
+      for (int j = 0; j < NJ; ++j) {
+        const int kp = k0 + tx + 16 * j;
+        const float sv = visible(sh, qp, kp) ? s[i][j] * sh.scale : NEG_INF;
+        const float p = kp < sh.Sk ? expf(sv - lse_r[i]) : 0.0f;
         ds_s[(ty + 16 * i) * PS + tx + 16 * j] =
             p * (dp[i][j] - dsum_r[i]) * sh.scale;
       }
     }
     __syncthreads();
-    pm_tile<D>(acc, ds_s, k_s, ty, tx);
+    pm_tile<D, NI, KR>(acc, ds_s, k_s, ty, tx);
   }
-  store_rows<D>(dq + qoff, qrow, sh.S - q0, acc, nullptr, ty, tx);
+  store_rows<D, NI>(dq + qoff, qrow, sh.Sq - q0, acc, nullptr, ty, tx);
 }
 
 // ---------------------------------------------------------------------------
-// dk, dv (B, S, KV, D): per key tile, summed over the G query heads of its
+// dk, dv (B, Sk, KV, D): per key tile, summed over the G query heads of its
 // KV head and the query rows that see it
 // ---------------------------------------------------------------------------
 
@@ -398,97 +445,102 @@ flash_dkv(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ dsum,
           T* __restrict__ dk, T* __restrict__ dv, Shape sh) {
-  constexpr int STR = D + 4;
+  constexpr int QR = Tiles<D>::Q, KR = Tiles<D>::K;
+  constexpr int NI = KR / 16, NJ = QR / 16, STR = D + 4, PS = QR + 4;
   extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);   // BK x STR
-  float* v_s = k_s + BK * STR;                    // BK x STR
-  float* q_s = v_s + BK * STR;                    // BQ x STR
-  float* do_s = q_s + BQ * STR;                   // BQ x STR
-  float* pt_s = do_s + BQ * STR;                  // BK x PS: p^T
-  float* dst_s = pt_s + BK * PS;                  // BK x PS: ds^T
-  float* lse_s = dst_s + BK * PS;                 // BQ
-  float* dsum_s = lse_s + BQ;                     // BQ
-  const int k0 = blockIdx.x * BK, kvh = blockIdx.y, b = blockIdx.z;
+  float* k_s = reinterpret_cast<float*>(smem4);   // KR x STR
+  float* v_s = k_s + KR * STR;                    // KR x STR
+  float* q_s = v_s + KR * STR;                    // QR x STR
+  float* do_s = q_s + QR * STR;                   // QR x STR
+  float* pt_s = do_s + QR * STR;                  // KR x PS: p^T
+  float* dst_s = pt_s + KR * PS;                  // KR x PS: ds^T
+  float* lse_s = dst_s + KR * PS;                 // QR
+  float* dsum_s = lse_s + QR;                     // QR
+  const int k0 = blockIdx.x * KR, kvh = blockIdx.y, b = blockIdx.z;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const long long qrow = static_cast<long long>(sh.H) * D;
   const long long krow = static_cast<long long>(sh.KV) * D;
-  const long long koff = (static_cast<long long>(b) * sh.S + k0) * krow + kvh * D;
-  load_tile<D>(k_s, k + koff, krow, sh.S - k0);
-  load_tile<D>(v_s, v + koff, krow, sh.S - k0);
-  // the query rows that can see a key of [k0, k_last]
-  const int k_last = min(k0 + BK, sh.S) - 1;
-  const int q_lo = sh.causal ? (k0 / BQ) * BQ : 0;
-  const int q_hi = sh.window ? min(sh.S, k_last + sh.window) : sh.S;
+  const long long koff = (static_cast<long long>(b) * sh.Sk + k0) * krow + kvh * D;
+  load_tile<D, KR>(k_s, k + koff, krow, sh.Sk - k0);
+  load_tile<D, KR>(v_s, v + koff, krow, sh.Sk - k0);
+  // the query rows that can see a key of [k0, k_last], and the rows that
+  // see no key (they take every key, as in the reference)
+  const int k_last = min(k0 + KR, sh.Sk) - 1;
+  const int q_lo = sh.causal ? (k0 / QR) * QR : 0;
+  const int q_hi = sh.Sq > first_blind_row(sh) ? sh.Sq
+                 : sh.window ? min(sh.Sq, k_last + sh.window) : sh.Sq;
 
-  float dk_acc[4][D / 16], dv_acc[4][D / 16];
+  float dk_acc[NI][D / 16], dv_acc[NI][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < NI; ++i)
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
   for (int g = 0; g < sh.G; ++g) {
     const int h = kvh * sh.G + g;
-    for (int q0 = q_lo; q0 < q_hi; q0 += BQ) {
+    for (int q0 = q_lo; q0 < q_hi; q0 += QR) {
       __syncthreads();
-      const long long qoff = (static_cast<long long>(b) * sh.S + q0) * qrow + h * D;
-      load_tile<D>(q_s, q + qoff, qrow, sh.S - q0);
-      load_tile<D>(do_s, dout + qoff, qrow, sh.S - q0);
-      if (threadIdx.x < BQ) {
+      const long long qoff = (static_cast<long long>(b) * sh.Sq + q0) * qrow + h * D;
+      load_tile<D, QR>(q_s, q + qoff, qrow, sh.Sq - q0);
+      load_tile<D, QR>(do_s, dout + qoff, qrow, sh.Sq - q0);
+      if (threadIdx.x < QR) {
         const int r = threadIdx.x;
-        const long long row = (static_cast<long long>(b) * sh.H + h) * sh.S + q0 + r;
-        const bool in = q0 + r < sh.S;
+        const long long row = (static_cast<long long>(b) * sh.H + h) * sh.Sq + q0 + r;
+        const bool in = q0 + r < sh.Sq;
         lse_s[r] = in ? lse[row] : 0.0f;
         dsum_s[r] = in ? dsum[row] : 0.0f;
       }
       __syncthreads();
-      float s[4][4], dp[4][4];          // [key ty + 16 i][query tx + 16 j]
-      dot_tile<D>(s, k_s, q_s, ty, tx);
-      dot_tile<D>(dp, v_s, do_s, ty, tx);
+      float s[NI][NJ], dp[NI][NJ];      // [key ty + 16 i][query tx + 16 j]
+      dot_tile<D, NI, NJ>(s, k_s, q_s, ty, tx);
+      dot_tile<D, NI, NJ>(dp, v_s, do_s, ty, tx);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < NI; ++i) {
         const int kp = k0 + ty + 16 * i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < NJ; ++j) {
           const int r = tx + 16 * j;
-          const float p = visible(sh, q0 + r, kp)
-                              ? expf(s[i][j] * sh.scale - lse_s[r]) : 0.0f;
+          const bool in = kp < sh.Sk && q0 + r < sh.Sq;
+          const float sv = visible(sh, q0 + r, kp) ? s[i][j] * sh.scale : NEG_INF;
+          const float p = in ? expf(sv - lse_s[r]) : 0.0f;
           pt_s[(ty + 16 * i) * PS + r] = p;
           dst_s[(ty + 16 * i) * PS + r] = p * (dp[i][j] - dsum_s[r]) * sh.scale;
         }
       }
       __syncthreads();
-      pm_tile<D>(dv_acc, pt_s, do_s, ty, tx);
-      pm_tile<D>(dk_acc, dst_s, q_s, ty, tx);
+      // each tile's products are summed apart, then added: a key that many
+      // rows see (a GQA group, rows that see every key) sums blockwise,
+      // not in one fp32 chain G * Sq long
+      float part[NI][D / 16];
+      add_tile<D, NI, QR>(dv_acc, part, pt_s, do_s, ty, tx);
+      add_tile<D, NI, QR>(dk_acc, part, dst_s, q_s, ty, tx);
     }
   }
-  store_rows<D>(dk + koff, krow, sh.S - k0, dk_acc, nullptr, ty, tx);
-  store_rows<D>(dv + koff, krow, sh.S - k0, dv_acc, nullptr, ty, tx);
+  store_rows<D, NI>(dk + koff, krow, sh.Sk - k0, dk_acc, nullptr, ty, tx);
+  store_rows<D, NI>(dv + koff, krow, sh.Sk - k0, dv_acc, nullptr, ty, tx);
 }
 
-constexpr size_t fwd_smem(int D) { return sizeof(float) * (3 * 64 * (D + 4) + 64 * PS); }
-constexpr size_t dq_smem(int D) { return sizeof(float) * (4 * 64 * (D + 4) + 64 * PS); }
-constexpr size_t dkv_smem(int D) {
-  return sizeof(float) * (4 * 64 * (D + 4) + 2 * 64 * PS + 2 * 64);
+template <int D>
+constexpr size_t fwd_smem() {
+  constexpr int Q = Tiles<D>::Q, K = Tiles<D>::K;
+  return sizeof(float) * ((Q + 2 * K) * (D + 4) + Q * (K + 4));
 }
-
-constexpr int MAX_DEVICES = 64;
-
-// Above 48 KB a block's shared memory must be asked for: once per kernel
-// and device, at its first launch there (`done` is the kernel's own).
-template <typename K>
-int prepare(K kern, size_t smem, std::atomic<bool> (&done)[MAX_DEVICES]) {
-  int dev = 0;
-  if (cudaError_t err = cudaGetDevice(&dev)) return static_cast<int>(err);
-  const bool known = dev < MAX_DEVICES;
-  if (known && done[dev].load(std::memory_order_acquire)) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err == cudaSuccess && known) done[dev].store(true, std::memory_order_release);
-  return static_cast<int>(err);
+template <int D>
+constexpr size_t dq_smem() {
+  constexpr int Q = Tiles<D>::Q, K = Tiles<D>::K;
+  return sizeof(float) * ((2 * Q + 2 * K) * (D + 4) + Q * (K + 4));
 }
+template <int D>
+constexpr size_t dkv_smem() {
+  constexpr int Q = Tiles<D>::Q, K = Tiles<D>::K;
+  return sizeof(float) * ((2 * Q + 2 * K) * (D + 4) + 2 * K * (Q + 4) + 2 * Q);
+}
+static_assert(dkv_smem<256>() <= 232448 && dq_smem<256>() <= 232448 &&
+              dkv_smem<128>() <= 232448, "a tile set must fit 227 KB");
 
-Shape make_shape(int S, int H, int KV, int D, int causal, int window) {
+Shape make_shape(int Sq, int Sk, int H, int KV, int D, int causal, int window) {
   Shape sh;
-  sh.S = S;
+  sh.Sq = Sq;
+  sh.Sk = Sk;
   sh.H = H;
   sh.KV = KV;
   sh.G = H / KV;
@@ -502,10 +554,10 @@ template <int D, typename T, bool LSE>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                int B, const Shape& sh, cudaStream_t stream) {
   auto kern = flash_fwd<D, T, LSE>;
-  static std::atomic<bool> done[MAX_DEVICES];
-  if (int err = prepare(kern, fwd_smem(D), done)) return err;
-  const dim3 grid((sh.S + BQ - 1) / BQ, sh.H, B);
-  kern<<<grid, THREADS, fwd_smem(D), stream>>>(
+  static DlkSmemOnce once;
+  if (int err = dlk_prepare_smem(kern, fwd_smem<D>(), once)) return err;
+  const dim3 grid((sh.Sq + Tiles<D>::Q - 1) / Tiles<D>::Q, sh.H, B);
+  kern<<<grid, THREADS, fwd_smem<D>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, sh);
   return dlk_last_error();
@@ -516,10 +568,10 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* dsum, void* dq, int B,
               const Shape& sh, cudaStream_t stream) {
   auto kern = flash_dq<D, T>;
-  static std::atomic<bool> done[MAX_DEVICES];
-  if (int err = prepare(kern, dq_smem(D), done)) return err;
-  const dim3 grid((sh.S + BQ - 1) / BQ, sh.H, B);
-  kern<<<grid, THREADS, dq_smem(D), stream>>>(
+  static DlkSmemOnce once;
+  if (int err = dlk_prepare_smem(kern, dq_smem<D>(), once)) return err;
+  const dim3 grid((sh.Sq + Tiles<D>::Q - 1) / Tiles<D>::Q, sh.H, B);
+  kern<<<grid, THREADS, dq_smem<D>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
       static_cast<T*>(dq), sh);
@@ -531,10 +583,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* dsum, void* dk, void* dv, int B,
                const Shape& sh, cudaStream_t stream) {
   auto kern = flash_dkv<D, T>;
-  static std::atomic<bool> done[MAX_DEVICES];
-  if (int err = prepare(kern, dkv_smem(D), done)) return err;
-  const dim3 grid((sh.S + BK - 1) / BK, sh.KV, B);
-  kern<<<grid, THREADS, dkv_smem(D), stream>>>(
+  static DlkSmemOnce once;
+  if (int err = dlk_prepare_smem(kern, dkv_smem<D>(), once)) return err;
+  const dim3 grid((sh.Sk + Tiles<D>::K - 1) / Tiles<D>::K, sh.KV, B);
+  kern<<<grid, THREADS, dkv_smem<D>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
       static_cast<T*>(dk), static_cast<T*>(dv), sh);
@@ -545,17 +597,24 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // repro_torch/kernels/flash_attention.py)
 enum DlkFlashDtype : int { DLK_F32 = 0, DLK_BF16 = 1 };
 
-// Calls f<D, T>() for a supported (head_dim, dtype); cudaErrorInvalidValue
-// for any other.
+template <template <int, typename> class F, int D, typename... A>
+int dispatch_dtype(int dtype, A... args) {
+  if (dtype == DLK_F32) return F<D, float>::run(args...);
+  if (dtype == DLK_BF16) return F<D, __nv_bfloat16>::run(args...);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Calls F<D, T>::run for a supported (head_dim, dtype);
+// cudaErrorInvalidValue for any other.
 template <template <int, typename> class F, typename... A>
 int dispatch(int D, int dtype, A... args) {
-  if (D == 32 && dtype == DLK_F32) return F<32, float>::run(args...);
-  if (D == 32 && dtype == DLK_BF16) return F<32, __nv_bfloat16>::run(args...);
-  if (D == 64 && dtype == DLK_F32) return F<64, float>::run(args...);
-  if (D == 64 && dtype == DLK_BF16) return F<64, __nv_bfloat16>::run(args...);
-  if (D == 128 && dtype == DLK_F32) return F<128, float>::run(args...);
-  if (D == 128 && dtype == DLK_BF16) return F<128, __nv_bfloat16>::run(args...);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 32: return dispatch_dtype<F, 32>(dtype, args...);
+    case 64: return dispatch_dtype<F, 64>(dtype, args...);
+    case 128: return dispatch_dtype<F, 128>(dtype, args...);
+    case 256: return dispatch_dtype<F, 256>(dtype, args...);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <int D, typename T>
@@ -587,47 +646,49 @@ struct Dkv {
 
 }  // namespace
 
-// B8: o (B, S, H, D) = attention of q (B, S, H, D) over k, v (B, S, KV, D),
-// contiguous, in fp32 or bf16 (dtype), head_dim 32, 64 or 128.
+// B8: o (B, Sq, H, D) = attention of q (B, Sq, H, D) over k, v
+// (B, Sk, KV, D), contiguous, in fp32 or bf16 (dtype), head_dim 32, 64, 128
+// or 256.
 extern "C" int dlk_flash_attention(const void* q, const void* k, const void* v,
-                                   void* o, int B, int S, int H, int KV, int D,
-                                   int dtype, int causal, int window,
-                                   cudaStream_t stream) {
-  const Shape sh = make_shape(S, H, KV, D, causal, window);
+                                   void* o, int B, int Sq, int Sk, int H,
+                                   int KV, int D, int dtype, int causal,
+                                   int window, cudaStream_t stream) {
+  const Shape sh = make_shape(Sq, Sk, H, KV, D, causal, window);
   return dispatch<Fwd>(D, dtype, q, k, v, o, static_cast<float*>(nullptr), B,
                        sh, stream);
 }
 
-// B9's forward: the same, and lse (B, H, S) fp32.
+// B9's forward: the same, and lse (B, H, Sq) fp32.
 extern "C" int dlk_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, float* lse,
-                                       int B, int S, int H, int KV, int D,
-                                       int dtype, int causal, int window,
-                                       cudaStream_t stream) {
-  const Shape sh = make_shape(S, H, KV, D, causal, window);
+                                       int B, int Sq, int Sk, int H, int KV,
+                                       int D, int dtype, int causal,
+                                       int window, cudaStream_t stream) {
+  const Shape sh = make_shape(Sq, Sk, H, KV, D, causal, window);
   return dispatch<Fwd>(D, dtype, q, k, v, o, lse, B, sh, stream);
 }
 
-// B9's dq (B, S, H, D) from q, k, v, dO (B, S, H, D), lse and
-// dsum = rowsum(dO * o), both (B, H, S) fp32.
+// B9's dq (B, Sq, H, D) from q, dO (B, Sq, H, D), k, v (B, Sk, KV, D), lse
+// and dsum = rowsum(dO * o), both (B, H, Sq) fp32.
 extern "C" int dlk_flash_attention_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const float* lse, const float* dsum,
-                                      void* dq, int B, int S, int H, int KV,
-                                      int D, int dtype, int causal, int window,
-                                      cudaStream_t stream) {
-  const Shape sh = make_shape(S, H, KV, D, causal, window);
+                                      void* dq, int B, int Sq, int Sk, int H,
+                                      int KV, int D, int dtype, int causal,
+                                      int window, cudaStream_t stream) {
+  const Shape sh = make_shape(Sq, Sk, H, KV, D, causal, window);
   return dispatch<Dq>(D, dtype, q, k, v, dout, lse, dsum, dq, B, sh, stream);
 }
 
-// B9's dk, dv (B, S, KV, D), each summed over the KV head's G query heads.
+// B9's dk, dv (B, Sk, KV, D), each summed over the KV head's G query heads.
 extern "C" int dlk_flash_attention_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const float* lse, const float* dsum,
-                                       void* dk, void* dv, int B, int S, int H,
-                                       int KV, int D, int dtype, int causal,
-                                       int window, cudaStream_t stream) {
-  const Shape sh = make_shape(S, H, KV, D, causal, window);
+                                       void* dk, void* dv, int B, int Sq,
+                                       int Sk, int H, int KV, int D, int dtype,
+                                       int causal, int window,
+                                       cudaStream_t stream) {
+  const Shape sh = make_shape(Sq, Sk, H, KV, D, causal, window);
   return dispatch<Dkv>(D, dtype, q, k, v, dout, lse, dsum, dk, dv, B, sh,
                        stream);
 }

@@ -24,7 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import CudaKernel, ptr
+from repro_torch.kernels._build import CudaKernel
 
 CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -142,9 +142,9 @@ def decode_attention(q, k, v, valid_len, *, layout: str = "bskd"):
                          f"{q.shape[0]} queries")
     vl = _valid(valid_len, q.shape[0], q.device)
     out = torch.empty_like(qf)
-    RING.launch(q.device, ptr(qf), ptr(k), ptr(v), ptr(vl), ptr(out),
-                q.shape[0], kvh, g, d, slots, CACHE_DTYPES[k.dtype],
-                *_strides(k, layout))
+    RING.launch(q.get_device(), qf.data_ptr(), k.data_ptr(), v.data_ptr(),
+                vl.data_ptr(), out.data_ptr(), q.shape[0], kvh, g, d, slots,
+                CACHE_DTYPES[k.dtype], *_strides(k, layout))
     return out.to(q.dtype)
 
 
@@ -163,9 +163,10 @@ def decode_attention_q8(q, k, v, k_scale, v_scale, valid_len, *,
     out = torch.empty_like(qf)
     cs = k_scale.stride()
     c = (cs[0], cs[2], cs[1]) if layout == "bskd" else (cs[0], cs[1], cs[2])
-    RING_Q8.launch(q.device, ptr(qf), ptr(k), ptr(v), ptr(k_scale),
-                   ptr(v_scale), ptr(vl), ptr(out), q.shape[0], kvh, g, d,
-                   slots, *_strides(k, layout), *c)
+    RING_Q8.launch(q.get_device(), qf.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   k_scale.data_ptr(), v_scale.data_ptr(), vl.data_ptr(),
+                   out.data_ptr(), q.shape[0], kvh, g, d, slots,
+                   *_strides(k, layout), *c)
     return out.to(q.dtype)
 
 
@@ -182,9 +183,10 @@ def decode_attention_paged(q, k, v, page_table, valid_len, *,
     pt = _table(page_table, b, q.device)
     vl = _valid(valid_len, b, q.device)
     out = torch.empty_like(qf)
-    PAGED.launch(q.device, ptr(qf), ptr(k), ptr(v), ptr(pt), ptr(vl),
-                 ptr(out), b, kvh, g, d, pt.shape[1], ps, pages,
-                 CACHE_DTYPES[k.dtype], *_strides(k, layout))
+    PAGED.launch(q.get_device(), qf.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 pt.data_ptr(), vl.data_ptr(), out.data_ptr(), b, kvh, g, d,
+                 pt.shape[1], ps, pages, CACHE_DTYPES[k.dtype],
+                 *_strides(k, layout))
     return out.to(q.dtype)
 
 
@@ -202,8 +204,9 @@ def decode_attention_paged_q8(q, k, v, k_scale, v_scale, page_table,
     out = torch.empty_like(qf)
     cs = k_scale.stride()
     c = (cs[0], cs[2], cs[1]) if layout == "bskd" else (cs[0], cs[1], cs[2])
-    PAGED_Q8.launch(q.device, ptr(qf), ptr(k), ptr(v), ptr(k_scale),
-                    ptr(v_scale), ptr(pt), ptr(vl), ptr(out), b, kvh, g, d,
-                    pt.shape[1], ps, pages, *_strides(k, layout), *c)
+    PAGED_Q8.launch(q.get_device(), qf.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+                    pt.data_ptr(), vl.data_ptr(), out.data_ptr(), b, kvh, g,
+                    d, pt.shape[1], ps, pages, *_strides(k, layout), *c)
     return out.to(q.dtype)
 

@@ -10,7 +10,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, check_cuda_f32, ptr
+from repro_torch.kernels._build import CudaKernel, check_cuda_f32
 from repro_torch.kernels.ref import ACTS, elementwise_ref
 
 # the DlkAct codes of csrc/common.cuh
@@ -26,14 +26,15 @@ def elementwise(x: torch.Tensor, act: str = "relu") -> torch.Tensor:
     """act(x) elementwise, computed in fp32."""
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}; known: {sorted(ACTS)}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return elementwise_ref(x, act)
-    check_cuda_f32("elementwise", x)
+    dev = check_cuda_f32("elementwise", x)
     if not x.is_contiguous():
         raise ValueError("elementwise: input must be contiguous")
     out = torch.empty_like(x)
-    if x.numel():
-        KERNEL.launch(x.device, ptr(x), ptr(out), x.numel(), ACT_CODES[act])
+    n = x.numel()
+    if n:
+        KERNEL.launch(dev, x.data_ptr(), out.data_ptr(), n, ACT_CODES[act])
     return out
 
 

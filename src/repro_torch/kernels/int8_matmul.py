@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, ptr
+from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels.ref import int8_matmul_ref
 
 KERNEL = CudaKernel("dlk_int8_matmul",
@@ -59,6 +59,7 @@ def int8_matmul(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
         raise ValueError(f"int8_matmul: M={m}, N={n}, K={k} out of range")
     out = torch.empty((m, n), device=dev, dtype=torch.float32)
     if m and n:
-        KERNEL.launch(dev, ptr(a_q), ptr(b_q), ptr(a_scale), ptr(b_scale),
-                      ptr(out), m, n, k)
+        KERNEL.launch(a_q.get_device(), a_q.data_ptr(), b_q.data_ptr(),
+                      a_scale.data_ptr(), b_scale.data_ptr(), out.data_ptr(),
+                      m, n, k)
     return out

@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, check_cuda_f32, ptr
+from repro_torch.kernels._build import CudaKernel, check_cuda_f32
 from repro_torch.kernels.elementwise import ACT_CODES
 from repro_torch.kernels.ref import matmul_ref
 
@@ -35,18 +35,18 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     n = b.shape[1]
     if bias is not None and tuple(bias.shape) != (n,):
         raise ValueError(f"matmul: bias {tuple(bias.shape)} for N={n}")
-    if a.device.type == "cpu":
+    if a.is_cpu:
         return matmul_ref(a, b, bias, activation=activation)
     operands = (a, b) if bias is None else (a, b, bias)
-    check_cuda_f32("matmul", *operands)
+    dev = check_cuda_f32("matmul", *operands)
     if bias is not None and not bias.is_contiguous():
         raise ValueError("matmul: bias must be contiguous")
     if max(m, n, k) > _INT_MAX or min(*a.stride(), *b.stride()) < 0:
         raise ValueError("matmul: sizes must fit int32, strides be >= 0")
-    out = torch.empty((m, n), device=a.device, dtype=torch.float32)
+    out = a.new_empty((m, n))
     if m and n:
-        KERNEL.launch(a.device, ptr(a), ptr(b),
-                      None if bias is None else ptr(bias), ptr(out),
-                      m, n, k, a.stride(0), a.stride(1), b.stride(0),
-                      b.stride(1), ACT_CODES[activation])
+        KERNEL.launch(dev, a.data_ptr(), b.data_ptr(),
+                      None if bias is None else bias.data_ptr(),
+                      out.data_ptr(), m, n, k, a.stride(0), a.stride(1),
+                      b.stride(0), b.stride(1), ACT_CODES[activation])
     return out

@@ -2,13 +2,12 @@
 
 The counterpart of ``repro.kernels.ops``.  Each wrapper takes its plain
 version for a CPU tensor and launches its CUDA kernel for a CUDA tensor.
-``KERNELS`` maps each C entry point's name to its :class:`CudaKernel`,
-and conv2d (im2col + the matmul launch) to its own count; each
-``launches`` count shows that a run went through it.
+``KERNELS`` maps each C entry point's name to its :class:`CudaKernel`;
+each ``launches`` count shows that a run went through it.
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict
 
 from repro_torch.kernels import conv2d as _conv
 from repro_torch.kernels import decode_attention as _da
@@ -19,7 +18,7 @@ from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import pool as _pool
 from repro_torch.kernels import rwkv6_chunk as _rwkv
 from repro_torch.kernels import softmax as _sm
-from repro_torch.kernels._build import CompositeKernel, CudaKernel
+from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels.conv2d import conv2d
 from repro_torch.kernels.decode_attention import (
     decode_attention, decode_attention_paged, decode_attention_paged_q8,
@@ -40,7 +39,7 @@ __all__ = ["KERNELS", "conv2d", "decode_attention", "decode_attention_paged",
            "matmul", "pool2d", "relu", "reset_launches", "rwkv6_chunked",
            "softmax"]
 
-KERNELS: Dict[str, Union[CudaKernel, CompositeKernel]] = {
+KERNELS: Dict[str, CudaKernel] = {
     "matmul": _mm.KERNEL,
     "conv2d": _conv.KERNEL,
     "pool2d": _pool.KERNEL,

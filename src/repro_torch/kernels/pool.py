@@ -11,7 +11,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, check_cuda_f32, ptr
+from repro_torch.kernels._build import CudaKernel, check_cuda_f32
 from repro_torch.kernels.ref import pool2d_ref
 
 KERNEL = CudaKernel("dlk_pool2d_f32",
@@ -30,13 +30,13 @@ def pool2d(x: torch.Tensor, *, mode: str = "max", kernel: int = 2,
     ow = (w + 2 * pad - kernel) // stride + 1
     if oh <= 0 or ow <= 0 or kernel <= 0 or stride <= 0 or pad < 0:
         raise ValueError(f"pool2d: window {kernel}/{stride}/{pad} on {h}x{w}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return pool2d_ref(x, mode=mode, kernel=kernel, stride=stride, pad=pad)
-    check_cuda_f32("pool2d", x)
+    dev = check_cuda_f32("pool2d", x)
     if not x.is_contiguous():
         raise ValueError("pool2d: input must be contiguous")
-    out = torch.empty((b, c, oh, ow), device=x.device, dtype=torch.float32)
-    if out.numel():
-        KERNEL.launch(x.device, ptr(x), ptr(out), b * c, h, w, oh, ow,
+    out = x.new_empty((b, c, oh, ow))
+    if b and c:
+        KERNEL.launch(dev, x.data_ptr(), out.data_ptr(), b * c, h, w, oh, ow,
                       kernel, stride, pad, int(mode == "max"))
     return out

@@ -45,6 +45,30 @@ def conv2d_ref(x, w, b=None, *, stride: int = 1, pad: int = 0):
     return F.conv2d(x, w, b, stride=stride, padding=pad)
 
 
+def im2col(x, kernel: int, stride: int, pad: int):
+    """x: (B, C, H, W) -> ((B*OH*OW, C*K*K) patch matrix, (B, OH, OW)),
+    columns ordered (c, kh, kw) as in the JAX package."""
+    b, c, h, w = x.shape
+    oh = (h + 2 * pad - kernel) // stride + 1
+    ow = (w + 2 * pad - kernel) // stride + 1
+    if kernel == 1 and stride == 1 and pad == 0:
+        return x.permute(0, 2, 3, 1).reshape(b * oh * ow, c), (b, oh, ow)
+    cols = F.unfold(x, kernel, padding=pad, stride=stride)   # (B, C*K*K, L)
+    return cols.transpose(1, 2).reshape(b * oh * ow, -1), (b, oh, ow)
+
+
+def conv2d_im2col_ref(x, w, b=None, *, stride: int = 1, pad: int = 0,
+                      activation: str = "none"):
+    """B2's plain version: the patch matrix in the kernel's depth order
+    (c, kh, kw) times the (C*K*K, O) weight matrix, + bias, then the
+    activation, stored back as contiguous (B, O, OH, OW)."""
+    o, c, k, _ = w.shape
+    cols, (bsz, oh, ow) = im2col(x, k, stride, pad)
+    out = matmul_ref(cols, w.reshape(o, c * k * k).t(), b,
+                     activation=activation)
+    return out.reshape(bsz, oh, ow, o).permute(0, 3, 1, 2).contiguous()
+
+
 def _windows(x, kernel: int, stride: int, oh: int, ow: int):
     """The K*K shifted strided views of padded planes, row-major order."""
     for di in range(kernel):

@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import CudaKernel, ptr
+from repro_torch.kernels._build import CudaKernel
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (32, 64)
@@ -83,6 +83,7 @@ def rwkv6_chunked_into(r, k, v, w, u, out, state):
             raise ValueError(f"rwkv6_chunked: {what} must be contiguous "
                              f"{dtype} {shape} on {r.device}, got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
-    KERNEL.launch(r.device, ptr(r), ptr(k), ptr(v), ptr(w), ptr(u), ptr(out),
-                  ptr(state), b, t, h, n, DTYPES[r.dtype])
+    KERNEL.launch(r.get_device(), r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  w.data_ptr(), u.data_ptr(), out.data_ptr(),
+                  state.data_ptr(), b, t, h, n, DTYPES[r.dtype])
     return out, state

@@ -10,7 +10,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, check_cuda_f32, ptr
+from repro_torch.kernels._build import CudaKernel, check_cuda_f32
 from repro_torch.kernels.ref import softmax_ref
 
 KERNEL = CudaKernel("dlk_softmax_f32",
@@ -22,12 +22,13 @@ def softmax(x: torch.Tensor) -> torch.Tensor:
     """Softmax over the last axis of a 2D (R, N) tensor, in fp32."""
     if x.ndim != 2:
         raise ValueError(f"softmax: expected (R, N), got {tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return softmax_ref(x)
-    check_cuda_f32("softmax", x)
+    dev = check_cuda_f32("softmax", x)
     if not x.is_contiguous():
         raise ValueError("softmax: input must be contiguous")
     out = torch.empty_like(x)
-    if x.numel():
-        KERNEL.launch(x.device, ptr(x), ptr(out), x.shape[0], x.shape[1])
+    r, n = x.shape
+    if r and n:
+        KERNEL.launch(dev, x.data_ptr(), out.data_ptr(), r, n)
     return out

@@ -429,7 +429,7 @@ def flash_attention_named(q, k, v, *, causal: bool = True, window: int = 0,
     backend: 'ref' (:func:`attention_chunked`), 'cuda' (the flash kernels:
     B9's differentiable forward when grad is on and an input requires
     it, else B8), or None/'auto' (cuda on a CUDA tensor, ref on a CPU
-    one).  q (B, S, H, D); k, v (B, S, KV, D)."""
+    one).  q (B, Sq, H, D); k, v (B, Sk, KV, D), query positions from 0."""
     name = resolve_flash_backend(backend, q.device)
     if name == "ref":
         return attention_chunked(q, k, v, causal=causal, window=window)

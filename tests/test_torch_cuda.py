@@ -99,10 +99,105 @@ def test_nin_forward_launches_every_kernel(dev, tmp_path):
     kops.reset_launches()
     y = engine.predict("nin", x)
     counts = {k: n for k, n in kops.launches().items() if n}
-    assert counts == {"matmul": 9, "conv2d": 9, "elementwise": 9,
-                      "pool2d": 3, "softmax": 1}
+    assert counts == {"conv2d": 9, "elementwise": 9, "pool2d": 3,
+                      "softmax": 1}
     y_ref = InferenceEngine(store, backend="ref").predict("nin", x)
     close(y, y_ref, rtol=0, atol=1e-5)
+
+
+def test_lenet_forward_launches_conv_and_dense_kernels(dev, tmp_path):
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.importer import to_caffe_json
+    from repro_torch.core.modelstore import ModelStore
+    from repro_torch.models import cnn
+    g = cnn.graph_for(get_config("lenet-mnist"))
+    params = g.init_params(torch.Generator().manual_seed(0))
+    store = ModelStore(tmp_path)
+    store.publish("lenet", to_caffe_json(g, params)[0], params)
+    x = np.random.default_rng(0).standard_normal((3, 1, 28, 28)) \
+        .astype(np.float32)
+    kops.reset_launches()
+    y = InferenceEngine(store).predict("lenet", x)
+    counts = {k: n for k, n in kops.launches().items() if n}
+    assert counts == {"conv2d": 2, "matmul": 2, "elementwise": 1,
+                      "pool2d": 2, "softmax": 1}
+    y_ref = InferenceEngine(store, backend="ref").predict("lenet", x)
+    close(y, y_ref, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# B2: the implicit-GEMM conv kernel against its plain version (im2col +
+# matmul_ref) at every conv of NIN and LeNet, rtol 1e-3 / atol 1e-4 (fp32,
+# another summation order), with the depth unsplit, split as the shape
+# asks, and split 3 ways; two runs of each are bit-equal.
+# ---------------------------------------------------------------------------
+
+# (C, H = W, O, K, stride, pad): NIN-CIFAR10's convs, then LeNet-MNIST's
+CONVS = [(3, 32, 192, 5, 1, 2), (192, 32, 160, 1, 1, 0),
+         (160, 32, 96, 1, 1, 0), (96, 16, 192, 5, 1, 2),
+         (192, 16, 192, 1, 1, 0), (192, 8, 192, 3, 1, 1),
+         (192, 8, 192, 1, 1, 0), (192, 8, 10, 1, 1, 0),
+         (1, 28, 20, 5, 1, 0), (20, 12, 50, 5, 1, 0)]
+
+
+@pytest.mark.parametrize("batch", [1, 8, 64])
+@pytest.mark.parametrize("c,hw,o,k,stride,pad", CONVS)
+def test_conv2d_kernel(dev, c, hw, o, k, stride, pad, batch):
+    from repro_torch.kernels import conv2d as cv
+    x = randn(dev, batch, c, hw, hw).relu()
+    w = randn(dev, o, c, k, k, seed=1) * (2 / (c * k * k)) ** 0.5
+    b = randn(dev, o, seed=2) * 0.1
+    kw = dict(stride=stride, pad=pad)
+    want = ref.conv2d_im2col_ref(x, w, b, **kw)
+    for splits in (1, None, 3):
+        got = cv.launch(x, w, b, splits=splits, **kw)
+        again = cv.launch(x, w, b, splits=splits, **kw)
+        close(got, want, rtol=1e-3, atol=1e-4)
+        assert got.is_contiguous() and torch.equal(got, again)
+    close(kops.conv2d(x, w, b, **kw), want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("act", ["relu", "silu", "gelu"])
+def test_conv2d_kernel_epilogues_and_ragged_shapes(dev, act):
+    """Activations in the epilogue; a stride-2 conv and planes of a pixel
+    count that is not a multiple of 4 (scalar stores, the gather path for
+    a 1x1 conv), without bias."""
+    from repro_torch.kernels import conv2d as cv
+    for c, hw, o, k, stride, pad in ((8, 11, 16, 3, 2, 0), (5, 7, 70, 1, 1, 0),
+                                     (3, 9, 33, 5, 1, 2)):
+        x = randn(dev, 3, c, hw, hw)
+        w = randn(dev, o, c, k, k, seed=1) * 0.2
+        for b in (None, randn(dev, o, seed=2)):
+            want = ref.conv2d_im2col_ref(x, w, b, stride=stride, pad=pad,
+                                         activation=act)
+            for splits in (1, 2):
+                got = cv.launch(x, w, b, stride=stride, pad=pad,
+                                activation=act, splits=splits)
+                close(got, want, rtol=1e-3, atol=1e-4)
+
+
+def test_conv2d_split_count_fills_the_card(dev):
+    from repro_torch.kernels import conv2d as cv
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # NIN's 5x5 96->192 and 3x3 convs at batch 8: 48 and 12 tiles
+    assert cv.split_count(192, 8 * 16 * 16, 2400, sms) * 48 <= 2 * sms
+    assert cv.split_count(192, 8 * 16 * 16, 2400, sms) >= 2
+    assert cv.split_count(192, 8 * 8 * 8, 1728, sms) == 8
+    assert cv.split_count(192, 64 * 32 * 32, 75, sms) == 1
+
+
+def test_conv2d_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, w = torch.zeros(1, 3, 8, 8, device=dev), torch.zeros(4, 3, 3, 3,
+                                                            device=dev)
+    with pytest.raises(TypeError):
+        kops.conv2d(x.double(), w.double())
+    with pytest.raises(ValueError):
+        kops.conv2d(x.transpose(2, 3), w)
+    with pytest.raises(ValueError):
+        kops.conv2d(x, w.cpu())
+    with pytest.raises(ValueError):
+        kops.conv2d(x, w[:, :2])
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +226,8 @@ def _scales(dev, shape, seed):
 @pytest.mark.parametrize("layout", ["bksd", "bskd"])
 @pytest.mark.parametrize("b,kvh,g,d", [(1, 4, 8, 64), (8, 4, 8, 64),
                                        (8, 8, 2, 64), (8, 8, 3, 64),
-                                       (8, 2, 4, 32)])
+                                       (8, 2, 4, 32), (1, 1, 16, 256),
+                                       (8, 1, 16, 256)])
 def test_decode_attention_ring_kernel(dev, dtype, layout, b, kvh, g, d):
     s = 1024
     shape = (b, kvh, s, d) if layout == "bksd" else (b, s, kvh, d)
@@ -177,6 +273,34 @@ def test_decode_attention_paged_kernel_fragmented(dev, dtype, layout):
     else:
         got = kops.decode_attention_paged(q, k, v, pt, vl, layout=layout)
         want = ref.decode_attention_paged_ref(q, k, v, pt, vl, layout=layout)
+    close(got, want, **DECODE_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_decode_attention_paged_kernel_head_dim_256(dev, dtype):
+    """RecurrentGemma-9B's local attention: 16 query heads on one KV head
+    of 256, pages of 16, ragged lanes."""
+    b, kvh, g, d, ps, w = 8, 1, 16, 256, 16, 64
+    p = 1 + b * w
+    shape = (p, kvh, ps, d)
+    q = randn(dev, b, kvh * g, d)
+    k, v = _cache(dev, shape, dtype, 1), _cache(dev, shape, dtype, 2)
+    valid = np.array([1, 1024, 17, 300, 16, 33, 999, 512])
+    pt = np.random.default_rng(1).permutation(np.arange(1, p)) \
+        .reshape(b, w).astype(np.int32)
+    for i, n in enumerate(valid):
+        pt[i, -(-n // ps):] = 0
+    pt = torch.from_numpy(pt).to(dev)
+    vl = torch.from_numpy(valid.astype(np.int32)).to(dev)
+    if dtype == torch.int8:
+        ks, vs = _scales(dev, shape[:3], 3), _scales(dev, shape[:3], 4)
+        got = kops.decode_attention_paged_q8(q, k, v, ks, vs, pt, vl,
+                                             layout="bksd")
+        want = ref.decode_attention_paged_q8_ref(q, k, v, ks, vs, pt, vl,
+                                                 layout="bksd")
+    else:
+        got = kops.decode_attention_paged(q, k, v, pt, vl, layout="bksd")
+        want = ref.decode_attention_paged_ref(q, k, v, pt, vl, layout="bksd")
     close(got, want, **DECODE_TOL)
 
 
@@ -255,6 +379,72 @@ def test_flash_attention_kernels(dev, b, s, h, kvh, d, window, dtype):
           **FLASH_GRAD_TOL[dtype])
     for got, want in zip(fa.flash_dkv(*res, **kw), ref.flash_dkv_ref(*res, **kw)):
         close(got.float(), want.float(), **FLASH_GRAD_TOL[dtype])
+
+
+# (B, Sq, Sk, H, KV, D, causal, window): Whisper-medium's cross attention
+# (300 prompt rows against 1500 frames), rows that see no key (Sq > Sk
+# with a causal window: rows 163.. of 300 against 100 keys, window 64),
+# and RecurrentGemma-9B's local attention (16/1 heads of 256, window 2048)
+FLASH_SQ_SK = [(1, 300, 1500, 16, 16, 64, False, 0),
+               (1, 300, 1500, 16, 16, 64, True, 0),
+               (2, 300, 100, 4, 2, 64, True, 64),
+               (1, 70, 300, 4, 4, 32, False, 48),
+               (1, 5, 33, 2, 1, 128, True, 0),
+               (1, 2100, 2100, 16, 1, 256, True, 2048),
+               (2, 127, 127, 16, 1, 256, True, 0),
+               (1, 300, 1500, 16, 16, 256, False, 0),
+               (1, 300, 100, 16, 1, 256, True, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window", FLASH_SQ_SK)
+def test_flash_attention_kernels_sq_sk_and_head_dim_256(
+        dev, b, sq, sk, h, kvh, d, causal, window, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    q = randn(dev, b, sq, h, d, seed=11).to(dtype)
+    k = randn(dev, b, sk, kvh, d, seed=12).to(dtype)
+    v = randn(dev, b, sk, kvh, d, seed=13).to(dtype)
+    do = randn(dev, b, sq, h, d, seed=14).to(dtype)
+    kw = dict(causal=causal, window=window)
+    close(kops.flash_attention(q, k, v, **kw).float(),
+          ref.flash_attention_ref(q, k, v, **kw).float(), **FLASH_TOL[dtype])
+    o, lse = fa.flash_fwd_lse(q, k, v, **kw)
+    o_ref, lse_ref = ref.flash_fwd_lse_ref(q, k, v, **kw)
+    close(o.float(), o_ref.float(), **FLASH_TOL[dtype])
+    close(lse, lse_ref, **FLASH_TOL[torch.float32])
+    res = (q, k, v, do, lse_ref, fa.dsum_of(o_ref, do))
+    close(fa.flash_dq(*res, **kw).float(), ref.flash_dq_ref(*res, **kw).float(),
+          **FLASH_GRAD_TOL[dtype])
+    for got, want in zip(fa.flash_dkv(*res, **kw), ref.flash_dkv_ref(*res, **kw)):
+        assert got.shape == (b, sk, kvh, d)
+        close(got.float(), want.float(), **FLASH_GRAD_TOL[dtype])
+
+
+def test_flash_attention_trainable_sq_sk_grads_on_the_card(dev):
+    """B9 through autograd at Sq != Sk and at head_dim 256, against
+    autograd of the materialized attention.  (Rows that see no key take
+    the reference's gradients, not autograd's: the kernel test above holds
+    them against the plain versions.)"""
+    from repro_torch.models.common import attention_full
+    for b, sq, sk, h, kvh, d, causal, window in (
+            (1, 300, 100, 4, 2, 64, True, 256),
+            (1, 200, 700, 8, 8, 64, False, 0),
+            (1, 300, 300, 16, 1, 256, True, 128)):
+        q = randn(dev, b, sq, h, d, seed=21)
+        k = randn(dev, b, sk, kvh, d, seed=22)
+        v = randn(dev, b, sk, kvh, d, seed=23)
+        grads = []
+        for fn in (lambda *x: kops.flash_attention_trainable(*x, causal,
+                                                             window),
+                   lambda *x: attention_full(*x, causal=causal,
+                                             window=window)):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            o = fn(*leaves)
+            torch.sin(o).sum().backward()
+            grads.append([o.detach()] + [x.grad for x in leaves])
+        close(grads[0][0], grads[1][0], **FLASH_TOL[torch.float32])
+        for got, want in zip(grads[0][1:], grads[1][1:]):
+            close(got, want, **FLASH_GRAD_TOL[torch.float32])
 
 
 def test_flash_attention_trainable_grads_on_the_card(dev):

@@ -174,6 +174,82 @@ def test_flash_attention_trainable_bf16_grads_keep_dtypes():
 
 
 # ---------------------------------------------------------------------------
+# head_dim 256 and Sq != Sk: every entry point, values and grads
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, H, KV, D, causal, window), Pallas blocks of 32: RecurrentGemma's
+# local attention (16/1 heads of 256, a window); cross attention with fewer
+# query rows than keys (Whisper's prefill), causal and not; and query rows
+# that no key can see (Sq > Sk + window - 1), whose output is the mean of v
+# and whose lse is -1e30 in the reference
+SQ_SK = [(1, 64, 64, 16, 1, 256, True, 32),
+         (1, 32, 96, 16, 1, 256, False, 0),
+         (1, 64, 192, 4, 4, 64, False, 0),
+         (1, 64, 192, 4, 2, 32, True, 0),
+         (2, 128, 64, 4, 2, 32, True, 32),
+         (1, 96, 32, 2, 1, 64, False, 16)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", SQ_SK)
+def test_flash_sq_sk_and_head_dim_256_match_pallas(b, sq, sk, h, kv, d,
+                                                   causal, window):
+    """B8's output, B9's (o, lse), and dq and dk/dv from the reference's
+    own residuals, each against the Pallas kernels in interpret mode."""
+    rng = np.random.default_rng(10)
+    q, do = (rng.standard_normal((b, sq, h, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((b, sk, kv, d)).astype(np.float32)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, block_q=32, block_k=32,
+              interpret=True)
+    mask = dict(causal=causal, window=window)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    jo_flat, jlse = jfwd(jq, jk, jv, **kw)
+    jo = jo_flat.reshape(b, h, sq, d).transpose(0, 2, 1, 3)
+    jdq, jdk, jdv = jbwd((jq, jk, jv, jo, jlse), jdo, **kw)
+    assert_close(jops.flash_attention(jq, jk, jv, block_q=32, block_k=32,
+                                      **mask), jo, **OUT_TOL)
+
+    assert_close(tops.flash_attention(t(q), t(k), t(v), **mask), jo,
+                 **OUT_TOL)
+    o, lse = tfa.flash_fwd_lse(t(q), t(k), t(v), **mask)
+    assert_close(o, jo, **OUT_TOL)
+    assert_close(lse, np.asarray(jlse).reshape(b, h, sq), **OUT_TOL)
+    lse_r = t(np.asarray(jlse).reshape(b, h, sq))
+    res = (t(q), t(k), t(v), t(do), lse_r, tfa.dsum_of(t(jo), t(do)))
+    assert_close(tfa.flash_dq(*res, **mask), jdq, **GRAD_TOL)
+    dk, dv = tfa.flash_dkv(*res, **mask)
+    assert dk.shape == (b, sk, kv, d)
+    assert_close(dk, jdk, **GRAD_TOL)
+    assert_close(dv, jdv, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", SQ_SK)
+def test_flash_trainable_sq_sk_and_head_dim_256_grads_match_pallas(
+        b, sq, sk, h, kv, d, causal, window):
+    """The autograd Function's output and gradients of sum(sin(o)) against
+    jax.grad of the Pallas custom VJP."""
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, sk, kv, d)).astype(np.float32)
+            for _ in range(2))
+
+    def jloss(q, k, v):
+        return jnp.sum(jnp.sin(jtrainable(q, k, v, causal, window, 32, 32,
+                                          True)))
+    args = tuple(map(jnp.asarray, (q, k, v)))
+    jo = jtrainable(*args, causal, window, 32, 32, True)
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(*args)
+
+    leaves = [t(x).requires_grad_() for x in (q, k, v)]
+    o = tops.flash_attention_trainable(*leaves, causal, window)
+    torch.sin(o).sum().backward()
+    assert_close(o.detach(), jo, **OUT_TOL)
+    for name, leaf, want in zip("qkv", leaves, jg):
+        assert_close(leaf.grad, want, **GRAD_TOL, err_msg=f"d{name}")
+
+
+# ---------------------------------------------------------------------------
 # the named backends of the model's full-sequence attention
 # ---------------------------------------------------------------------------
 

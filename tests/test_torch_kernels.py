@@ -20,6 +20,7 @@ from hypothesis import given, settings, strategies as st
 from repro.kernels import ops as jops
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 
 from conftest import assert_close
 
@@ -70,7 +71,7 @@ def test_gelu_is_the_tanh_form():
 
 
 # ---------------------------------------------------------------------------
-# B2 conv2d: im2col + B1
+# B2 conv2d: on the CPU its plain version, im2col + B1's plain version
 # ---------------------------------------------------------------------------
 
 
@@ -90,6 +91,32 @@ def test_conv2d_matches_pallas(cin, cout, k, stride, pad, hw):
     got = tops.conv2d(t(x), t(w), t(b), stride=stride, pad=pad)
     assert got.is_contiguous()
     assert_close(got, want, rtol=1e-3)
+
+
+# every conv of NIN-CIFAR10 and LeNet-MNIST, (C, H = W, O, K, stride, pad)
+NIN_LENET_CONVS = [(3, 32, 192, 5, 1, 2), (192, 32, 160, 1, 1, 0),
+                   (160, 32, 96, 1, 1, 0), (96, 16, 192, 5, 1, 2),
+                   (192, 16, 192, 1, 1, 0), (192, 8, 192, 3, 1, 1),
+                   (192, 8, 192, 1, 1, 0), (192, 8, 10, 1, 1, 0),
+                   (1, 28, 20, 5, 1, 0), (20, 12, 50, 5, 1, 0)]
+
+
+@pytest.mark.parametrize("c,hw,o,k,stride,pad", NIN_LENET_CONVS)
+def test_conv2d_plain_version_matches_pallas_at_the_models_shapes(
+        c, hw, o, k, stride, pad):
+    """B2's plain version (im2col in the kernel's depth order + matmul_ref,
+    the kernel's CPU route) against the JAX conv2d in interpret mode, He
+    weights on relu inputs as on the models' path."""
+    x = np.maximum(rand(2, c, hw, hw, seed=3), 0)
+    w = rand(o, c, k, k, seed=4, scale=float(np.sqrt(2 / (c * k * k))))
+    b = rand(o, seed=5, scale=0.1)
+    want = jops.conv2d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                       stride=stride, pad=pad, interpret=True)
+    got = tref.conv2d_im2col_ref(t(x), t(w), t(b), stride=stride, pad=pad)
+    assert got.is_contiguous()
+    assert_close(got, want, rtol=1e-3, atol=1e-4)
+    assert torch.equal(tops.conv2d(t(x), t(w), t(b), stride=stride, pad=pad),
+                       got)
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +289,7 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
                                  x.reshape(1, 16)),
     lambda x: tops.int8_matmul(*[x.reshape(4, 4).to(torch.int8)] * 2,
                                x[:4], x[4:8]),
+    lambda x: tops.conv2d(x.reshape(1, 1, 4, 4), x[:9].reshape(1, 1, 3, 3)),
 ])
 def test_non_cpu_tensor_never_falls_back(call):
     """A tensor that is not on the CPU launches the kernel or raises: a
