@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Host cost of the PyTorch/CUDA port's kernel launches and of a NIN
-request, for one tree of the port, on one CUDA card.
+request, the redesigned B1 and B9 backward beside their library calls,
+and the TinyLlama train step, for one tree of the port, on one CUDA card.
 
     python3 benchmarks/torch_host_path.py [--src DIR] [--tag NAME]
 
@@ -9,11 +10,22 @@ so that two trees of the port, say a commit and its parent unpacked with
 ``git archive``, are compared on one card, one after the other (run them
 in turns: parent, change, change, parent).  The kernels of that tree are
 built as its own ``_build`` builds them.  The measurements are
-``chip_smoke.py``'s: host µs per launch of every wrapper beside one
-PyTorch call (``launch_path_cases``, 10,000 calls with no synchronise),
-then NIN-CIFAR10 published to a temporary store and served through
-``InferenceEngine``: batch-1 and batch-8 latency, batch-64 images/s, and
-device time by part and idle share over 20 requests at batch 1, 8 and 64.
+``chip_smoke.py``'s:
+
+  host_path  host µs per launch of every wrapper beside one PyTorch call
+         (``launch_path_cases``, 10,000 calls with no synchronise), then
+         NIN-CIFAR10 published to a temporary store and served through
+         ``InferenceEngine``: batch-1 and batch-8 latency, batch-64
+         images/s, and device time by part and idle share over 20
+         requests at batch 1, 8 and 64
+  b1     each LeNet dense layer at batch 8 (8 x 800 x 500, 8 x 500 x 10):
+         events ms, device µs (torch.profiler), ``addmm``'s ms and µs
+  b9     dq and dk/dv at TinyLlama's train shape (batch 4 x 2048, 32/4
+         heads of 64, causal, fp32): events ms and device µs, and the
+         efficient-attention backward's (dq, dk, dv in one call)
+  train  TinyLlama-1.1B at batch 4 x 2048, fp32: train tokens/s and the
+         step's device time by part (``train_step_record``)
+
 Prints JSON lines, the card's name and power limit in each; exits 2
 without a CUDA card.
 """
@@ -25,6 +37,34 @@ import sys
 import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+TRAIN_SHAPE = (4, 2048, 32, 4, 64)      # B, S, H, KV, D: TinyLlama's train
+
+
+def b9_calls(torch, fa):
+    """dq, dk/dv and the efficient-attention backward at the train shape."""
+    b, s, h, kvh, d = TRAIN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(95)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    q, do = randn(b, s, h, d), randn(b, s, h, d)
+    k, v = randn(b, s, kvh, d), randn(b, s, kvh, d)
+    o, lse = fa.flash_fwd_lse(q, k, v)
+    res = (q, k, v, do, lse, fa.dsum_of(o, do))
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
+    dot = do.transpose(1, 2).contiguous()
+    eff = torch.ops.aten._scaled_dot_product_efficient_attention
+    out_l, lse_l, seed_l, off_l = eff(qt, kt, vt, None, True, 0.0, True)
+
+    def library():
+        return torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+            dot, qt, kt, vt, None, out_l, lse_l, seed_l, off_l, 0.0,
+            [True, True, True, False], True)
+    return {"dq": lambda: fa.flash_dq(*res),
+            "dkv": lambda: fa.flash_dkv(*res),
+            "efficient_attention_backward": library}
 
 
 def main(argv=None) -> int:
@@ -50,6 +90,7 @@ def main(argv=None) -> int:
     from repro_torch.core.engine import InferenceEngine
     from repro_torch.core.importer import to_caffe_json
     from repro_torch.core.modelstore import ModelStore
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import cnn
 
     cs.set_fp32_exact(torch)
@@ -71,6 +112,17 @@ def main(argv=None) -> int:
                  **cs.nin_end_to_end(torch, np, engine, "nin-cifar10",
                                      graph.input_shape)})
         cs.phase_profile(torch, np, engine, card)
+    lenet = cnn.graph_for(get_config("lenet-mnist"))
+    gen = torch.Generator().manual_seed(cs.SEED + 2)
+    for row in cs.dense_layer_times(torch, lenet, gen):
+        cs.emit({"phase": "b1", **head, **row})
+    cs.emit({"phase": "b9", **head, "shape": TRAIN_SHAPE,
+             **{name: {"ms": cs.time_ms(torch, fn, iters=5, reps=3),
+                       "device_us": cs.device_us(torch, fn, n=5)[0]}
+                for name, fn in b9_calls(torch, fa).items()}})
+    torch.cuda.empty_cache()
+    tiny_np = cs.numpy_weights(np, get_config("tinyllama-1.1b"), cs.SEED)
+    cs.emit({"phase": "train", **head, **cs.train_step_record(torch, tiny_np)})
     return 0
 
 

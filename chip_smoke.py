@@ -11,13 +11,16 @@ its seconds:
   build           nvcc builds src/repro_torch/kernels/csrc into build/kernels
   slice 1, the paper's CNN path:
   kernels         B1, B3-B5 against their plain versions at the main path's
-                  shapes (batch 8) and at ragged shapes, tolerance per check
+                  shapes (batch 8) and at ragged shapes, tolerance per check;
+                  B1 at M 1, 8, 16 of LeNet's K and N, a ragged K and a
+                  transposed B, two runs bit-equal
   nin, lenet      NIN-CIFAR10 / LeNet-MNIST at full width: numpy-seeded
                   weights -> Caffe JSON -> ModelStore (fp32 and int8) ->
                   InferenceEngine on the ``cuda`` backend at batch 1, 8, 64;
                   launch counts per forward; every layer against ``ref``
   times, profile  each kernel, its plain version and one PyTorch call at
-                  NIN's batch-8 shapes (B1 at LeNet's dense layers); NIN
+                  NIN's batch-8 shapes (B1 at LeNet's dense layers: its
+                  route, events and device µs beside addmm's); NIN
                   latency at batch 1 and 8 and images/s at 64; device
                   time by part and idle share (torch.profiler)
   b2_times        B2, the implicit-GEMM conv kernel, at each of NIN's 9
@@ -56,7 +59,7 @@ its seconds:
                   to 2048, window 0 and 256, fp32 and bf16; head_dim 256
                   (RecurrentGemma, window 2048) and Sq != Sk (Whisper's
                   300 x 1500 cross attention, causal and not; rows no key
-                  can see); causality
+                  can see); dq and dk/dv run twice, bit-equal; causality
   cli             ``launch.serve --model tinyllama-1.1b`` on an empty store
                   (bootstraps a reduced model; B8 prefill, B6 decode; tokens
                   equal ``ref``) and ``launch.train`` with its defaults
@@ -69,9 +72,11 @@ its seconds:
   train_publish_serve  the trained TinyLlama from the model store through
                   ServingEngine: tokens equal ``ref``, B8 22 x prefills
   train_times     train tokens/s, device time per step by part and idle
-                  share; B8/B9 per launch at the train shapes against the
-                  bound, the plain versions and the library (SDPA forward;
-                  the efficient-attention backward for dq and dk/dv)
+                  share; B8/B9 per launch at the train shapes (events ms,
+                  device µs) against the bound (dq and dk/dv: 3xTF32 at
+                  the TF32 peak, the FFMA bound beside it), the plain
+                  versions and the library (SDPA forward; the
+                  efficient-attention backward for dq and dk/dv)
   slice 4, RWKV-6 serving and the meta-selector:
   wkv_kernels     B10 against its plain version evaluated in fp64: B 1, 4,
                   8, T 1 to 2048, heads 40 x 64 and 8 x 32, decays in
@@ -136,8 +141,9 @@ SEED = 0
 BATCHES = (1, 8, 64)
 TIMING_BATCH = 8
 # H100 SXM, NVIDIA's data sheet (dense, no sparsity): fp32 outside the
-# tensor cores and HBM3 bandwidth
+# tensor cores, TF32 on them, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_HBM_BYTES = 3.35e12
 SOURCES = {
     "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
@@ -350,6 +356,12 @@ def phase_kernels(run, torch, graphs):
                                     kernel=3, stride=2, pad=1)),
                     ("softmax", dict(shape=(64, 1000))),
                     ("softmax", dict(shape=(5, 37), extreme=True))]
+    # B1's split-K route: M 1 and 16 at LeNet's K and N (M 8 is the
+    # path's), a ragged K and a transposed B
+    cases += [("matmul", dict(m=m, k=k, n=n, weight_t=False))
+              for m in (1, 16) for k, n in ((800, 500), (500, 10))]
+    cases += [("matmul", dict(m=8, k=803, n=500, weight_t=False)),
+              ("matmul", dict(m=8, k=800, n=500, weight_t=True))]
     summary = {}
     for kernel, d in cases:
         acts = {"matmul": ["none", "relu", "silu", "gelu"],
@@ -369,6 +381,9 @@ def phase_kernels(run, torch, graphs):
             got = fn(*args, **kw)
             want = plain(*args, **kw)
             torch.cuda.synchronize()
+            if kernel == "matmul":     # both routes sum in a fixed order
+                run.check("kernels", f"matmul {d} act={act}: two runs "
+                          "bit-equal", torch.equal(got, fn(*args, **kw)))
             key = kernel if kernel != "pool2d" else f"pool2d/{d['mode']}"
             rtol, atol = tol[key]
             err = (got - want).abs()
@@ -521,6 +536,7 @@ def phase_times(run, torch, np, graph, lenet_graph, engine, card):
     its launches of each launch's median time.  Inputs stay in L2
     (< 50 MB), as the previous layer's output does on the main path."""
     import torch.nn.functional as F
+    from repro_torch.kernels import matmul as mm
     set_fp32_exact(torch)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 2)
@@ -540,9 +556,7 @@ def phase_times(run, torch, np, graph, lenet_graph, engine, card):
                   "launches_per_forward": 0}
               for k in SOURCES}
     per_call = []
-    calls = path_calls(graph, TIMING_BATCH) + [
-        c for c in path_calls(lenet_graph, TIMING_BATCH) if c[0] == "matmul"]
-    for kernel, d in calls:
+    for kernel, d in path_calls(graph, TIMING_BATCH):
         act = "relu" if kernel == "elementwise" else "none"
         args, kw = make_inputs(torch, kernel, d, gen, dev, act)
         fn, plain = wrappers[kernel]
@@ -561,11 +575,28 @@ def phase_times(run, torch, np, graph, lenet_graph, engine, card):
         per_call.append({"kernel": kernel,
                          **{("window" if k == "kernel" else k): v
                             for k, v in d.items() if k != "weight_t"},
-                         "model": "lenet-mnist" if kernel == "matmul"
-                         else "nin-cifar10",
+                         "model": "nin-cifar10",
                          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": 1e3 * max(b_s, o_s),
                          "bound_by": "bytes" if b_s >= o_s else "operations"})
+    t = totals["matmul"]
+    t["device_us"] = t["library_device_us"] = 0.0
+    t["layers"] = dense_layer_times(torch, lenet_graph, gen)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for row in t["layers"]:
+        m, n, k = row["m"], row["n"], row["k"]
+        splits = mm.plan(m, n, k, sms)
+        row["route"] = f"split-K, {splits} slices" if splits else "tiled"
+        row["ctas"] = (-(-n // mm.SPLIT_COLS) * splits if splits
+                       else -(-m // 64) * -(-n // 64))
+        for key in ("ms", "plain_ms", "library_ms", "bytes_s", "ops_s"):
+            t[key] += row[key]
+        for key in ("device_us", "library_device_us"):
+            t[key] = None if t[key] is None or row[key] is None \
+                else t[key] + row[key]
+        t["bound_s"] += max(row["bytes_s"], row["ops_s"])
+        t["launches_per_forward"] += 1
+        per_call.append({"kernel": "matmul", "model": "lenet-mnist", **row})
     for row in per_call:
         emit({"phase": "times", "card": card["nvidia_smi"], **row})
 
@@ -574,6 +605,32 @@ def phase_times(run, torch, np, graph, lenet_graph, engine, card):
                             graph.input_shape)}
     emit(e2e)
     return totals
+
+
+def dense_layer_times(torch, lenet_graph, gen):
+    """B1 at each of LeNet's dense layers at batch 8: events ms and device
+    µs (torch.profiler) of the kernel and of ``addmm``; the plain
+    version's ms; the bound.  The inputs come from ``gen``."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ref
+    rows = []
+    for kernel, d in path_calls(lenet_graph, TIMING_BATCH):
+        if kernel != "matmul":
+            continue
+        (a, b, bias), kw = make_inputs(torch, kernel, d, gen, "cuda")
+        b_s, o_s = bound(kernel, d)
+        fn = lambda: mm.matmul(a, b, bias, **kw)          # noqa: E731
+        lib = lambda: torch.addmm(bias, a, b)             # noqa: E731
+        rows.append({
+            "m": d["m"], "k": d["k"], "n": d["n"],
+            "ms": time_ms(torch, fn), "device_us": device_us(torch, fn)[0],
+            "plain_ms": time_ms(torch, lambda: ref.matmul_ref(a, b, bias,
+                                                              **kw)),
+            "library_ms": time_ms(torch, lib),
+            "library_device_us": device_us(torch, lib)[0],
+            "bytes_s": b_s, "ops_s": o_s, "bound_ms": 1e3 * max(b_s, o_s),
+            "bound_by": "bytes" if b_s >= o_s else "operations"})
+    return rows
 
 
 def nin_end_to_end(torch, np, engine, name, input_shape):
@@ -769,7 +826,7 @@ def host_path_rows(torch):
     for name, shape, fn, lib in launch_path_cases(torch):
         rows.append({"wrapper": name, "shape": shape,
                      "host_us": host_us(torch, fn),
-                     "device_us": _device_us(torch, fn)[0],
+                     "device_us": device_us(torch, fn)[0],
                      "library_host_us": host_us(torch, lib) if lib else None})
     return rows
 
@@ -1625,13 +1682,13 @@ def phase_b2_times(run, torch, graph, card):
         b_s, o_s = bound(kernel, d)
         row = {"conv": name, "splits": splits, "ctas": tiles * splits,
                "ms": time_ms(torch, lambda: kops.conv2d(x, w, bias, **kw)),
-               "device_us": _device_us(torch, lambda: kops.conv2d(
+               "device_us": device_us(torch, lambda: kops.conv2d(
                    x, w, bias, **kw))[0],
                "plain_ms": time_ms(torch, lambda: ref.conv2d_im2col_ref(
                    x, w, bias, **kw)),
                "library_ms": time_ms(torch, lambda: F.conv2d(
                    x, w, bias, stride=kw["stride"], padding=kw["pad"])),
-               "library_device_us": _device_us(torch, lambda: F.conv2d(
+               "library_device_us": device_us(torch, lambda: F.conv2d(
                    x, w, bias, stride=kw["stride"], padding=kw["pad"]))[0],
                "bound_ms": 1e3 * max(b_s, o_s),
                "bound_by": "bytes" if b_s >= o_s else "operations",
@@ -1652,7 +1709,7 @@ def phase_b2_times(run, torch, graph, card):
                 row[tag] = {
                     "ms": time_ms(torch, lambda: cv.launch(x, w, bias, **kw,
                                                            **args)),
-                    "device_us": _device_us(torch, lambda: cv.launch(
+                    "device_us": device_us(torch, lambda: cv.launch(
                         x, w, bias, **kw, **args))[0]}
         rows.append(row)
         emit({"phase": "b2_times", "card": card["nvidia_smi"],
@@ -1752,6 +1809,21 @@ def phase_flash_kernels(run, torch):
                          max_abs_err=err, mismatches=bad):
             s["failed"] += 1
 
+    def check_bwd(dtype, what, res, kw):
+        """dq and dk/dv against their plain versions, and a second run of
+        each bit-equal to the first (no float atomics)."""
+        dq, dkv = fa.flash_dq(*res, **kw), fa.flash_dkv(*res, **kw)
+        check("flash_attention_dq", dtype, what, dq,
+              ref.flash_dq_ref(*res, **kw), FLASH_GRAD_TOL[dtype])
+        for part, got, want in zip(("dk", "dv"), dkv,
+                                   ref.flash_dkv_ref(*res, **kw)):
+            check("flash_attention_dkv", dtype, f"{what} {part}", got, want,
+                  FLASH_GRAD_TOL[dtype])
+        again = (fa.flash_dq(*res, **kw),) + fa.flash_dkv(*res, **kw)
+        run.check("flash_kernels", f"dq, dk/dv {dtype} {what}: two runs "
+                  "bit-equal", all(torch.equal(x, y) for x, y in
+                                   zip((dq,) + dkv, again)))
+
     for heads, (h, kvh, d) in FLASH_HEADS.items():
         for b in (1, 4):
             for s in FLASH_SEQS:
@@ -1773,16 +1845,7 @@ def phase_flash_kernels(run, torch):
                         check("flash_attention_fwd", dtype, what + " lse",
                               lse, lse_ref, FLASH_TOL["float32"])
                         res = (q, k, v, do, lse_ref, fa.dsum_of(o_ref, do))
-                        check("flash_attention_dq", dtype, what,
-                              fa.flash_dq(*res, **kw),
-                              ref.flash_dq_ref(*res, **kw),
-                              FLASH_GRAD_TOL[dtype])
-                        for part, got, want in zip(
-                                ("dk", "dv"), fa.flash_dkv(*res, **kw),
-                                ref.flash_dkv_ref(*res, **kw)):
-                            check("flash_attention_dkv", dtype,
-                                  f"{what} {part}", got, want,
-                                  FLASH_GRAD_TOL[dtype])
+                        check_bwd(dtype, what, res, kw)
                         torch.cuda.synchronize()    # a fault shows here
     for heads, b, sq, sk, h, kvh, d, causal, window in FLASH_EXTRA:
         for dtype in ("float32", "bfloat16"):
@@ -1802,12 +1865,7 @@ def phase_flash_kernels(run, torch):
             check("flash_attention_fwd", dtype, what + " lse", lse, lse_ref,
                   FLASH_TOL["float32"])
             res = (q, k, v, do, lse_ref, fa.dsum_of(o_ref, do))
-            check("flash_attention_dq", dtype, what, fa.flash_dq(*res, **kw),
-                  ref.flash_dq_ref(*res, **kw), FLASH_GRAD_TOL[dtype])
-            for part, got, want in zip(("dk", "dv"), fa.flash_dkv(*res, **kw),
-                                       ref.flash_dkv_ref(*res, **kw)):
-                check("flash_attention_dkv", dtype, f"{what} {part}", got,
-                      want, FLASH_GRAD_TOL[dtype])
+            check_bwd(dtype, what, res, kw)
             torch.cuda.synchronize()
     # causality: a perturbed last token leaves every earlier row unchanged
     q, k, v = randn(2, 300, 32, 64), randn(2, 300, 4, 64), randn(2, 300, 4, 64)
@@ -2173,12 +2231,14 @@ def _cli_arch(run, torch, np, arch, seed, serve_kernels, train_want):
     return rec
 
 
-def flash_bound(kernel, b, s, h, kvh, d, elem=4):
+def flash_bound(kernel, b, s, h, kvh, d, elem=4, unit="fp32"):
     """(seconds from bytes, seconds from operations) of one call at these
     shapes, causal with no window: each input read once and each output
     written once; per visible (query, key) pair 2*D flops per product,
     2 products in the forward, 3 in dq (q.k, dO.v, ds.k), 4 in dk/dv
-    (q.k, dO.v, p^T dO, ds^T q), at the fp32 peak."""
+    (q.k, dO.v, p^T dO, ds^T q), at the fp32 peak, or with unit "3xtf32"
+    three times as many at the TF32 tensor-core peak (the backward's
+    3xTF32 products)."""
     pairs = b * h * s * (s + 1) // 2
     q_bytes, kv_bytes, row_bytes = b * s * h * d * elem, b * s * kvh * d * elem, b * h * s * 4
     if kernel in ("flash_attention", "flash_attention_fwd"):
@@ -2191,7 +2251,10 @@ def flash_bound(kernel, b, s, h, kvh, d, elem=4):
     else:
         nbytes = 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
         products = 4
-    return nbytes / PEAK_HBM_BYTES, 2 * d * products * pairs / PEAK_FP32_FLOPS
+    flops = 2 * d * products * pairs
+    if unit == "3xtf32":
+        return nbytes / PEAK_HBM_BYTES, 3 * flops / PEAK_TF32_FLOPS
+    return nbytes / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS
 
 
 TRAIN_GROUPS = (("flash_fwd", "flash forward (B9)"),
@@ -2253,22 +2316,16 @@ def _profile_train_step(torch, cfg, params, opt, state, batch):
             "device_ms_by_part": {k: v / 1e3 for k, v in parts.items()}}
 
 
-def phase_train_times(run, torch, np, tiny_np, card):
-    """TinyLlama-1.1B, batch 4 x 2048: train tokens/s over 3 steps of
-    make_train_step after a warm one (host clock around synchronised
-    steps); device time per step by part and the idle share
-    (torch.profiler over one step); B8 and each B9 kernel per launch at
-    the train shapes against the bound, the plain version and SDPA."""
-    import torch.nn.functional as F
+def train_step_record(torch, tiny_np):
+    """TinyLlama-1.1B, batch 4 x 2048, from the numpy tree: train tokens/s
+    over 3 steps of make_train_step after a warm one (host clock around
+    synchronised steps), and device time per step by part and the idle
+    share (torch.profiler over one step)."""
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_numpy
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops as kops
-    from repro_torch.kernels import ref
     from repro_torch.launch.train import make_train_step
     from repro_torch.optim.adamw import AdamW, cosine_schedule, tree_map
-    set_fp32_exact(torch)
     cfg = get_config("tinyllama-1.1b")
     kw = TRAIN[cfg.name]
     b, s = kw["batch"], kw["seq"]
@@ -2289,8 +2346,7 @@ def phase_train_times(run, torch, np, tiny_np, card):
         float(m["loss"])                             # the trainer's one read
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    rec = {"phase": "train_times", "card": card["nvidia_smi"],
-           "model": cfg.name, "batch": b, "seq": s, "timed_steps": 3,
+    rec = {"model": cfg.name, "batch": b, "seq": s, "timed_steps": 3,
            "train_tokens_per_s": 3 * b * s / wall,
            "step_s": wall / 3,
            "step_profile": _profile_train_step(
@@ -2298,6 +2354,24 @@ def phase_train_times(run, torch, np, tiny_np, card):
                to_device(data.batch(4), DEVICE))}
     del params, state, m, step_fn
     torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_times(run, torch, np, tiny_np, card):
+    """TinyLlama-1.1B, batch 4 x 2048: train_step_record; then B8 and each
+    B9 kernel per launch at the train shapes (events ms, device µs)
+    against the bound, the plain version and the library (SDPA forward;
+    the efficient-attention backward for dq and dk/dv)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    set_fp32_exact(torch)
+    cfg = get_config("tinyllama-1.1b")
+    b, s = TRAIN[cfg.name]["batch"], TRAIN[cfg.name]["seq"]
+    rec = {"phase": "train_times", "card": card["nvidia_smi"],
+           **train_step_record(torch, tiny_np)}
 
     # each kernel at the train shapes: random fp32 inputs, causal
     h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -2360,10 +2434,21 @@ def phase_train_times(run, torch, np, tiny_np, card):
               f"dq, dk, dv (||d|| / ||g|| <= {TRAIN_GRAD_REL})",
               lib_bwd_rel <= TRAIN_GRAD_REL, rel=lib_bwd_rel)
     kernels = {}
+    sdpa_dev = device_us(torch, sdpa, n=5)[0]
+    sdpa_bwd_dev = device_us(torch, sdpa_bwd, n=3)[0]
     for name, (fn, plain) in calls.items():
-        b_s, o_s = flash_bound(name, b, s, h, kvh, d)
+        bwd = name in ("flash_attention_dq", "flash_attention_dkv")
+        # the backward runs 3xTF32 on the tensor cores: its bound is at the
+        # TF32 peak; the FFMA figure stays beside it
+        b_s, o_s = flash_bound(name, b, s, h, kvh, d,
+                               unit="3xtf32" if bwd else "fp32")
         kernels[name] = {
             "ms": time_ms(torch, fn, iters=5, reps=3),
+            "device_us": device_us(torch, fn, n=5)[0],
+            "library_device_us": sdpa_bwd_dev if bwd else sdpa_dev,
+            "bound_unit": "3xTF32 at the TF32 peak" if bwd
+            else "fp32 FFMA peak",
+            "bound_ffma_ms": 1e3 * flash_bound(name, b, s, h, kvh, d)[1],
             "plain_ms": time_ms(torch, plain, iters=1, reps=3),
             "library_ms": sdpa_ms if name in ("flash_attention",
                                               "flash_attention_fwd")
@@ -3238,7 +3323,7 @@ def int8_bound(m, k, n):
     return nbytes / PEAK_HBM_BYTES, 2 * m * k * n / PEAK_INT8_OPS
 
 
-def _device_us(torch, fn, n=20):
+def device_us(torch, fn, n=20):
     """(device µs per call of ``fn``, the kernel names): the spans of the
     kernels torch.profiler records over ``n`` calls (the host's launch
     gaps left out); None when it records none."""
@@ -3378,9 +3463,9 @@ def phase_int8_kernels(run, torch, np, store_root, card):
             "library_ms": time_ms(torch, lambda: _int8_library(
                 torch, a_lib, b, sa, sb)),
             "library_rows": a_lib.shape[0],
-            "device_us": _device_us(torch, lambda: kops.int8_matmul(
+            "device_us": device_us(torch, lambda: kops.int8_matmul(
                 a, b, sa, sb)),
-            "library_device_us": _device_us(torch, lambda: _int8_library(
+            "library_device_us": device_us(torch, lambda: _int8_library(
                 torch, a_lib, b, sa, sb))[0],
             "library_vs_kernel_max_abs": lib_err,
             "bound_ms": 1e3 * max(b_s, o_s),
@@ -3424,6 +3509,7 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
             "library_ms": t.get("library_ms"),
             "device_us": t.get("device_us"),
             "library_device_us": t.get("library_device_us"),
+            "layers": t.get("layers"),
             "ms_per": "LeNet's 2 dense layers at batch 8" if name == "matmul"
             else "NIN's 9 convs at batch 8 (one launch each)"
             if name == "conv2d" else "one NIN forward at batch 8"})
@@ -3456,6 +3542,10 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
             "library_ms": t.get("library_ms"),
             "library_call": t.get("library_call"),
             "library_fwd_bwd_ms": t.get("library_fwd_bwd_ms"),
+            "device_us": t.get("device_us"),
+            "library_device_us": t.get("library_device_us"),
+            "bound_unit": t.get("bound_unit"),
+            "bound_ffma_ms": t.get("bound_ffma_ms"),
             "ms_per": "one launch (one layer), TinyLlama heads, batch 4 x "
                       "2048, fp32, causal"})
     t = (wkv or {}).get("1x300x40x64", {})

@@ -1,7 +1,7 @@
 // Shared pieces of the kernel library: activation codes (the same numbers
 // as ACT_CODES in repro_torch/kernels/elementwise.py), the activations in
-// fp32, the error return every C entry point ends with, and the opt-in to
-// more than 48 KB of dynamic shared memory.
+// fp32, cp.async copies, the error return every C entry point ends with,
+// and the opt-in to more than 48 KB of dynamic shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,6 +38,27 @@ __device__ __forceinline__ float dlk_act(float x, int act) {
     default:
       return x;
   }
+}
+
+// Asynchronous global -> shared copies of 4 and 16 bytes (zero-filled when
+// !ok, and src then is never read), their commit and their wait.
+__device__ __forceinline__ void dlk_cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void dlk_cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void dlk_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void dlk_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Every entry point returns this: a launch refused for its configuration

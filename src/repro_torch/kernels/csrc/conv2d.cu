@@ -71,24 +71,6 @@ struct Conv {
   int span;       // depth per split, a multiple of BK
 };
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // act(v + bias) for 4 pixels of channel o starting at pixel p (p a multiple
 // of 4), stored into NCHW; float4 when a plane holds a multiple of 4 pixels.
 __device__ __forceinline__ void store4(float* __restrict__ out, const Conv& cv,
@@ -173,7 +155,7 @@ conv_igemm(const float* __restrict__ x, const float* __restrict__ w,
       const int kk = idx % BK, oo = idx / BK;
       const int o = o0 + oo, k = k0 + kk;
       const bool ok = o < cv.O && k < kend;
-      cp_async4(a_dst + kk * AS + oo,
+      dlk_cp_async4(a_dst + kk * AS + oo,
                 ok ? w + static_cast<long long>(o) * cv.K + k : w, ok);
     }
     if constexpr (VEC) {
@@ -182,7 +164,7 @@ conv_igemm(const float* __restrict__ x, const float* __restrict__ w,
       for (int r = 0; r < (BK * BN / 4) / THREADS; ++r) {
         const int kk = tid / 32 + 8 * r, k = k0 + kk;
         const bool ok = pix_ok && k < kend;
-        cp_async16(b_dst + kk * BS + 4 * (tid % 32),
+        dlk_cp_async16(b_dst + kk * BS + 4 * (tid % 32),
                    ok ? x + pix_off + k * chw : x, ok);
       }
     } else {
@@ -195,7 +177,7 @@ conv_igemm(const float* __restrict__ x, const float* __restrict__ w,
         const int ih = ih0 + (e.y >> 16), iw = iw0 + (e.y & 0xffff);
         ok = ok && static_cast<unsigned>(ih) < static_cast<unsigned>(cv.H) &&
              static_cast<unsigned>(iw) < static_cast<unsigned>(cv.W);
-        cp_async4(b_dst + kk * BS + tid % BN, ok ? x + pix_off + e.x : x, ok);
+        dlk_cp_async4(b_dst + kk * BS + tid % BN, ok ? x + pix_off + e.x : x, ok);
       }
     }
   };
@@ -209,14 +191,14 @@ conv_igemm(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nslab) load_slab(s, s);
-    cp_async_commit();
+    dlk_cp_async_commit();
   }
   for (int t = 0; t < nslab; ++t) {
-    cp_async_wait<STAGES - 2>();     // slab t has landed (this thread's copies)
+    dlk_cp_async_wait<STAGES - 2>();     // slab t has landed (this thread's copies)
     __syncthreads();                 // everyone's; and slab t - 1 is consumed
     const int next = t + STAGES - 1;
     if (next < nslab) load_slab(next % STAGES, next);
-    cp_async_commit();
+    dlk_cp_async_commit();
     const float* a_t = a_s + (t % STAGES) * BK * AS;
     const float* b_t = b_s + (t % STAGES) * BK * BS;
 #pragma unroll
@@ -233,7 +215,7 @@ conv_igemm(const float* __restrict__ x, const float* __restrict__ w,
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
   }
-  cp_async_wait<0>();
+  dlk_cp_async_wait<0>();
 
   if constexpr (!SPLIT) {
 #pragma unroll

@@ -16,8 +16,11 @@
 // Bound on the H100: operations.  A 64 x 64 score tile costs 2*64*64*D
 // flops for QK^T and as many for PV against 2*64*D*4 bytes of K/V, so the
 // kernels sit far above the fp32 ridge (~20 flops per byte) at S >= 64.
+// The forward runs fp32 FFMA (67 TFLOP/s); the backward up to head dim
+// 128 runs 3xTF32 on the tensor cores (494.7 TFLOP/s TF32, three products
+// each), at head dim 256 fp32 FFMA.
 //
-// Design (fp32 FFMA, no tensor cores and no TF32):
+// Design, common to all four kernels:
 //  - q has Sq rows and k, v have Sk; query positions start at 0, as in the
 //    Pallas kernels (query i sees key j when j <= i if causal and
 //    j > i - window if windowed);
@@ -33,12 +36,33 @@
 //    padded;
 //  - tiles are read by strides straight from (B, Sq, H, D) / (B, Sk, KV, D)
 //    (no transposes), converted to fp32 in shared memory;
-//  - thread (ty, tx) of a 16 x 16 grid owns rows ty + 16 i and score
+//  - FFMA kernels (the forward; dq and dk/dv at D 256): thread (ty, tx) of
+//    a 16 x 16 grid owns rows ty + 16 i and score
 //    columns tx + 16 j of a score tile, and D / 16 output columns of its
 //    rows (4 tx + 64 j + e from head_dim 64 up, 2 tx + e for 32), so the
 //    row statistics of the online softmax stay in its registers and are
 //    reduced over 16 lanes by shuffles; products read float4 rows of padded
 //    shared tiles;
+//  - tensor-core backward (dq, dk/dv up to D 128): every product (q.k^T,
+//    dO.v^T, ds.k in dq; k.q^T, v.dO^T, p^T.dO, ds^T.q in dk/dv) runs on
+//    mma.sync m16n8k8 TF32 as 3xTF32: each fp32 operand is split as
+//    hi = rna(x) (to nearest, ties away) and lo = x - hi, which the tensor
+//    core truncates to TF32, and the fp32 accumulators sum
+//    lo.hi + hi.lo + hi.hi, which keeps fp32 accuracy (single-pass TF32
+//    would not hold the fp32 bars).  bf16 data is exact in TF32, so the lo
+//    terms of q, k, v and dO are dropped (never those of p and ds, which
+//    are fp32).  Warp w of 8 owns a 16-row band (w % 4) of the CTA's tile
+//    and half w / 4 of the score columns, then half w / 4 of D; the
+//    probabilities (ds; p^T and ds^T) pass through shared memory between
+//    the two steps.  Tiles: TcTiles<D>; D-wide tiles have stride D + 8 and
+//    probability tiles their width + 4, and the fragment loads are laid
+//    out so that no load hits a bank twice: tiles read along their rows
+//    pair depth 2t, 2t + 1 into one 8-byte load (mma's k slots t, t + 4),
+//    tiles read down their columns (k in dq; q and dO in dk/dv) are read
+//    as mma lays them out.  The streamed tiles (dq: K and V; dk/dv: Q and
+//    dO with their lse and dsum rows) go by cp.async (bf16: converted on
+//    the way by plain loads); up to D 64 they have one stage and two CTAs
+//    share an SM, at D 128 one CTA has the SM and they are double-buffered;
 //  - masking is the reference's arithmetic: a masked score is -1e30, and
 //    p = exp(s - m) (forward) or exp(s - lse) (backward).  A row that has
 //    seen no visible key yet has m = -1e30 and so p = 1 on its masked keys,
@@ -51,14 +75,18 @@
 //    backward's exp(s - lse) are the forward's probabilities;
 //  - dk/dv: one CTA per key tile loops over the G query heads of its KV
 //    head and over the query tiles that can see it, accumulating dk and dv
-//    in fp32 registers (each tile's products summed apart, then added),
-//    and writes the group sum once (the reference's per-head outputs and
-//    their sum over G are never stored).
+//    in fp32 registers (each tile's products summed apart, then added; dq
+//    likewise per key tile on the tensor cores), and writes the group sum
+//    once (the reference's per-head outputs and their sum over G are never
+//    stored).  No float atomics: two runs are bit-equal.
 //
-// Not yet done (a later PR): wgmma/TMA tensor-core tiles, bf16 products.
+// Not yet done (a later PR): the forward (B8, B9's) on the same 3xTF32
+// fragments; wgmma/TMA tiles; the backward at D 256 on the tensor cores.
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -145,6 +173,14 @@ __device__ __forceinline__ void st_cols(T* row, const float (&x)[D / 16],
 // The reference's mask of query position qp against key position kp.
 __device__ __forceinline__ bool visible(const Shape& sh, int qp, int kp) {
   return (!sh.causal || kp <= qp) && (!sh.window || kp > qp - sh.window);
+}
+
+// Every query row of [q0, q0 + QR) sees every key of [k0, k0 + KR), all
+// of them before Sk: the tile needs no mask.
+template <int QR, int KR>
+__device__ __forceinline__ bool tile_visible(const Shape& sh, int q0, int k0) {
+  return (!sh.causal || k0 + KR - 1 <= q0) &&
+         (!sh.window || k0 > q0 + QR - 1 - sh.window) && k0 + KR <= sh.Sk;
 }
 
 // Query rows from this position on see no key (only with a window).
@@ -519,6 +555,458 @@ flash_dkv(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<D, NI>(dv + koff, krow, sh.Sk - k0, dv_acc, nullptr, ty, tx);
 }
 
+// ---------------------------------------------------------------------------
+// The backward on the tensor cores (head dims 32, 64, 128): every product
+// in 3xTF32 on mma.sync m16n8k8
+// ---------------------------------------------------------------------------
+
+// The tensor-core backward's tiles: dq takes 64 query rows a CTA and
+// streams 64-key tiles; dk/dv takes 64 key rows a CTA and streams query
+// tiles of 64 rows (32 at D 128, to fit shared memory).  A warp owns MT
+// 16-row bands of the CTA's 64 rows and half of the columns: up to D 64,
+// MT = 2 and 4 warps a CTA, two CTAs an SM, a streamed tile in one stage
+// (so that one CTA's loads and barriers overlap the other's products, and
+// a 32 x 32 warp tile splits each operand element for fewer warps); at D
+// 128, MT = 1 and 8 warps, one CTA an SM, the streamed tiles
+// double-buffered (the accumulators of a 32-row band would not fit the
+// registers).  A D-wide tile has row stride D + 8 (8 mod 32) and a
+// probability tile its width + 4 (4 mod 32): with the fragment loads
+// below no load hits a bank twice.
+template <int D>
+struct TcTiles {
+  static constexpr int DQ_Q = 64, DQ_K = 64, DKV_K = 64;
+  static constexpr int DKV_Q = D <= 64 ? 64 : 32;
+  static constexpr int STR = D + 8;
+  static constexpr int MT = D <= 64 ? 2 : 1;           // 16-row bands a warp
+  static constexpr int BANDS = 4 / MT;                 // warps along the rows
+  static constexpr int THREADS = 32 * 2 * BANDS;       // two column halves
+  static constexpr int STAGES = D <= 64 ? 1 : 2;
+  static constexpr int CTAS_PER_SM = D <= 64 ? 2 : 1;
+};
+
+// An operand fragment as two TF32 parts, x = hi + lo to ~2^-21 relative:
+// hi = rna(x), rna rounding to nearest, ties away from zero, in its
+// integer form ((bits + 2^12) with the low 13 bits cleared: cvt.rna.tf32's
+// result for every finite x, in two integer operations), and lo = x - hi,
+// exact in fp32, whose low 13 bits the tensor core ignores (lo truncated
+// to TF32).  A NaN or an infinity in x gives a NaN lo, which reaches the
+// product.
+template <int N>
+struct Frag {
+  uint32_t hi[N], lo[N];
+};
+
+template <int N>
+__device__ __forceinline__ void split(Frag<N>& f, int i, float x) {
+  const uint32_t hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  f.hi[i] = hi;
+  f.lo[i] = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a b on one m16n8k8 tile (TF32 in, fp32 accumulators).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32: lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b), the small
+// terms first.  An operand exact in TF32 (bf16 data: its lo is 0) drops
+// its term.
+template <bool EXACT_A, bool EXACT_B>
+__device__ __forceinline__ void mma3(float (&c)[4], const Frag<4>& a,
+                                     const Frag<2>& b) {
+  if constexpr (!EXACT_A) mma_tf32(c, a.lo, b.hi);
+  if constexpr (!EXACT_B) mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.hi, b.hi);
+}
+
+// Fragments (g = lane / 4, t = lane % 4).  For a product whose depth runs
+// along both tiles' rows (q.k^T, dO.v^T and their transposes) the
+// fragments pair depth d0 + 2t and d0 + 2t + 1 in mma's k slots t and
+// t + 4 (a product's depth order is free), so a row's pair is one 8-byte
+// load: with stride 8 mod 32 a half-warp's 16 loads cover 32 banks.
+template <int STR>
+__device__ __forceinline__ Frag<4> frag_a_pairs(const float* tile, int r0,
+                                                int d0, int g, int t) {
+  const float2 x = *reinterpret_cast<const float2*>(tile + (r0 + g) * STR + d0 + 2 * t);
+  const float2 y = *reinterpret_cast<const float2*>(tile + (r0 + g + 8) * STR + d0 + 2 * t);
+  Frag<4> f;
+  split(f, 0, x.x);
+  split(f, 1, y.x);
+  split(f, 2, x.y);
+  split(f, 3, y.y);
+  return f;
+}
+// B's column n is tile row r0 + n.
+template <int STR>
+__device__ __forceinline__ Frag<2> frag_b_pairs(const float* tile, int r0,
+                                                int d0, int g, int t) {
+  const float2 x = *reinterpret_cast<const float2*>(tile + (r0 + g) * STR + d0 + 2 * t);
+  Frag<2> f;
+  split(f, 0, x.x);
+  split(f, 1, x.y);
+  return f;
+}
+// For P M (ds.k in dq; p^T dO and ds^T q in dk/dv): A is rows r0 + g,
+// r0 + g + 8 and columns k0 + t, k0 + t + 4 of a probability tile of
+// stride PS (4 mod 32: 32 banks), as mma lays it out ...
+template <int PS>
+__device__ __forceinline__ Frag<4> frag_a(const float* tile, int r0, int k0,
+                                          int g, int t) {
+  const float* p = tile + (r0 + g) * PS + k0 + t;
+  Frag<4> f;
+  split(f, 0, p[0]);
+  split(f, 1, p[8 * PS]);
+  split(f, 2, p[4]);
+  split(f, 3, p[8 * PS + 4]);
+  return f;
+}
+// ... and B is rows k0 + t, k0 + t + 4, column n0 + g of a D-wide tile
+// read down its columns (stride 8 mod 32: 32 banks).
+template <int STR>
+__device__ __forceinline__ Frag<2> frag_b_down(const float* tile, int k0,
+                                               int n0, int g, int t) {
+  const float* p = tile + (k0 + t) * STR + n0 + g;
+  Frag<2> f;
+  split(f, 0, p[0]);
+  split(f, 1, p[4 * STR]);
+  return f;
+}
+
+// s = A1 B1^T and dp = A2 B2^T over depth D for the warp's MT 16-row
+// bands r0 + 16 m of A1, A2 against NT 8-row groups c0 + 8 j of B1, B2
+// (all D-wide tiles).
+template <int D, int STR, int MT, int NT, bool EX>
+__device__ __forceinline__ void score_tiles(float (&s)[MT][NT][4],
+                                            float (&dp)[MT][NT][4],
+                                            const float* a1, const float* b1,
+                                            const float* a2, const float* b2,
+                                            int r0, int c0, int g, int t) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[m][j][e] = dp[m][j][e] = 0.0f;
+#pragma unroll 2
+  for (int d0 = 0; d0 < D; d0 += 8) {
+    Frag<4> x[MT], y[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      x[m] = frag_a_pairs<STR>(a1, r0 + 16 * m, d0, g, t);
+      y[m] = frag_a_pairs<STR>(a2, r0 + 16 * m, d0, g, t);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const Frag<2> u = frag_b_pairs<STR>(b1, c0 + 8 * j, d0, g, t);
+      const Frag<2> w = frag_b_pairs<STR>(b2, c0 + 8 * j, d0, g, t);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma3<EX, EX>(s[m][j], x[m], u);
+        mma3<EX, EX>(dp[m][j], y[m], w);
+      }
+    }
+  }
+}
+
+// acc += P M for the warp's MT bands r0 + 16 m of a probability tile P
+// (KC wide, stride PS) and ND 8-column groups c0 + 8 j of a KC-row tile M:
+// the tile's products summed apart, then added.
+template <int KC, int PS, int STR, int MT, int ND, bool EX>
+__device__ __forceinline__ void add_pm(float (&acc)[MT][ND][4], const float* p,
+                                       const float* m, int r0, int c0, int g,
+                                       int t) {
+  float part[MT][ND][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < KC; k0 += 8) {
+    Frag<4> a[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) a[i] = frag_a<PS>(p, r0 + 16 * i, k0, g, t);
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const Frag<2> b = frag_b_down<STR>(m, k0, c0 + 8 * j, g, t);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) mma3<false, EX>(part[i][j], a[i], b);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+}
+
+// ROWS rows of D elements (row r at src + r * row_stride) into a shared
+// fp32 tile of stride STR, by a CTA of NTHR threads, rows at or past
+// `rows` zero: fp32 by cp.async (the caller commits and waits), bf16
+// converted on the way by plain loads.
+template <int D, int ROWS, int STR, int NTHR, typename T>
+__device__ __forceinline__ void stage_tile(float* dst, const T* __restrict__ src,
+                                           long long row_stride, int rows) {
+  constexpr int V = D / 4;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < ROWS * V; i += NTHR) {
+    const int r = i / V, c = (i % V) * 4;
+    const bool ok = r < rows;
+    if constexpr (std::is_same<T, float>::value) {
+      dlk_cp_async16(dst + r * STR + c, ok ? src + r * row_stride + c : src, ok);
+    } else {
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (ok) x = ld4(src + r * row_stride + c);
+      st4(dst + r * STR + c, x);
+    }
+  }
+}
+
+// The warp's accumulator (rows r0 + 16 m + g, + 8; columns c0 + 8 j + 2t,
+// + 1) stored as T at dst + r * row_stride for r < rows.
+template <int MT, int ND, typename T>
+__device__ __forceinline__ void store_frags(T* dst, long long row_stride,
+                                            int rows,
+                                            const float (&acc)[MT][ND][4],
+                                            int r0, int c0, int g, int t) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 16 * m + g + 8 * i;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        st2(dst + r * row_stride + c0 + 8 * j + 2 * t, acc[m][j][2 * i],
+            acc[m][j][2 * i + 1]);
+    }
+}
+
+// dq on the tensor cores: warp w owns the MT bands of query rows from
+// r0 = 16 MT (w % BANDS); in the score step it takes half w / BANDS of the
+// key tile, in the accumulation step half w / BANDS of D.  The K and V
+// tiles stream in TL::STAGES stages.
+template <int D, typename T>
+__global__ void __launch_bounds__(TcTiles<D>::THREADS, TcTiles<D>::CTAS_PER_SM)
+flash_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const T* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ dsum,
+            T* __restrict__ dq, Shape sh) {
+  using TL = TcTiles<D>;
+  constexpr int QR = TL::DQ_Q, KR = TL::DQ_K, STR = TL::STR, PS = KR + 4;
+  constexpr int MT = TL::MT, NS = TL::STAGES, NTHR = TL::THREADS;
+  constexpr int NT = KR / 16, ND = D / 16;
+  constexpr bool EX = !std::is_same<T, float>::value;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);   // QR x STR
+  float* do_s = q_s + QR * STR;                   // QR x STR
+  float* k_s = do_s + QR * STR;                   // NS stages of KR x STR
+  float* v_s = k_s + NS * KR * STR;               // NS stages of KR x STR
+  float* ds_s = v_s + NS * KR * STR;              // QR x PS
+  const int nq = (sh.Sq + QR - 1) / QR;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * QR;  // long rows first
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / sh.G;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int r0 = 16 * MT * (warp % TL::BANDS), half = warp / TL::BANDS;
+  const long long qrow = static_cast<long long>(sh.H) * D;
+  const long long krow = static_cast<long long>(sh.KV) * D;
+  const long long qoff = (static_cast<long long>(b) * sh.Sq + q0) * qrow + h * D;
+  const long long kbase = static_cast<long long>(b) * sh.Sk * krow + kvh * D;
+  const long long row0 = (static_cast<long long>(b) * sh.H + h) * sh.Sq + q0;
+  int lo, hi;
+  key_range<QR, KR>(sh, q0, lo, hi);
+  stage_tile<D, QR, STR, NTHR>(q_s, q + qoff, qrow, sh.Sq - q0);
+  stage_tile<D, QR, STR, NTHR>(do_s, dout + qoff, qrow, sh.Sq - q0);
+  if (lo < hi) {
+    stage_tile<D, KR, STR, NTHR>(k_s, k + kbase + lo * krow, krow, sh.Sk - lo);
+    stage_tile<D, KR, STR, NTHR>(v_s, v + kbase + lo * krow, krow, sh.Sk - lo);
+  }
+  dlk_cp_async_commit();
+  float lse_r[MT][2], dsum_r[MT][2], acc[MT][ND][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 16 * m + g + 8 * i;
+      const bool in = q0 + r < sh.Sq;
+      lse_r[m][i] = in ? lse[row0 + r] : 0.0f;
+      dsum_r[m][i] = in ? dsum[row0 + r] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) acc[m][j][2 * i] = acc[m][j][2 * i + 1] = 0.0f;
+    }
+  int st = 0;
+  for (int k0 = lo; k0 < hi; k0 += KR, st = NS == 2 ? st ^ 1 : 0) {
+    dlk_cp_async_wait<0>();
+    __syncthreads();   // tile k0 is in; the previous tile and ds_s are consumed
+    if (NS == 2 && k0 + KR < hi) {
+      const long long next = kbase + (k0 + KR) * krow;
+      stage_tile<D, KR, STR, NTHR>(k_s + (st ^ 1) * KR * STR, k + next, krow,
+                                   sh.Sk - k0 - KR);
+      stage_tile<D, KR, STR, NTHR>(v_s + (st ^ 1) * KR * STR, v + next, krow,
+                                   sh.Sk - k0 - KR);
+    }
+    dlk_cp_async_commit();
+    const float* kt = k_s + st * KR * STR;
+    const float* vt = v_s + st * KR * STR;
+    float s[MT][NT][4], dp[MT][NT][4];
+    score_tiles<D, STR, MT, NT, EX>(s, dp, q_s, kt, do_s, vt, r0,
+                                    half * (KR / 2), g, t);
+    const bool full = tile_visible<QR, KR>(sh, q0, k0);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = r0 + 16 * m + g + 8 * i;
+          const int c = half * (KR / 2) + 8 * j + 2 * t;
+          float ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kp = k0 + c + e;
+            const float sv = full || visible(sh, q0 + r, kp)
+                                 ? s[m][j][2 * i + e] * sh.scale : NEG_INF;
+            const float p = full || kp < sh.Sk ? expf(sv - lse_r[m][i]) : 0.0f;
+            ds[e] = p * (dp[m][j][2 * i + e] - dsum_r[m][i]) * sh.scale;
+          }
+          st2(ds_s + r * PS + c, ds[0], ds[1]);
+        }
+    __syncthreads();
+    add_pm<KR, PS, STR, MT, ND, EX>(acc, ds_s, kt, r0, half * (D / 2), g, t);
+    if (NS == 1 && k0 + KR < hi) {
+      __syncthreads();
+      const long long next = kbase + (k0 + KR) * krow;
+      stage_tile<D, KR, STR, NTHR>(k_s, k + next, krow, sh.Sk - k0 - KR);
+      stage_tile<D, KR, STR, NTHR>(v_s, v + next, krow, sh.Sk - k0 - KR);
+      dlk_cp_async_commit();
+    }
+  }
+  store_frags<MT, ND>(dq + qoff, qrow, sh.Sq - q0, acc, r0, half * (D / 2), g, t);
+}
+
+// dk, dv on the tensor cores: warp w owns the MT bands of key rows from
+// r0 = 16 MT (w % BANDS); in the score step it takes half w / BANDS of the
+// query tile, in the accumulation steps half w / BANDS of D.  The Q and dO
+// tiles, with their lse and dsum rows, stream in TL::STAGES stages over
+// the (query head, query tile) steps.
+template <int D, typename T>
+__global__ void __launch_bounds__(TcTiles<D>::THREADS, TcTiles<D>::CTAS_PER_SM)
+flash_dkv_tc(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ dsum,
+             T* __restrict__ dk, T* __restrict__ dv, Shape sh) {
+  using TL = TcTiles<D>;
+  constexpr int KR = TL::DKV_K, QR = TL::DKV_Q, STR = TL::STR, PS = QR + 4;
+  constexpr int MT = TL::MT, NS = TL::STAGES, NTHR = TL::THREADS;
+  constexpr int NT = QR / 16, ND = D / 16;
+  constexpr bool EX = !std::is_same<T, float>::value;
+  extern __shared__ float4 smem4[];
+  float* k_s = reinterpret_cast<float*>(smem4);   // KR x STR
+  float* v_s = k_s + KR * STR;                    // KR x STR
+  float* q_s = v_s + KR * STR;                    // NS stages of QR x STR
+  float* do_s = q_s + NS * QR * STR;              // NS stages of QR x STR
+  float* pt_s = do_s + NS * QR * STR;             // KR x PS: p^T
+  float* dst_s = pt_s + KR * PS;                  // KR x PS: ds^T
+  float* lse_s = dst_s + KR * PS;                 // NS stages of QR
+  float* dsum_s = lse_s + NS * QR;                // NS stages of QR
+  const int k0 = blockIdx.x * KR, kvh = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int r0 = 16 * MT * (warp % TL::BANDS), half = warp / TL::BANDS;
+  const long long qrow = static_cast<long long>(sh.H) * D;
+  const long long krow = static_cast<long long>(sh.KV) * D;
+  const long long koff = (static_cast<long long>(b) * sh.Sk + k0) * krow + kvh * D;
+  stage_tile<D, KR, STR, NTHR>(k_s, k + koff, krow, sh.Sk - k0);
+  stage_tile<D, KR, STR, NTHR>(v_s, v + koff, krow, sh.Sk - k0);
+  // the query rows that can see a key of [k0, k_last], and the rows that
+  // see no key (they take every key, as in the reference)
+  const int k_last = min(k0 + KR, sh.Sk) - 1;
+  const int q_lo = sh.causal ? (k0 / QR) * QR : 0;
+  const int q_hi = sh.Sq > first_blind_row(sh) ? sh.Sq
+                 : sh.window ? min(sh.Sq, k_last + sh.window) : sh.Sq;
+  const int nq = q_hi > q_lo ? (q_hi - q_lo + QR - 1) / QR : 0;
+  const int steps = sh.G * nq;
+  // step i: query head kvh * G + i / nq, query tile q_lo + (i % nq) * QR
+  auto stage_step = [&](int i, int buf) {
+    const int h = kvh * sh.G + i / nq, q0 = q_lo + (i % nq) * QR;
+    const long long qoff = (static_cast<long long>(b) * sh.Sq + q0) * qrow + h * D;
+    stage_tile<D, QR, STR, NTHR>(q_s + buf * QR * STR, q + qoff, qrow, sh.Sq - q0);
+    stage_tile<D, QR, STR, NTHR>(do_s + buf * QR * STR, dout + qoff, qrow,
+                                 sh.Sq - q0);
+    if (threadIdx.x < QR) {
+      const int r = threadIdx.x;
+      const long long row = (static_cast<long long>(b) * sh.H + h) * sh.Sq + q0 + r;
+      const bool in = q0 + r < sh.Sq;
+      dlk_cp_async4(lse_s + buf * QR + r, in ? lse + row : lse, in);
+      dlk_cp_async4(dsum_s + buf * QR + r, in ? dsum + row : dsum, in);
+    }
+  };
+  if (steps > 0) stage_step(0, 0);
+  dlk_cp_async_commit();
+
+  float dk_acc[MT][ND][4], dv_acc[MT][ND][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[m][j][e] = dv_acc[m][j][e] = 0.0f;
+  for (int i = 0; i < steps; ++i) {
+    const int buf = NS == 2 ? i & 1 : 0;
+    dlk_cp_async_wait<0>();
+    __syncthreads();   // step i is in; step i - 1's tiles, p^T and ds^T are consumed
+    if (NS == 2 && i + 1 < steps) stage_step(i + 1, buf ^ 1);
+    dlk_cp_async_commit();
+    const int q0 = q_lo + (i % nq) * QR;
+    const float* qt = q_s + buf * QR * STR;
+    const float* dot = do_s + buf * QR * STR;
+    const float* ls = lse_s + buf * QR;
+    const float* dsm = dsum_s + buf * QR;
+    float s[MT][NT][4], dp[MT][NT][4];   // [key row][query column]
+    score_tiles<D, STR, MT, NT, EX>(s, dp, k_s, qt, v_s, dot, r0,
+                                    half * (QR / 2), g, t);
+    const bool full = tile_visible<QR, KR>(sh, q0, k0) && q0 + QR <= sh.Sq;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const int r = r0 + 16 * m + g + 8 * ii, kp = k0 + r;
+          const int c = half * (QR / 2) + 8 * j + 2 * t;
+          float p[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int qc = c + e;
+            const bool in = full || (kp < sh.Sk && q0 + qc < sh.Sq);
+            const float sv = full || visible(sh, q0 + qc, kp)
+                                 ? s[m][j][2 * ii + e] * sh.scale : NEG_INF;
+            p[e] = in ? expf(sv - ls[qc]) : 0.0f;
+            ds[e] = p[e] * (dp[m][j][2 * ii + e] - dsm[qc]) * sh.scale;
+          }
+          st2(pt_s + r * PS + c, p[0], p[1]);
+          st2(dst_s + r * PS + c, ds[0], ds[1]);
+        }
+    __syncthreads();
+    // each step's products summed apart, then added: a key that many
+    // rows see (a GQA group, rows that see every key) sums blockwise
+    add_pm<QR, PS, STR, MT, ND, EX>(dv_acc, pt_s, dot, r0, half * (D / 2), g, t);
+    add_pm<QR, PS, STR, MT, ND, EX>(dk_acc, dst_s, qt, r0, half * (D / 2), g, t);
+    if (NS == 1 && i + 1 < steps) {
+      __syncthreads();
+      stage_step(i + 1, 0);
+      dlk_cp_async_commit();
+    }
+  }
+  store_frags<MT, ND>(dk + koff, krow, sh.Sk - k0, dk_acc, r0, half * (D / 2), g, t);
+  store_frags<MT, ND>(dv + koff, krow, sh.Sk - k0, dv_acc, r0, half * (D / 2), g, t);
+}
+
 template <int D>
 constexpr size_t fwd_smem() {
   constexpr int Q = Tiles<D>::Q, K = Tiles<D>::K;
@@ -534,8 +1022,24 @@ constexpr size_t dkv_smem() {
   constexpr int Q = Tiles<D>::Q, K = Tiles<D>::K;
   return sizeof(float) * ((2 * Q + 2 * K) * (D + 4) + 2 * K * (Q + 4) + 2 * Q);
 }
+template <int D>
+constexpr size_t dq_tc_smem() {
+  using TL = TcTiles<D>;
+  return sizeof(float) * (2 * TL::DQ_Q * TL::STR +
+                          2 * TL::STAGES * TL::DQ_K * TL::STR +
+                          TL::DQ_Q * (TL::DQ_K + 4));
+}
+template <int D>
+constexpr size_t dkv_tc_smem() {
+  using TL = TcTiles<D>;
+  return sizeof(float) * (2 * TL::DKV_K * TL::STR +
+                          2 * TL::STAGES * TL::DKV_Q * TL::STR +
+                          2 * TL::DKV_K * (TL::DKV_Q + 4) +
+                          2 * TL::STAGES * TL::DKV_Q);
+}
 static_assert(dkv_smem<256>() <= 232448 && dq_smem<256>() <= 232448 &&
-              dkv_smem<128>() <= 232448, "a tile set must fit 227 KB");
+              dq_tc_smem<128>() <= 232448 && dkv_tc_smem<128>() <= 232448,
+              "a tile set must fit 227 KB");
 
 Shape make_shape(int Sq, int Sk, int H, int KV, int D, int causal, int window) {
   Shape sh;
@@ -563,15 +1067,32 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
   return dlk_last_error();
 }
 
+// dq and dk/dv: the tensor-core kernels up to head dim 128, the FFMA
+// kernels at 256 (their fragments would not fit the registers).
+template <int D, typename T>
+auto dq_kernel() {
+  if constexpr (D <= 128) return flash_dq_tc<D, T>;
+  else return flash_dq<D, T>;
+}
+template <int D, typename T>
+auto dkv_kernel() {
+  if constexpr (D <= 128) return flash_dkv_tc<D, T>;
+  else return flash_dkv<D, T>;
+}
+
 template <int D, typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* dsum, void* dq, int B,
               const Shape& sh, cudaStream_t stream) {
-  auto kern = flash_dq<D, T>;
+  constexpr bool TC = D <= 128;
+  auto kern = dq_kernel<D, T>();
+  constexpr size_t smem = TC ? dq_tc_smem<D>() : dq_smem<D>();
+  constexpr int QR = TC ? TcTiles<D>::DQ_Q : Tiles<D>::Q;
+  constexpr int NTHR = TC ? TcTiles<D>::THREADS : THREADS;
   static DlkSmemOnce once;
-  if (int err = dlk_prepare_smem(kern, dq_smem<D>(), once)) return err;
-  const dim3 grid((sh.Sq + Tiles<D>::Q - 1) / Tiles<D>::Q, sh.H, B);
-  kern<<<grid, THREADS, dq_smem<D>(), stream>>>(
+  if (int err = dlk_prepare_smem(kern, smem, once)) return err;
+  const dim3 grid((sh.Sq + QR - 1) / QR, sh.H, B);
+  kern<<<grid, NTHR, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
       static_cast<T*>(dq), sh);
@@ -582,11 +1103,15 @@ template <int D, typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* dsum, void* dk, void* dv, int B,
                const Shape& sh, cudaStream_t stream) {
-  auto kern = flash_dkv<D, T>;
+  constexpr bool TC = D <= 128;
+  auto kern = dkv_kernel<D, T>();
+  constexpr size_t smem = TC ? dkv_tc_smem<D>() : dkv_smem<D>();
+  constexpr int KR = TC ? TcTiles<D>::DKV_K : Tiles<D>::K;
+  constexpr int NTHR = TC ? TcTiles<D>::THREADS : THREADS;
   static DlkSmemOnce once;
-  if (int err = dlk_prepare_smem(kern, dkv_smem<D>(), once)) return err;
-  const dim3 grid((sh.Sk + Tiles<D>::K - 1) / Tiles<D>::K, sh.KV, B);
-  kern<<<grid, THREADS, dkv_smem<D>(), stream>>>(
+  if (int err = dlk_prepare_smem(kern, smem, once)) return err;
+  const dim3 grid((sh.Sk + KR - 1) / KR, sh.KV, B);
+  kern<<<grid, NTHR, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
       static_cast<T*>(dk), static_cast<T*>(dv), sh);

@@ -36,17 +36,50 @@ def close(got, want, rtol, atol):
                                rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("act", ["none", "relu", "silu", "gelu"])
-@pytest.mark.parametrize("m,k,n,transposed", [(37, 75, 19, False),
-                                              (1024, 2400, 192, True),
-                                              (8, 800, 500, False)])
-def test_matmul_kernel(dev, m, k, n, transposed, act):
+# B1 at both routes: large M (tiled), LeNet's dense layers at M 1, 8, 16
+# (split-K), a ragged K, N not a multiple of 4, and transposed weights
+MATMUL_SHAPES = [(37, 75, 19, False), (1024, 2400, 192, True),
+                 (8, 800, 500, False), (1, 800, 500, False),
+                 (16, 800, 500, False), (8, 500, 10, False),
+                 (16, 500, 10, False), (8, 803, 500, False),
+                 (8, 800, 500, True), (3, 2401, 65, True),
+                 (5, 3000, 37, False)]
+
+
+def _matmul_operands(dev, m, k, n, transposed):
     a = randn(dev, m, k).relu()
     b = randn(dev, n, k, seed=1).t() if transposed else randn(dev, k, n, seed=1)
-    b = b * (2 / k) ** 0.5
-    bias = randn(dev, n, seed=2)
+    return a, b * (2 / k) ** 0.5, randn(dev, n, seed=2)
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "silu", "gelu"])
+@pytest.mark.parametrize("m,k,n,transposed", MATMUL_SHAPES)
+def test_matmul_kernel(dev, m, k, n, transposed, act):
+    a, b, bias = _matmul_operands(dev, m, k, n, transposed)
     close(kops.matmul(a, b, bias, activation=act),
           ref.matmul_ref(a, b, bias, activation=act), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("m,k,n,transposed", MATMUL_SHAPES)
+def test_matmul_routes_agree_and_rerun_bit_equal(dev, m, k, n, transposed):
+    """Every route the shape admits (the tiled kernel; split-K with the
+    planned, one and two slices) against the plain version, each run twice
+    bit-equal; the planned route is the one the wrapper takes."""
+    from repro_torch.kernels import matmul as mm
+    a, b, bias = _matmul_operands(dev, m, k, n, transposed)
+    want = ref.matmul_ref(a, b, bias, activation="relu")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    planned = mm.plan(m, n, k, sms)
+    routes = {0, planned} | {s for s in (1, 2) if m <= mm.SPLIT_MAX_M
+                             and -(-k // s) <= mm.MAX_SPAN}
+    for splits in sorted(routes):
+        got = mm.launch(a, b, bias, activation="relu", splits=splits)
+        again = mm.launch(a, b, bias, activation="relu", splits=splits)
+        close(got, want, rtol=1e-4, atol=1e-4)
+        assert torch.equal(got, again), splits
+    assert torch.equal(kops.matmul(a, b, bias, activation="relu"),
+                       mm.launch(a, b, bias, activation="relu",
+                                 splits=planned))
 
 
 @pytest.mark.parametrize("mode", ["max", "avg"])
@@ -418,6 +451,43 @@ def test_flash_attention_kernels_sq_sk_and_head_dim_256(
     for got, want in zip(fa.flash_dkv(*res, **kw), ref.flash_dkv_ref(*res, **kw)):
         assert got.shape == (b, sk, kvh, d)
         close(got.float(), want.float(), **FLASH_GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window", [
+    (2, 300, 300, 32, 4, 64, True, 0), (1, 127, 127, 16, 8, 128, True, 48),
+    (1, 300, 1500, 8, 8, 32, False, 0), (1, 300, 100, 16, 1, 256, True, 64)])
+def test_flash_backward_reruns_bit_equal(dev, b, sq, sk, h, kvh, d, causal,
+                                         window, dtype):
+    """dq and dk/dv sum in a fixed order (no float atomics): two runs on
+    the same inputs are bit-equal, at every head-dim route."""
+    from repro_torch.kernels import flash_attention as fa
+    q = randn(dev, b, sq, h, d, seed=31).to(dtype)
+    k = randn(dev, b, sk, kvh, d, seed=32).to(dtype)
+    v = randn(dev, b, sk, kvh, d, seed=33).to(dtype)
+    do = randn(dev, b, sq, h, d, seed=34).to(dtype)
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_fwd_lse(q, k, v, **kw)
+    res = (q, k, v, do, lse, fa.dsum_of(o, do))
+    first = (fa.flash_dq(*res, **kw),) + fa.flash_dkv(*res, **kw)
+    second = (fa.flash_dq(*res, **kw),) + fa.flash_dkv(*res, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_flash_backward_at_the_train_shape(dev):
+    """dq and dk/dv at TinyLlama's train shape (batch 4 x 2048, 32/4
+    heads of 64, causal, fp32) against the plain versions."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(dev, 4, 2048, 32, 4, 64, torch.float32, seed=41)
+    do = randn(dev, 4, 2048, 32, 64, seed=44)
+    o, lse = fa.flash_fwd_lse(q, k, v)
+    res = (q, k, v, do, lse, fa.dsum_of(o, do))
+    close(fa.flash_dq(*res), ref.flash_dq_ref(*res),
+          **FLASH_GRAD_TOL[torch.float32])
+    for got, want in zip(fa.flash_dkv(*res), ref.flash_dkv_ref(*res)):
+        close(got, want, **FLASH_GRAD_TOL[torch.float32])
 
 
 def test_flash_attention_trainable_sq_sk_grads_on_the_card(dev):

@@ -17,6 +17,8 @@ atol 1e-4, the JAX suite's own bar for its fused backward
 bar (the plain version rounds p to bf16 before the PV product, the
 Pallas kernel keeps it in fp32).
 """
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -247,6 +249,135 @@ def test_flash_trainable_sq_sk_and_head_dim_256_grads_match_pallas(
     assert_close(o.detach(), jo, **OUT_TOL)
     for name, leaf, want in zip("qkv", leaves, jg):
         assert_close(leaf.grad, want, **GRAD_TOL, err_msg=f"d{name}")
+
+
+# ---------------------------------------------------------------------------
+# the numerical premise of B9's tensor-core backward: 3xTF32 products hold
+# the fp32 grad bar
+# ---------------------------------------------------------------------------
+
+
+def tf32_rna(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, on the low 13 bits of the fp32 pattern (cvt.rna.tf32.f32)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_truncate(x):
+    """x truncated to TF32 (the low 13 bits cleared), as the tensor core
+    reads a .tf32 operand whose low bits are set."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def mm_3xtf32(a, b, lo_round=tf32_rna):
+    """a @ b in 3xTF32: each operand split as hi = rna(x), lo = x - hi
+    rounded by ``lo_round``, then lo.hi + hi.lo + hi.hi with fp32 sums."""
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    al, bl = lo_round(a - ah), lo_round(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def mm_1xtf32(a, b):
+    """a @ b in one TF32 product: hi.hi alone."""
+    return tf32_rna(a) @ tf32_rna(b)
+
+
+def bwd_tf32(q, k, v, do, lse, dsum, causal, window, mm=mm_3xtf32):
+    """dq, dk, dv of B9's backward (the kernels' arithmetic: scaled,
+    masked scores, p = exp(s - lse), ds = p (dO v^T - dsum) scale, dk/dv
+    summed over each KV head's group) with every product through ``mm``
+    (3xTF32 unless told otherwise)."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g, scale = h // kvh, 1.0 / np.sqrt(d)
+    qh, doh = q.transpose(1, 2), do.transpose(1, 2)          # (B, H, S, D)
+    kh = k.repeat_interleave(g, dim=2).transpose(1, 2)
+    vh = v.repeat_interleave(g, dim=2).transpose(1, 2)
+    s = mm(qh, kh.transpose(-1, -2)) * np.float32(scale)
+    qpos = torch.arange(sq)[:, None]
+    kpos = torch.arange(sk)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    p = torch.exp(torch.where(mask, s, -1e30) - lse[..., None])
+    dp = mm(doh, vh.transpose(-1, -2))
+    ds = p * (dp - dsum[..., None]) * np.float32(scale)
+    dq = mm(ds, kh).transpose(1, 2)
+    dk = mm(ds.transpose(-1, -2), qh).reshape(b, kvh, g, sk, d).sum(2)
+    dv = mm(p.transpose(-1, -2), doh).reshape(b, kvh, g, sk, d).sum(2)
+    return dq, dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits_ties_away():
+    x = torch.tensor([1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11),
+                      1 + 2 ** -11 - 2 ** -20, 3.0], dtype=torch.float32)
+    want = torch.tensor([1 + 2 ** -10, 1 + 2 ** -9, -(1 + 2 ** -10), 1.0,
+                         3.0])
+    assert torch.equal(tf32_rna(x), want)
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
+                         .astype(np.float32))
+    hi = tf32_rna(y)
+    assert float(((y - hi) / y).abs().max()) <= 2 ** -11
+    assert float(((y - hi - tf32_rna(y - hi)) / y).abs().max()) < 2 ** -21
+    assert float(((y - hi - tf32_truncate(y - hi)) / y).abs().max()) < 2 ** -20
+    assert torch.equal(tf32_truncate(x), torch.tensor(
+        [1.0, 1 + 2 ** -10, -1.0, 1.0, 3.0]))
+
+
+@pytest.mark.parametrize("lo_round", [tf32_rna, tf32_truncate],
+                         ids=["lo-rna", "lo-truncated"])
+@pytest.mark.parametrize("window", [0, 48])
+def test_3xtf32_backward_matches_pallas(window, lo_round):
+    """The kernels' 3xTF32 products, emulated in torch, give dq, dk and dv
+    within the fp32 grad bar of the Pallas backward (interpret mode), at
+    a GQA shape (8 query heads on 2 KV heads, head dim 64, 127 rows):
+    with lo rounded to nearest as cvt.rna.tf32 would, and truncated as
+    the tensor core reads the kernels' unrounded lo."""
+    b, s, h, kv, d = 1, 127, 8, 2, 64
+    q, k, v = qkv(b, s, h, kv, d, seed=12)
+    do = np.random.default_rng(13).standard_normal((b, s, h, d)) \
+        .astype(np.float32)
+    kw = dict(causal=True, window=window, block_q=s, block_k=s,
+              interpret=True)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    jo_flat, jlse = jfwd(jq, jk, jv, **kw)
+    jo = jo_flat.reshape(b, h, s, d).transpose(0, 2, 1, 3)
+    want = jbwd((jq, jk, jv, jo, jlse), jdo, **kw)
+    lse = t(np.asarray(jlse).reshape(b, h, s))
+    got = bwd_tf32(t(q), t(k), t(v), t(do), lse, tfa.dsum_of(t(jo), t(do)),
+                   True, window, partial(mm_3xtf32, lo_round=lo_round))
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert_close(x, y, **GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("s,h,kv", [(127, 8, 2), (2048, 4, 1)],
+                         ids=["s127", "s2048"])
+def test_1xtf32_backward_misses_the_fp32_grad_bar(s, h, kv):
+    """The negative control of the test above: with one TF32 product
+    (hi.hi alone) every one of dq, dk and dv breaks the fp32 grad bar
+    (rtol 1e-3 / atol 1e-4) against the fp32 plain version, where 3xTF32
+    holds it, at that test's shape and at the train length 2048.  Its
+    relative norm stays under 1e-3 all the same: a norm bar of 1e-3
+    (chip_smoke's TRAIN_GRAD_REL) cannot tell the two apart, the
+    elementwise bar can."""
+    d, window = 64, 0
+    q, k, v = map(t, qkv(1, s, h, kv, d, seed=12))
+    do = t(np.random.default_rng(13).standard_normal((1, s, h, d))
+           .astype(np.float32))
+    o, lse = tref.flash_fwd_lse_ref(q, k, v, causal=True, window=window)
+    res = (q, k, v, do, lse, tfa.dsum_of(o, do))
+    want = (tref.flash_dq_ref(*res, causal=True, window=window),
+            *tref.flash_dkv_ref(*res, causal=True, window=window))
+    three = bwd_tf32(*res, True, window)
+    one = bwd_tf32(*res, True, window, mm=mm_1xtf32)
+    for name, x3, x1, y in zip(("dq", "dk", "dv"), three, one, want):
+        assert_close(x3, y, **GRAD_TOL, err_msg=name)
+        with pytest.raises(AssertionError):
+            assert_close(x1, y, **GRAD_TOL, err_msg=name)
+        assert float((x1 - y).norm() / y.norm()) < 1e-3
 
 
 # ---------------------------------------------------------------------------

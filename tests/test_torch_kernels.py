@@ -59,6 +59,58 @@ def test_matmul_no_bias_and_strided_b_match_pallas():
     assert_close(got, want, rtol=1e-4)
 
 
+# LeNet's dense layers (800 -> 500 -> 10) at batch 1, 8 and 16
+LENET_DENSE = [(m, k, n) for m in (1, 8, 16) for k, n in ((800, 500),
+                                                         (500, 10))]
+
+
+@pytest.mark.parametrize("m,k,n", LENET_DENSE + [(8, 803, 500), (16, 20000, 7),
+                                                 (3, 2401, 65), (1, 3, 5)])
+def test_matmul_plan_takes_split_k_for_skinny_products(m, k, n):
+    """M <= 16 takes split-K: every K slice non-empty and at most
+    MAX_SPAN deep; where K allows, the (strip, slice) CTAs fill one wave
+    of the 132 SMs and stay within two; LeNet's 500 -> 10 layer gets at
+    least 32 CTAs; the workspace is one M x N tile a slice."""
+    from repro_torch.kernels import matmul as mm
+    s = mm.plan(m, n, k, 132)
+    span = -(-k // s)
+    assert 1 <= s and (s - 1) * span < k <= s * span and span <= mm.MAX_SPAN
+    ctas = -(-n // mm.SPLIT_COLS) * s
+    if k // mm.MIN_SPAN * -(-n // mm.SPLIT_COLS) >= 132:
+        assert 132 <= ctas <= 2 * 132 + -(-n // mm.SPLIT_COLS) or \
+            span == mm.MAX_SPAN
+    if (k, n) == (500, 10):
+        assert ctas >= 32
+    if (k, n) == (800, 500):
+        assert (s, ctas) == (32, 256)
+    assert mm.workspace_floats(m, n, s) == s * m * n
+
+
+@pytest.mark.parametrize("m,k,n", [(17, 800, 500), (1024, 2400, 192),
+                                   (2048, 4800, 192), (64, 800, 500),
+                                   (8, 0, 5)])
+def test_matmul_plan_takes_the_tiled_kernel_for_large_m(m, k, n):
+    from repro_torch.kernels import matmul as mm
+    assert mm.plan(m, n, k, 132) == 0
+    assert mm.workspace_floats(m, n, 0) == 0
+
+
+@pytest.mark.parametrize("m,k,n", LENET_DENSE)
+def test_matmul_plain_version_matches_pallas_at_lenet_dense_shapes(m, k, n):
+    """B1's plain version (the CPU route) against the Pallas kernel in
+    interpret mode at the split-K shapes: relu inputs, He weights, as on
+    LeNet's path."""
+    a = np.maximum(rand(m, k, seed=7), 0)
+    b = rand(k, n, seed=8, scale=float(np.sqrt(2 / k)))
+    bias = rand(n, seed=9, scale=0.1)
+    want = jops.matmul(jnp.asarray(a), jnp.asarray(b), jnp.asarray(bias),
+                       activation="relu", interpret=True)
+    got = tref.matmul_ref(t(a), t(b), t(bias), activation="relu")
+    assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(tops.matmul(t(a), t(b), t(bias), activation="relu"),
+                       got)
+
+
 def test_gelu_is_the_tanh_form():
     """jax.nn.gelu defaults to the tanh approximation; torch's F.gelu to
     erf.  The port follows JAX."""
