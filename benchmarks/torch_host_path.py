@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Host cost of the PyTorch/CUDA port's kernel launches and of a NIN
-request, the redesigned B1 and B9 backward beside their library calls,
-and the TinyLlama train step, for one tree of the port, on one CUDA card.
+request, the redesigned B1, B3, B4 and B9 backward beside their library
+calls, and the TinyLlama train step, for one tree of the port, on one
+CUDA card.
 
     python3 benchmarks/torch_host_path.py [--src DIR] [--tag NAME]
+                                          [--phases host_path,b3b4,...]
 
 ``repro_torch`` is imported from DIR (default: this checkout's ``src``),
 so that two trees of the port, say a commit and its parent unpacked with
@@ -18,6 +20,10 @@ built as its own ``_build`` builds them.  The measurements are
          ``InferenceEngine``: batch-1 and batch-8 latency, batch-64
          images/s, and device time by part and idle share over 20
          requests at batch 1, 8 and 64
+  b3b4   each B3 and B4 launch of one NIN forward at batch 8: events ms
+         and device µs beside the library call's (F.max_pool2d,
+         F.avg_pool2d, F.relu; B4 also in place beside torch.relu_, where
+         the tree has ``relu_``), the plain version's ms and the bound
   b1     each LeNet dense layer at batch 8 (8 x 800 x 500, 8 x 500 x 10):
          events ms, device µs (torch.profiler), ``addmm``'s ms and µs
   b9     dq and dk/dv at TinyLlama's train shape (batch 4 x 2048, 32/4
@@ -26,8 +32,9 @@ built as its own ``_build`` builds them.  The measurements are
   train  TinyLlama-1.1B at batch 4 x 2048, fp32: train tokens/s and the
          step's device time by part (``train_step_record``)
 
-Prints JSON lines, the card's name and power limit in each; exits 2
-without a CUDA card.
+``--phases`` runs the named phases only (default: all five).  Prints
+JSON lines, the card's name and power limit in each; exits 2 without a
+CUDA card.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ import sys
 import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+PHASES = ("host_path", "b3b4", "b1", "b9", "train")
 TRAIN_SHAPE = (4, 2048, 32, 4, 64)      # B, S, H, KV, D: TinyLlama's train
 
 
@@ -72,7 +80,12 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory that holds repro_torch")
     ap.add_argument("--tag", default="this tree")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated, of " + ", ".join(PHASES))
     args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES):
+        ap.error(f"--phases: unknown {sorted(set(phases) - set(PHASES))}")
     src = pathlib.Path(args.src).resolve()
     sys.path.insert(0, str(src))
     sys.path.insert(1, str(ROOT))
@@ -96,33 +109,47 @@ def main(argv=None) -> int:
     cs.set_fp32_exact(torch)
     card = cs.phase_device(torch)
     head = {"tree": args.tag, "src": str(src), "card": card["nvidia_smi"]}
-    for row in cs.host_path_rows(torch):
-        cs.emit({"phase": "host_path", **head, "calls": cs.LAUNCH_CALLS,
-                 **row})
     graph = cnn.graph_for(get_config("nin-cifar10"))
-    params = params_from_numpy(cs.numpy_params(np, graph, cs.SEED), "cpu",
-                               graph=graph)
-    build = ROOT / "build"
-    build.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build) as store_root:
-        store = ModelStore(pathlib.Path(store_root))
-        store.publish("nin-cifar10", to_caffe_json(graph, params)[0], params)
-        engine = InferenceEngine(store)
-        cs.emit({"phase": "host_path", **head,
-                 **cs.nin_end_to_end(torch, np, engine, "nin-cifar10",
-                                     graph.input_shape)})
-        cs.phase_profile(torch, np, engine, card)
-    lenet = cnn.graph_for(get_config("lenet-mnist"))
-    gen = torch.Generator().manual_seed(cs.SEED + 2)
-    for row in cs.dense_layer_times(torch, lenet, gen):
-        cs.emit({"phase": "b1", **head, **row})
-    cs.emit({"phase": "b9", **head, "shape": TRAIN_SHAPE,
-             **{name: {"ms": cs.time_ms(torch, fn, iters=5, reps=3),
-                       "device_us": cs.device_us(torch, fn, n=5)[0]}
-                for name, fn in b9_calls(torch, fa).items()}})
-    torch.cuda.empty_cache()
-    tiny_np = cs.numpy_weights(np, get_config("tinyllama-1.1b"), cs.SEED)
-    cs.emit({"phase": "train", **head, **cs.train_step_record(torch, tiny_np)})
+    if "host_path" in phases:
+        for row in cs.host_path_rows(torch):
+            cs.emit({"phase": "host_path", **head, "calls": cs.LAUNCH_CALLS,
+                     **row})
+        params = params_from_numpy(cs.numpy_params(np, graph, cs.SEED),
+                                   "cpu", graph=graph)
+        build = ROOT / "build"
+        build.mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=build) as store_root:
+            store = ModelStore(pathlib.Path(store_root))
+            store.publish("nin-cifar10", to_caffe_json(graph, params)[0],
+                          params)
+            engine = InferenceEngine(store)
+            cs.emit({"phase": "host_path", **head,
+                     **cs.nin_end_to_end(torch, np, engine, "nin-cifar10",
+                                         graph.input_shape)})
+            cs.phase_profile(torch, np, engine, card)
+    if "b3b4" in phases:
+        gen = torch.Generator().manual_seed(cs.SEED + 2)
+        for kernel, d in cs.path_calls(graph, cs.TIMING_BATCH):
+            if kernel in cs.DEVICE_TIMED:
+                cs.emit({"phase": "b3b4", **head, "kernel": kernel,
+                         **{("window" if k == "kernel" else k): v
+                            for k, v in d.items()},
+                         **cs.call_times(torch, kernel, d, gen)})
+    if "b1" in phases:
+        lenet = cnn.graph_for(get_config("lenet-mnist"))
+        gen = torch.Generator().manual_seed(cs.SEED + 2)
+        for row in cs.dense_layer_times(torch, lenet, gen):
+            cs.emit({"phase": "b1", **head, **row})
+    if "b9" in phases:
+        cs.emit({"phase": "b9", **head, "shape": TRAIN_SHAPE,
+                 **{name: {"ms": cs.time_ms(torch, fn, iters=5, reps=3),
+                           "device_us": cs.device_us(torch, fn, n=5)[0]}
+                    for name, fn in b9_calls(torch, fa).items()}})
+    if "train" in phases:
+        torch.cuda.empty_cache()
+        tiny_np = cs.numpy_weights(np, get_config("tinyllama-1.1b"), cs.SEED)
+        cs.emit({"phase": "train", **head,
+                 **cs.train_step_record(torch, tiny_np)})
     return 0
 
 

@@ -13,14 +13,20 @@ its seconds:
   kernels         B1, B3-B5 against their plain versions at the main path's
                   shapes (batch 8) and at ragged shapes, tolerance per check;
                   B1 at M 1, 8, 16 of LeNet's K and N, a ragged K and a
-                  transposed B, two runs bit-equal
+                  transposed B, two runs bit-equal; B3 bit-equal at every
+                  shape (global pools of 13 x 13, 64 x 64 and 31 of 33 x 31
+                  too), NaN in a max window; B4 at n % 4 != 0 on an
+                  aligned base, in place, and its input untouched out of
+                  place
   nin, lenet      NIN-CIFAR10 / LeNet-MNIST at full width: numpy-seeded
                   weights -> Caffe JSON -> ModelStore (fp32 and int8) ->
                   InferenceEngine on the ``cuda`` backend at batch 1, 8, 64;
                   launch counts per forward; every layer against ``ref``
   times, profile  each kernel, its plain version and one PyTorch call at
                   NIN's batch-8 shapes (B1 at LeNet's dense layers: its
-                  route, events and device µs beside addmm's); NIN
+                  route, events and device µs beside addmm's; B3 and B4
+                  device µs per launch beside the library call's, B4 also
+                  in place beside torch.relu_); NIN
                   latency at batch 1 and 8 and images/s at 64; device
                   time by part and idle share (torch.profiler)
   b2_times        B2, the implicit-GEMM conv kernel, at each of NIN's 9
@@ -31,8 +37,10 @@ its seconds:
                   for one CTA per SM
   launch_path     host µs per launch (10,000 calls, no synchronise) of
                   every wrapper at NIN's batch-1 and a decode step's
-                  shapes, beside one PyTorch call each; B5's wrapper step
-                  by step (checks, output, stream, pointers, ctypes call)
+                  shapes, beside one PyTorch call each; B3's, B4's and
+                  B5's wrappers step by step (checks, plan lookup, output,
+                  stream, pointers, ctypes call, the whole wrapper, the
+                  library call)
   slice 2, transformer serving:
   decode_kernels  B6 and B7 against their plain versions: TinyLlama,
                   Qwen3, Granite-MoE and RecurrentGemma (16/1 heads of
@@ -324,6 +332,7 @@ def phase_kernels(run, torch, graphs):
     emit({"phase": "kernels", "cudnn.allow_tf32":
           torch.backends.cudnn.allow_tf32,
           "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+    from repro_torch.kernels import ops as kops
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
     wrappers = kernel_and_plain()
@@ -339,6 +348,8 @@ def phase_kernels(run, torch, graphs):
     cases = []
     for g in graphs.values():
         cases += path_calls(g, TIMING_BATCH)
+        cases += [c for b in BATCHES for c in path_calls(g, b)
+                  if c[0] == "pool2d"]      # B3 at every batch served
     uniq = []
     for c in cases:
         if c not in uniq:
@@ -350,12 +361,25 @@ def phase_kernels(run, torch, graphs):
                     ("conv2d", dict(shape=(2, 5, 7, 7), out_channels=70,
                                     kernel=1, stride=1, pad=0)),
                     ("elementwise", dict(shape=(3, 7, 61))),
+                    ("elementwise", dict(shape=(7, 61))),
                     ("pool2d", dict(shape=(2, 3, 9, 10), mode="max",
                                     kernel=3, stride=2, pad=1)),
                     ("pool2d", dict(shape=(2, 3, 9, 10), mode="avg",
                                     kernel=3, stride=2, pad=1)),
-                    ("softmax", dict(shape=(64, 1000))),
-                    ("softmax", dict(shape=(5, 37), extreme=True))]
+                    ("pool2d", dict(shape=(2, 3, 9, 10), mode="max",
+                                    kernel=3, stride=2, pad=1, nan=True)),
+                    ("pool2d", dict(shape=(8, 10, 8, 8), mode="max",
+                                    kernel=8, stride=1, pad=0, nan=True))]
+    # B3's plane route beyond NIN's 8 x 8: whole 13 x 13 and 64 x 64
+    # planes, and a 31 x 31 window on 33 x 31 planes
+    cases += [("pool2d", dict(shape=shape, mode=mode, kernel=k, stride=s,
+                              pad=0))
+              for shape, k, s in (((2, 3, 13, 13), 13, 1),
+                                  ((1, 1, 64, 64), 64, 1),
+                                  ((2, 3, 33, 31), 31, 31))
+              for mode in ("max", "avg")]
+    cases += [("softmax", dict(shape=(64, 1000))),
+              ("softmax", dict(shape=(5, 37), extreme=True))]
     # B1's split-K route: M 1 and 16 at LeNet's K and N (M 8 is the
     # path's), a ragged K and a transposed B
     cases += [("matmul", dict(m=m, k=k, n=n, weight_t=False))
@@ -377,13 +401,32 @@ def phase_kernels(run, torch, graphs):
                         .to(dev)[1:],)          # 4-byte offset: scalar path
             if kernel == "pool2d" and d["mode"] == "max" and d["shape"][0] == 2:
                 args = (torch.randn(*d["shape"], generator=gen).to(dev),)
+            if d.get("nan"):          # NaN wins a max window, as in lax.max
+                args[0][0, 0, 1, 1] = args[0][-1, -1, -1, -1] = math.nan
             fn, plain = wrappers[kernel]
+            before = args[0].clone() if kernel == "elementwise" else None
             got = fn(*args, **kw)
             want = plain(*args, **kw)
             torch.cuda.synchronize()
             if kernel == "matmul":     # both routes sum in a fixed order
                 run.check("kernels", f"matmul {d} act={act}: two runs "
                           "bit-equal", torch.equal(got, fn(*args, **kw)))
+            if kernel == "pool2d":     # both routes keep the plain order
+                run.check("kernels", f"pool2d {d}: bit-equal to the plain "
+                          "version", torch.equal(got.isnan(), want.isnan())
+                          and torch.equal(got.nan_to_num(0.0),
+                                          want.nan_to_num(0.0)))
+            if kernel == "elementwise":
+                run.check("kernels", f"elementwise {d} act={act}: input "
+                          "untouched", torch.equal(args[0], before))
+            if kernel == "elementwise" and act == "relu":
+                y = args[0].clone()
+                ptr = y.data_ptr()
+                same = kops.relu_(y)
+                torch.cuda.synchronize()
+                run.check("kernels", f"relu_ {d}: in place, equal to "
+                          "relu", same is y and y.data_ptr() == ptr
+                          and torch.equal(y, got))
             key = kernel if kernel != "pool2d" else f"pool2d/{d['mode']}"
             rtol, atol = tol[key]
             err = (got - want).abs()
@@ -530,17 +573,11 @@ def time_ms(torch, fn, iters=20, reps=7):
     return statistics.median(samples)
 
 
-def phase_times(run, torch, np, graph, lenet_graph, engine, card):
-    """Per-kernel times over one NIN forward at batch 8 (B1, which NIN no
-    longer runs, over LeNet's two dense layers at batch 8): the sum over
-    its launches of each launch's median time.  Inputs stay in L2
-    (< 50 MB), as the previous layer's output does on the main path."""
+def library_calls(torch):
+    """kernel name -> one PyTorch call computing the same function, with
+    the wrapper's arguments (the yardstick; the port never calls it)."""
     import torch.nn.functional as F
-    from repro_torch.kernels import matmul as mm
-    set_fp32_exact(torch)
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(SEED + 2)
-    library = {
+    return {
         "matmul": lambda a, b, bias, activation: torch.addmm(bias, a, b),
         "conv2d": lambda x, w, b, stride, pad, activation: F.conv2d(
             x, w, b, stride=stride, padding=pad),
@@ -550,35 +587,71 @@ def phase_times(run, torch, np, graph, lenet_graph, engine, card):
         "elementwise": lambda x, act: F.relu(x),
         "softmax": lambda x: torch.softmax(x, -1),
     }
-    wrappers = kernel_and_plain()
+
+
+# the kernels whose per-launch device µs the times phase records
+DEVICE_TIMED = ("pool2d", "elementwise")
+
+
+def call_times(torch, kernel, d, gen):
+    """One launch of ``kernel`` at the path call ``d``: events ms of the
+    wrapper, its plain version and the library call, and the bound; for
+    B3 and B4 also device µs (torch.profiler) of the wrapper and of the
+    library call, and for B4 the in-place ReLU (``kops.relu_``, where the
+    tree has it) beside ``torch.relu_``."""
+    from repro_torch.kernels import ops as kops
+    act = "relu" if kernel == "elementwise" else "none"
+    args, kw = make_inputs(torch, kernel, d, gen, "cuda", act)
+    fn, plain = kernel_and_plain()[kernel]
+    lib = library_calls(torch)[kernel]
+    b_s, o_s = bound(kernel, d)
+    row = {"ms": time_ms(torch, lambda: fn(*args, **kw)),
+           "plain_ms": time_ms(torch, lambda: plain(*args, **kw)),
+           "library_ms": time_ms(torch, lambda: lib(*args, **kw)),
+           "bytes_s": b_s, "ops_s": o_s, "bound_ms": 1e3 * max(b_s, o_s),
+           "bound_by": "bytes" if b_s >= o_s else "operations"}
+    if kernel in DEVICE_TIMED:
+        row["device_us"] = device_us(torch, lambda: fn(*args, **kw))[0]
+        row["library_device_us"] = device_us(
+            torch, lambda: lib(*args, **kw))[0]
+    if kernel == "elementwise" and hasattr(kops, "relu_"):
+        x = args[0]
+        row["inplace_ms"] = time_ms(torch, lambda: kops.relu_(x))
+        row["library_inplace_ms"] = time_ms(torch, lambda: torch.relu_(x))
+        row["inplace_device_us"] = device_us(torch, lambda: kops.relu_(x))[0]
+        row["library_inplace_device_us"] = device_us(
+            torch, lambda: torch.relu_(x))[0]
+    return row
+
+
+def phase_times(run, torch, np, graph, lenet_graph, engine, card):
+    """Per-kernel times over one NIN forward at batch 8 (B1, which NIN no
+    longer runs, over LeNet's two dense layers at batch 8): the sum over
+    its launches of each launch's median time.  Inputs stay in L2
+    (< 50 MB), as the previous layer's output does on the main path."""
+    from repro_torch.kernels import matmul as mm
+    set_fp32_exact(torch)
+    gen = torch.Generator().manual_seed(SEED + 2)
     totals = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                   "bytes_s": 0.0, "ops_s": 0.0, "bound_s": 0.0,
                   "launches_per_forward": 0}
               for k in SOURCES}
     per_call = []
     for kernel, d in path_calls(graph, TIMING_BATCH):
-        act = "relu" if kernel == "elementwise" else "none"
-        args, kw = make_inputs(torch, kernel, d, gen, dev, act)
-        fn, plain = wrappers[kernel]
+        row = call_times(torch, kernel, d, gen)
         t = totals[kernel]
-        ms = time_ms(torch, lambda: fn(*args, **kw))
-        plain_ms = time_ms(torch, lambda: plain(*args, **kw))
-        lib_ms = time_ms(torch, lambda: library[kernel](*args, **kw))
-        b_s, o_s = bound(kernel, d)
-        t["ms"] += ms
-        t["plain_ms"] += plain_ms
-        t["library_ms"] += lib_ms
-        t["bytes_s"] += b_s
-        t["ops_s"] += o_s
-        t["bound_s"] += max(b_s, o_s)
+        for key, v in row.items():           # summed over the launches
+            if key not in ("bound_ms", "bound_by"):
+                old = t.get(key, 0.0)
+                t[key] = None if v is None or old is None else old + v
+        t["bound_s"] += max(row["bytes_s"], row["ops_s"])
         t["launches_per_forward"] += 1
         per_call.append({"kernel": kernel,
                          **{("window" if k == "kernel" else k): v
                             for k, v in d.items() if k != "weight_t"},
                          "model": "nin-cifar10",
-                         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "bound_ms": 1e3 * max(b_s, o_s),
-                         "bound_by": "bytes" if b_s >= o_s else "operations"})
+                         **{k: v for k, v in row.items()
+                            if k not in ("bytes_s", "ops_s")}})
     t = totals["matmul"]
     t["device_us"] = t["library_device_us"] = 0.0
     t["layers"] = dense_layer_times(torch, lenet_graph, gen)
@@ -669,9 +742,11 @@ def nin_end_to_end(torch, np, engine, name, input_shape):
             "nin_b64_images_per_s_median": statistics.median(thr)}
 
 
-# device kernels by name -> the part of the forward they belong to
+# device kernels by name -> the part of the forward they belong to (B3's
+# pool2d_plane and pool2d_window; pool2d_kernel and ew_scalar are the
+# names in trees before them)
 PROFILE_GROUPS = (("conv_igemm", "conv2d"), ("conv_reduce", "conv2d"),
-                  ("sgemm_bias_act", "matmul"), ("pool2d_kernel", "pool2d"),
+                  ("sgemm_bias_act", "matmul"), ("pool2d_", "pool2d"),
                   ("ew_vec4", "elementwise"), ("ew_scalar", "elementwise"),
                   ("softmax_rows", "softmax"), ("Memcpy HtoD", "input copy"))
 
@@ -737,9 +812,10 @@ def launch_path_cases(torch):
     same function or None): the CNN kernels at NIN's batch-1 shapes (B1 at
     LeNet's first dense layer), B6/B7 at a TinyLlama decode step's (batch
     8, ring fp32, paged int8), B8 at a 5-token prefill, B10 at a 5-token
-    RWKV-6 prefill and B11 at a decode batch of Granite's wq.  Only the
-    wrappers' public signatures are used, so the cases run on any tree of
-    the port."""
+    RWKV-6 prefill and B11 at a decode batch of Granite's wq; B3 also at
+    NIN's average pools, and B4 also in place.  Only the wrappers' public
+    signatures are used, so the cases run on any tree of the port (the
+    in-place ReLU where the tree has ``relu_``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops as kops
     gen = torch.Generator().manual_seed(SEED + 95)
@@ -749,6 +825,7 @@ def launch_path_cases(torch):
         return torch.randn(*shape, generator=gen).to(dev)
     x_sm, x_ew, x_pool = randn(1, 10), randn(1, 192, 32, 32), \
         randn(1, 96, 32, 32)
+    x_avg, x_gap = randn(1, 192, 16, 16), randn(1, 10, 8, 8)
     a_mm, b_mm, c_mm = randn(1, 800), randn(800, 500) * 0.05, randn(500)
     x1, w1, b1 = randn(1, 3, 32, 32), randn(192, 3, 5, 5) * 0.16, randn(192)
     x9, w9, b9 = randn(1, 192, 8, 8), randn(10, 192, 1, 1) * 0.1, randn(10)
@@ -785,6 +862,12 @@ def launch_path_cases(torch):
         ("pool2d", "max 3/2/1 on 1 x 96 x 32 x 32",
          lambda: kops.pool2d(x_pool, mode="max", kernel=3, stride=2, pad=1),
          lambda: F.max_pool2d(x_pool, 3, 2, 1)),
+        ("pool2d", "avg 3/2/1 on 1 x 192 x 16 x 16",
+         lambda: kops.pool2d(x_avg, mode="avg", kernel=3, stride=2, pad=1),
+         lambda: F.avg_pool2d(x_avg, 3, 2, 1, count_include_pad=False)),
+        ("pool2d", "global avg 8/1/0 on 1 x 10 x 8 x 8",
+         lambda: kops.pool2d(x_gap, mode="avg", kernel=8, stride=1, pad=0),
+         lambda: F.avg_pool2d(x_gap, 8, 1, 0)),
         ("matmul", "1 x 800 @ 800 x 500 + bias (LeNet dense)",
          lambda: kops.matmul(a_mm, b_mm, c_mm),
          lambda: torch.addmm(c_mm, a_mm, b_mm)),
@@ -815,7 +898,9 @@ def launch_path_cases(torch):
         ("int8_matmul", "8 x 1536 @ 1536 x 1536",
          lambda: kops.int8_matmul(a8, b8, sa, sb),
          lambda: torch._int_mm(a8_pad, b8)),
-    ]
+    ] + ([("elementwise", "relu in place 1 x 192 x 32 x 32",
+           lambda: kops.relu_(x_ew), lambda: torch.relu_(x_ew))]
+         if hasattr(kops, "relu_") else [])
 
 
 def host_path_rows(torch):
@@ -865,17 +950,120 @@ def softmax_steps(torch):
     return {k: host_us(torch, f) for k, f in steps.items()}
 
 
+def _gil_held(kernel):
+    """The entry point of ``kernel`` bound through ``ctypes.PyDLL``, which
+    keeps the GIL across the call (``CudaKernel`` binds through
+    ``ctypes.CDLL``, which releases and retakes it)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    fn = getattr(ctypes.PyDLL(str(_build.library_path())), kernel.symbol)
+    fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+    return fn
+
+
+def pool2d_steps(torch):
+    """B3's wrapper taken apart, host µs per call of each step over
+    LAUNCH_CALLS calls at max 3/2/1 on 1 x 96 x 32 x 32 (NIN's first pool
+    at batch 1): the fast check, the plan lookup, three ways to allocate
+    the output, the device index, the stream, the pointers and the ctypes
+    call with the plan's address (through CDLL and through PyDLL), as the
+    launch path does them; what ctypes spends converting one pointer
+    against the 9 ints the geometry would take as arguments (``from_param``,
+    which ctypes calls for each argument); the whole wrapper and
+    F.max_pool2d beside them."""
+    import ctypes
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build, pool
+    x = torch.randn(1, 96, 32, 32, device=DEVICE)
+    kw = dict(mode="max", kernel=3, stride=2, pad=1)
+    out = pool.pool2d(x, **kw)           # makes the plan, binds the symbol
+    plan, addr, shape = pool._PLANS[(x.shape, "max", 3, 2, 1)]
+    fn, idx, dev = pool.KERNEL._fn, x.get_device(), x.device
+    pyfn = _gil_held(pool.KERNEL)
+    raw = _build._raw_stream_fn()
+    stream = raw(idx)
+    xp, op = x.data_ptr(), out.data_ptr()
+    ints = [getattr(plan, f) for f in ("bc", "h", "w", "oh", "ow", "kernel",
+                                       "stride", "pad", "is_max")]
+    f32, as_int, as_ptr = torch.float32, ctypes.c_int.from_param, \
+        ctypes.c_void_p.from_param
+    steps = {
+        "checks is_cuda, dtype, is_contiguous": lambda: (
+            x.is_cuda and x.dtype is f32 and x.is_contiguous()),
+        "plan lookup": lambda: pool._PLANS.get((x.shape, "max", 3, 2, 1)),
+        "output torch.empty(shape, device=x.device)":
+            lambda: torch.empty(shape, device=x.device),
+        "output torch.empty(shape, device=<cached>)":
+            lambda: torch.empty(shape, device=dev),
+        "output x.new_empty(shape)": lambda: x.new_empty(shape),
+        "device index x.get_device()": lambda: x.get_device(),
+        "stream raw current stream": lambda: raw(idx),
+        "pointers data_ptr()": lambda: (x.data_ptr(), out.data_ptr()),
+        "ctypes call, plan address (CDLL)": lambda: fn(xp, op, addr, stream),
+        "ctypes call, plan address (PyDLL)":
+            lambda: pyfn(xp, op, addr, stream),
+        "ctypes conversion, 1 pointer": lambda: as_ptr(addr),
+        "ctypes conversion, 9 ints": lambda: tuple(map(as_int, ints)),
+        "wrapper kops.pool2d": lambda: pool.pool2d(x, **kw),
+        "F.max_pool2d": lambda: F.max_pool2d(x, 3, 2, 1),
+    }
+    return {k: host_us(torch, f) for k, f in steps.items()}
+
+
+def elementwise_steps(torch):
+    """B4's wrapper taken apart, host µs per call of each step over
+    LAUNCH_CALLS calls at NIN's relu on 1 x 192 x 32 x 32: the fast check,
+    the output, the device index, the stream, the pointers, the ctypes
+    call out of place and in place (through CDLL and through PyDLL); the
+    whole wrappers, out of place and in place, and F.relu and torch.relu_
+    beside them."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build, elementwise as ew
+    from repro_torch.kernels import ops as kops
+    x = torch.randn(1, 192, 32, 32, device=DEVICE)
+    y = x.relu()
+    out = kops.elementwise(x, "relu")         # binds the symbol
+    fn, idx, n = ew.KERNEL._fn, x.get_device(), x.numel()
+    pyfn = _gil_held(ew.KERNEL)
+    raw = _build._raw_stream_fn()
+    stream = raw(idx)
+    xp, op, yp = x.data_ptr(), out.data_ptr(), y.data_ptr()
+    f32, codes = torch.float32, ew._CODES
+    steps = {
+        "checks act code, is_cuda, dtype, is_contiguous": lambda: (
+            codes.get("relu") is not None and x.is_cuda and x.dtype is f32
+            and x.is_contiguous()),
+        "output torch.empty_like": lambda: torch.empty_like(x),
+        "device index x.get_device()": lambda: x.get_device(),
+        "numel": lambda: x.numel(),
+        "stream raw current stream": lambda: raw(idx),
+        "pointers data_ptr()": lambda: (x.data_ptr(), out.data_ptr()),
+        "ctypes call (CDLL)": lambda: fn(xp, op, n, 1, stream),
+        "ctypes call in place (CDLL)": lambda: fn(yp, yp, n, 1, stream),
+        "ctypes call (PyDLL)": lambda: pyfn(xp, op, n, 1, stream),
+        "wrapper kops.elementwise": lambda: kops.elementwise(x, "relu"),
+        "wrapper kops.relu_": lambda: kops.relu_(y),
+        "F.relu": lambda: F.relu(x),
+        "torch.relu_": lambda: torch.relu_(y),
+    }
+    return {k: host_us(torch, f) for k, f in steps.items()}
+
+
 def phase_launch_path(run, torch, card):
     """Host µs per launch of every wrapper (launch_path_cases) beside one
-    PyTorch call computing the same function, and B5's wrapper step by
-    step (softmax_steps)."""
+    PyTorch call computing the same function, and B3's, B4's and B5's
+    wrappers step by step (pool2d_steps, elementwise_steps,
+    softmax_steps)."""
     rows = host_path_rows(torch)
-    steps = softmax_steps(torch)
+    steps = {"pool2d_steps_host_us": pool2d_steps(torch),
+             "elementwise_steps_host_us": elementwise_steps(torch),
+             "softmax_steps_host_us": softmax_steps(torch)}
     for row in rows:
         emit({"phase": "launch_path", "card": card["nvidia_smi"],
               "calls": LAUNCH_CALLS, **row})
-    emit({"phase": "launch_path", "card": card["nvidia_smi"],
-          "calls": LAUNCH_CALLS, "softmax_steps_host_us": steps})
+    for name, row in steps.items():
+        emit({"phase": "launch_path", "card": card["nvidia_smi"],
+              "calls": LAUNCH_CALLS, name: row})
     run.check("launch_path", "every wrapper timed", all(
         r["host_us"] > 0 for r in rows))
     first = {}
@@ -3509,6 +3697,9 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
             "library_ms": t.get("library_ms"),
             "device_us": t.get("device_us"),
             "library_device_us": t.get("library_device_us"),
+            **{k: t[k] for k in ("inplace_ms", "library_inplace_ms",
+                                 "inplace_device_us",
+                                 "library_inplace_device_us") if k in t},
             "layers": t.get("layers"),
             "ms_per": "LeNet's 2 dense layers at batch 8" if name == "matmul"
             else "NIN's 9 convs at batch 8 (one launch each)"

@@ -18,7 +18,11 @@ layer can pin its own via ``attrs["backend"]``.
 
 ``memory_plan`` is a liveness scan: each activation is live until its last
 consumer, freed buffers go to a free list, and ``inplace`` ops reuse their
-input slot outright.
+input slot outright.  ``apply`` acts on the same declaration where it is
+safe: an ``inplace`` op may write into its input when no trace was asked
+for, the input does not require grad, and its storage is neither the
+caller's input (nor a view of it) nor an activation saved for a later
+reference.  ``relu`` is the op that does so (``ApplyContext.inplace``).
 """
 from __future__ import annotations
 
@@ -45,6 +49,11 @@ class Layer:
 
     def out_shape(self, in_shape: Tuple[int, ...]) -> Tuple[int, ...]:
         return tuple(self.spec.shape(self.attrs, tuple(in_shape)))
+
+
+def _storage(x: torch.Tensor) -> int:
+    """The address of the memory behind ``x`` and all its views."""
+    return x.untyped_storage().data_ptr()
 
 
 def _resolve_backend(layer: Layer, backend: Backend) -> Optional[str]:
@@ -132,15 +141,24 @@ class Graph:
         applies to every op that declares it ("ref" | "cuda"), a dict
         selects per kind with a "default" entry, and ops without the
         requested backend fall back to ``ref``.  ``trace``, when given,
-        receives every layer's output in order.
+        receives every layer's output in order, and then no layer writes
+        into its input.
         """
         ctx = ApplyContext()
         save_for = self._referenced()
+        # storages no layer may write into: the caller's input (and so its
+        # views) and every activation saved for a later reference
+        kept = None if trace is not None else {_storage(x)}
         for l in self.layers:
             fn = l.spec.backend(_resolve_backend(l, backend))
+            ctx.inplace = (kept is not None and l.spec.inplace
+                           and not x.requires_grad
+                           and _storage(x) not in kept)
             x = fn(x, params.get(l.name), l.attrs, ctx)
             if l.name in save_for:
                 ctx.saved[l.name] = x
+                if kept is not None:
+                    kept.add(_storage(x))
             if trace is not None:
                 trace.append(x)
         return x

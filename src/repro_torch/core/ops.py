@@ -9,6 +9,8 @@ The port of the graph half of ``repro.core.ops``.  Each op registers an
   * ``init``        — parameter initialization (``None`` = no params),
   * ``flops`` / ``weight_bytes`` — analytic cost model,
   * ``inplace``     — eligibility for buffer reuse in the memory planner,
+                      and for ``Graph.apply`` to let the op write into its
+                      input (``ApplyContext.inplace``),
   * ``references``  — names of earlier layers the op consumes (residual
                       adds; breaks the chain-only liveness assumption),
   * ``backends``    — named implementations, looked up per op at apply
@@ -41,8 +43,11 @@ Shape = Tuple[int, ...]
 @dataclass
 class ApplyContext:
     """Per-apply state passed to backend functions: activations saved for
-    later reference (residual adds)."""
+    later reference (residual adds), and whether the layer being run may
+    write its output into its input (set by ``Graph.apply`` per layer; only
+    ``relu`` acts on it)."""
     saved: Dict[str, torch.Tensor] = field(default_factory=dict)
+    inplace: bool = False
 
 
 @dataclass(frozen=True)
@@ -192,6 +197,14 @@ def _pool_cuda_b(x, p, a, ctx):
                        stride=a["stride"], pad=a["pad"])
 
 
+def _relu_ref_b(x, p, a, ctx):
+    return torch.relu_(x) if ctx.inplace else torch.relu(x)
+
+
+def _relu_cuda_b(x, p, a, ctx):
+    return kops.relu_(x) if ctx.inplace else kops.relu(x)
+
+
 def _softmax_ref_b(x, p, a, ctx):
     return softmax_ref(x.reshape(x.shape[0], -1))
 
@@ -309,8 +322,7 @@ REGISTRY.register(OpSpec(
     kind="relu",
     shape=lambda a, s: s,
     inplace=True,
-    backends={"ref": lambda x, p, a, ctx: torch.relu(x),
-              "cuda": lambda x, p, a, ctx: kops.relu(x)},
+    backends={"ref": _relu_ref_b, "cuda": _relu_cuda_b},
     caffe_type="ReLU",
     to_caffe=lambda a: {}, from_caffe=lambda e: {},
 ))

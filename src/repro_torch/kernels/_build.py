@@ -25,7 +25,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -165,6 +165,19 @@ class CudaKernel:
             msg = _library.dlk_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} failed to launch: {msg} ({err})")
         self.launches += 1
+
+
+_SMS: Dict[int, int] = {}
+
+
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, read once (the launch plans
+    size their grids by it)."""
+    n = _SMS.get(index)
+    if n is None:
+        n = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
 
 
 def check_cuda_f32(name: str, *tensors) -> int:

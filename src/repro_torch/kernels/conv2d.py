@@ -15,11 +15,11 @@ or raises.  ``F.conv2d`` and cuDNN are never on this path.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, check_cuda_f32
+from repro_torch.kernels._build import CudaKernel, check_cuda_f32, sm_count
 from repro_torch.kernels.elementwise import ACT_CODES
 from repro_torch.kernels.ref import conv2d_im2col_ref
 
@@ -35,7 +35,6 @@ CTAS_PER_SM = 2
 MIN_SLABS = 4            # depth slabs each split walks at least
 MAX_SPAN = 16384         # depth entries of one split's table in shared memory
 _INT_MAX = 2 ** 31 - 1
-_SMS: Dict[int, int] = {}
 
 
 def split_count(o: int, p: int, depth: int, sms: int) -> int:
@@ -48,14 +47,6 @@ def split_count(o: int, p: int, depth: int, sms: int) -> int:
     s = max(1, min(MAX_SPLITS, CTAS_PER_SM * sms // tiles,
                    slabs // MIN_SLABS))
     return max(s, -(-slabs // (MAX_SPAN // SLAB)))
-
-
-def _sm_count(index: int) -> int:
-    n = _SMS.get(index)
-    if n is None:
-        n = _SMS[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return n
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
@@ -105,7 +96,7 @@ def launch(x, w, b=None, *, stride=1, pad=0, activation="none",
     if max(x.numel(), o * p) > _INT_MAX:
         raise ValueError("conv2d: sizes must fit int32")
     if splits is None:
-        splits = split_count(o, p, depth, _sm_count(dev))
+        splits = split_count(o, p, depth, sm_count(dev))
     if not 1 <= splits <= MAX_SPLITS \
             or -(-depth // SLAB) > splits * (MAX_SPAN // SLAB):
         raise ValueError(f"conv2d: depth {depth} in {splits} splits (1 to "

@@ -17,7 +17,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, check_cuda_f32
+from repro_torch.kernels._build import CudaKernel, check_cuda_f32, sm_count
 from repro_torch.kernels.elementwise import ACT_CODES
 from repro_torch.kernels.ref import matmul_ref
 
@@ -62,8 +62,7 @@ def _plan(m, n, k, index):
     key = (m, n, k, index)
     s = _PLANS.get(key)
     if s is None:
-        sms = torch.cuda.get_device_properties(index).multi_processor_count
-        s = _PLANS[key] = plan(m, n, k, sms)
+        s = _PLANS[key] = plan(m, n, k, sm_count(index))
     return s
 
 

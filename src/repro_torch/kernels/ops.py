@@ -23,7 +23,7 @@ from repro_torch.kernels.conv2d import conv2d
 from repro_torch.kernels.decode_attention import (
     decode_attention, decode_attention_paged, decode_attention_paged_q8,
     decode_attention_q8)
-from repro_torch.kernels.elementwise import elementwise, relu
+from repro_torch.kernels.elementwise import elementwise, relu, relu_
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention_bwd import flash_attention_trainable
 from repro_torch.kernels.int8_matmul import int8_matmul
@@ -35,9 +35,8 @@ from repro_torch.kernels.softmax import softmax
 __all__ = ["KERNELS", "conv2d", "decode_attention", "decode_attention_paged",
            "decode_attention_paged_q8", "decode_attention_q8", "elementwise",
            "flash_attention", "flash_attention_trainable", "int8_matmul",
-           "launches",
-           "matmul", "pool2d", "relu", "reset_launches", "rwkv6_chunked",
-           "softmax"]
+           "launches", "matmul", "pool2d", "relu", "relu_", "reset_launches",
+           "rwkv6_chunked", "softmax"]
 
 KERNELS: Dict[str, CudaKernel] = {
     "matmul": _mm.KERNEL,

@@ -99,6 +99,114 @@ def test_elementwise_kernel(dev, act, offset):
           rtol=1e-6, atol=1e-6)
 
 
+# B3's routes, each bit-equal to the plain version (both keep its order):
+# the plane reduction at NIN's global pool and at larger planes, the
+# windowed kernel at every pool of NIN's and LeNet's paths
+PLANE_POOLS = [((8, 10, 8, 8), 8, 1, 0), ((2, 3, 13, 13), 13, 1, 0),
+               ((1, 1, 64, 64), 64, 1, 0), ((2, 3, 33, 31), 31, 31, 0)]
+WINDOW_POOLS = [((b, c, hw, hw), 3, 2, 1) for b in (1, 8, 64)
+                for c, hw in ((96, 32), (192, 16))] + \
+    [((8, 20, 24, 24), 2, 2, 0), ((8, 50, 8, 8), 2, 2, 0),
+     ((2, 5, 17, 16), 3, 2, 1), ((1, 2, 40, 300), 5, 3, 2)]
+
+
+@pytest.mark.parametrize("mode", ["max", "avg"])
+@pytest.mark.parametrize("shape,k,s,p", PLANE_POOLS + WINDOW_POOLS)
+def test_pool_routes_bit_equal(dev, mode, shape, k, s, p):
+    from repro_torch.kernels import pool
+    x = randn(dev, *shape) * 3
+    kw = dict(mode=mode, kernel=k, stride=s, pad=p)
+    got = kops.pool2d(x, **kw)
+    again = kops.pool2d(x, **kw)               # the cached plan's launch
+    want = ref.pool2d_ref(x, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want)
+    route = pool._PLANS[(shape, mode, k, s, p)][0].route
+    assert route == (pool.ROUTE_PLANE if (shape, k, s, p) in PLANE_POOLS
+                     else pool.ROUTE_WINDOW)
+
+
+@pytest.mark.parametrize("shape,k,s,p", [((8, 10, 8, 8), 8, 1, 0),
+                                         ((2, 3, 9, 10), 3, 2, 1),
+                                         ((8, 96, 32, 32), 3, 2, 1)])
+def test_pool_max_nan_wins(dev, shape, k, s, p):
+    x = randn(dev, *shape)
+    x[0, 0, 1, 1] = float("nan")
+    x[-1, -1, -1, -1] = float("nan")
+    kw = dict(mode="max", kernel=k, stride=s, pad=p)
+    got, want = kops.pool2d(x, **kw), ref.pool2d_ref(x, **kw)
+    torch.cuda.synchronize()
+    assert got.isnan().any() and torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+
+
+def test_elementwise_takes_one_launch_for_any_n(dev):
+    """An aligned base with n % 4 = 3: one ew_vec4 launch a call, where the
+    tail took a second kernel before."""
+    from torch.profiler import ProfilerActivity, profile
+    x = randn(dev, 4 * 1283 + 3) * 4
+    assert x.data_ptr() % 16 == 0
+    kops.elementwise(x, "silu")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            got = kops.elementwise(x, "silu")
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and "ew_" in e.name]       # (anonymous namespace)::ew_...
+    assert len(kernels) == 5 and all("ew_vec4" in k for k in kernels), \
+        kernels
+    close(got, ref.elementwise_ref(x, "silu"), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("offset", [0, 1])        # 1: unaligned
+def test_relu_in_place_and_out_of_place(dev, offset):
+    x = (randn(dev, 3 * 7 * 61 + offset) * 3)[offset:]
+    x0 = x.clone()
+    want = ref.elementwise_ref(x0, "relu")
+    out = kops.elementwise(x, "relu")
+    torch.cuda.synchronize()
+    assert torch.equal(x, x0) and torch.equal(out, want)
+    ptr = x.data_ptr()
+    same = kops.relu_(x)
+    torch.cuda.synchronize()
+    assert same is x and x.data_ptr() == ptr and torch.equal(x, want)
+
+
+@pytest.mark.parametrize("name", ["nin-cifar10", "lenet-mnist"])
+def test_inplace_relu_bit_equal_on_the_card(dev, name, monkeypatch):
+    """The CNN at batch 8 through Graph.apply on the kernels: every ReLU
+    writes into its input without a trace, and the output is bit-equal to
+    a traced run's (no layer in place), with the same launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.ops import REGISTRY
+    from repro_torch.models import cnn
+    g = cnn.graph_for(get_config(name))
+    params = {layer: {k: v.to(dev) for k, v in group.items()}
+              for layer, group in g.init_params(
+                  torch.Generator().manual_seed(0)).items()}
+    x = randn(dev, 8, *g.input_shape)
+    flags = []
+    spec = REGISTRY.op("relu")
+
+    def spy(x, p, a, ctx):
+        flags.append(ctx.inplace)
+        return spec.backends["cuda"](x, p, a, ctx)
+    monkeypatch.setitem(spec.backends, "spy", spy)
+    with torch.inference_mode():
+        traced = g.apply(params, x, backend="cuda", trace=[])
+        kops.reset_launches()
+        out = g.apply(params, x, backend={"relu": "spy", "default": "cuda"})
+        launches = {k: n for k, n in kops.launches().items() if n}
+    torch.cuda.synchronize()
+    assert flags == [True] * sum(l.kind == "relu" for l in g.layers)
+    assert torch.equal(out, traced)
+    assert launches["elementwise"] == len(flags)
+    assert launches["pool2d"] == sum(l.kind == "pool" for l in g.layers)
+
+
 @pytest.mark.parametrize("r,n", [(8, 10), (64, 1000), (3, 33)])
 def test_softmax_kernel(dev, r, n):
     x = randn(dev, r, n) * 5

@@ -192,6 +192,128 @@ def test_per_layer_parity_with_jax(model, backend):
 
 
 # ---------------------------------------------------------------------------
+# The in-place ReLU of Graph.apply
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def relu_spy(monkeypatch):
+    """A ``spy`` backend for relu: records ``ctx.inplace`` of each call,
+    then runs the ``ref`` backend."""
+    flags = []
+    spec = REGISTRY.op("relu")
+
+    def spy(x, p, a, ctx):
+        flags.append(ctx.inplace)
+        return spec.backends["ref"](x, p, a, ctx)
+    monkeypatch.setitem(spec.backends, "spy", spy)
+    return flags
+
+
+CONV = dict(out_channels=4, kernel=3, stride=1, pad=1)
+
+
+def tiny(*layers, input_shape=(3, 6, 6)):
+    """The port's and the JAX package's graph of the same layers, the
+    port's parameters (seeded) and their JAX copies."""
+    from repro.core.graph import Graph as JGraph, Layer as JLayer
+    from repro_torch.core.graph import Graph, Layer
+    tg = Graph("tiny", input_shape,
+               [Layer(k, n, dict(a)) for k, n, a in layers])
+    jg = JGraph("tiny", input_shape,
+                [JLayer(k, n, dict(a)) for k, n, a in layers])
+    jg.shapes()
+    params = tg.init_params(torch.Generator().manual_seed(0))
+    jparams = {l: {k: jnp.asarray(v.numpy()) for k, v in g.items()}
+               for l, g in params.items()}
+    return tg, jg, params, jparams
+
+
+@pytest.mark.parametrize("backend", ["ref", "cuda"])
+def test_inplace_relu_gives_the_traced_output(model, backend, relu_spy):
+    """NIN and LeNet at batch 2: without a trace every ReLU writes into its
+    input (a conv or dense output), and the output is bit-equal to a traced
+    run's, where no layer writes in place; the caller's input is
+    bit-unchanged."""
+    _, _, tg, np_params, _ = model
+    params = params_from_numpy(np_params, "cpu", graph=tg)
+    x = torch.from_numpy(inputs(tg, 2))
+    x0 = x.clone()
+    traced = tg.apply(params, x, backend=backend, trace=[])
+    assert torch.equal(tg.apply(params, x, backend=backend), traced)
+    spied = tg.apply(params, x, backend={"relu": "spy", "default": backend})
+    assert torch.equal(spied, traced) and torch.equal(x, x0)
+    assert relu_spy == [True] * sum(l.kind == "relu" for l in tg.layers)
+
+
+def test_inplace_never_writes_the_callers_tensor(relu_spy):
+    """A ReLU on the caller's tensor, or on a ``flatten`` view of it, runs
+    out of place; on a flatten view of the graph's own conv output it runs
+    in place."""
+    x = torch.from_numpy(inputs(tiny(("relu", "r0", {}))[0], 2))
+    x0 = x.clone()
+    for layers in ((("relu", "r0", {}),),
+                   (("flatten", "f0", {}), ("relu", "r1", {}))):
+        tg, jg, params, jparams = tiny(*layers)
+        out = tg.apply(params, x, backend={"relu": "spy"})
+        assert relu_spy.pop() is False and torch.equal(x, x0)
+        assert torch.equal(out, torch.relu(x0).reshape(out.shape))
+    layers = (("conv", "c0", CONV), ("flatten", "f1", {}), ("relu", "r2", {}))
+    tg, jg, params, jparams = tiny(*layers)
+    out = tg.apply(params, x, backend={"relu": "spy"})
+    assert relu_spy == [True] and torch.equal(x, x0)
+    assert torch.equal(out, tg.apply(params, x, trace=[]))
+    assert_close(out, jg.apply(jparams, jnp.asarray(x0.numpy())),
+                 rtol=1e-5, atol=1e-6)
+
+
+def test_inplace_keeps_a_referenced_activation(relu_spy):
+    """conv -> relu -> add(conv) -> relu: the conv output is saved for the
+    add, so the first ReLU runs out of place and the add reads the conv's
+    negative values; the second ReLU's input is the add's own output."""
+    tg, jg, params, jparams = tiny(("conv", "c0", CONV), ("relu", "r1", {}),
+                                   ("add", "a2", dict(src="c0")),
+                                   ("relu", "r3", {}))
+    x = torch.from_numpy(inputs(tg, 2))
+    trace = []
+    traced = tg.apply(params, x, trace=trace)
+    out = tg.apply(params, x, backend={"relu": "spy"})
+    assert relu_spy == [False, True]
+    assert torch.equal(out, traced) and (trace[0] < 0).any()
+    assert torch.equal(out, torch.relu(trace[0] + torch.relu(trace[0])))
+    assert_close(out, jg.apply(jparams, jnp.asarray(x.numpy())),
+                 rtol=1e-5, atol=1e-6)
+
+
+def test_trace_entries_are_never_overwritten(model, relu_spy):
+    """With a trace, no layer writes in place: every ReLU's input entry
+    keeps its negative values and differs from the ReLU's entry."""
+    _, _, tg, np_params, _ = model
+    params = params_from_numpy(np_params, "cpu", graph=tg)
+    trace = []
+    tg.apply(params, torch.from_numpy(inputs(tg, 2)),
+             backend={"relu": "spy"}, trace=trace)
+    assert relu_spy and not any(relu_spy)
+    for layer, before, after in zip(tg.layers[1:], trace, trace[1:]):
+        if layer.kind == "relu":
+            assert (before < 0).any() and (after >= 0).all()
+            assert before.data_ptr() != after.data_ptr()
+
+
+def test_no_inplace_under_autograd(relu_spy):
+    """An input that requires grad is never written in place, so the
+    backward sees the conv's own output."""
+    tg, _, params, _ = tiny(("conv", "c0", CONV), ("relu", "r1", {}))
+    x = torch.from_numpy(inputs(tg, 2))
+    w = params["c0"]["w"].clone().requires_grad_(True)
+    out = tg.apply({"c0": {**params["c0"], "w": w}}, x,
+                   backend={"relu": "spy"})
+    assert relu_spy == [False]
+    out.sum().backward()
+    assert w.grad is not None and torch.isfinite(w.grad).all()
+
+
+# ---------------------------------------------------------------------------
 # Weight conversion
 # ---------------------------------------------------------------------------
 

@@ -9,6 +9,7 @@ rules: no jax or repro import, nothing built at import time, no
 fallback to a plain version for a tensor that is not on the CPU.
 """
 import ast
+import ctypes
 import pathlib
 
 import jax.numpy as jnp
@@ -193,6 +194,114 @@ def test_pool2d_matches_pallas(mode, k, s, p, h):
     assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
+# the global pools: the window is the whole plane (NIN's 8 x 8), or its
+# first 31 rows of a 33 x 31 plane; one output per plane, no padding
+GLOBAL_POOLS = [((2, 3, 8, 8), 8, 1), ((2, 3, 13, 13), 13, 1),
+                ((2, 3, 33, 31), 31, 31)]
+
+
+@pytest.mark.parametrize("mode", ["max", "avg"])
+@pytest.mark.parametrize("shape,k,s", GLOBAL_POOLS)
+def test_global_pool2d_matches_pallas(mode, shape, k, s):
+    x = rand(*shape, seed=3)
+    want = jops.pool2d(jnp.asarray(x), mode=mode, kernel=k, stride=s, pad=0)
+    got = tops.pool2d(t(x), mode=mode, kernel=k, stride=s, pad=0)
+    assert tuple(got.shape) == tuple(want.shape) == (*shape[:2], 1, 1)
+    assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+# (shape, kernel, stride, pad) of every pool on NIN's and LeNet's paths
+PATH_POOLS = [((b, 96, 32, 32), 3, 2, 1) for b in (1, 8, 64)] + \
+    [((b, 192, 16, 16), 3, 2, 1) for b in (1, 8, 64)] + \
+    [((b, 10, 8, 8), 8, 1, 0) for b in (1, 8, 64)] + \
+    [((8, 20, 24, 24), 2, 2, 0), ((8, 50, 8, 8), 2, 2, 0)]
+
+
+def _window_tiles(p):
+    """Every CTA's (planes, output rows, output columns) of a windowed
+    plan, as csrc/pool.cu finds them from the CTA's index and block."""
+    for cta in range(p.grid):
+        cb, rb = cta % p.col_bands, cta // p.col_bands % p.row_bands
+        p0 = cta // (p.col_bands * p.row_bands) * p.planes
+        oh0, ow0 = rb * p.band_rows, cb * p.band_cols
+        assert p0 < p.bc and oh0 < p.oh and ow0 < p.ow
+        yield range(p0, min(p0 + p.planes, p.bc)), \
+            range(oh0, min(oh0 + p.band_rows, p.oh)), \
+            range(ow0, min(ow0 + p.band_cols, p.ow))
+
+
+@pytest.mark.parametrize("mode", ["max", "avg"])
+@pytest.mark.parametrize("shape,k,s,p", PATH_POOLS + [
+    ((2, 5, 17, 16), 3, 2, 1), ((1, 2, 40, 300), 5, 3, 2),
+    ((1, 1, 10, 130), 4, 1, 3), ((3, 1, 6, 5), 1, 1, 0),
+    ((1, 1, 64, 64), 64, 1, 0), ((2, 3, 33, 31), 31, 31, 0),
+    ((2, 100, 5, 5), 5, 1, 0), ((64, 100, 3, 3), 3, 1, 0),
+    ((1, 1, 3, 3000), 3, 1, 1), ((300, 2, 4, 4), 2, 2, 0)])
+def test_pool_plan_covers_every_output_once(mode, shape, k, s, p):
+    """The launch plan at the path's shapes and ragged ones, on 132 SMs:
+    the plane route exactly for one output a plane without padding (one
+    warp a plane, the CTAs spread over the SMs), the windowed route's
+    tiles covering each output once, one thread an output."""
+    from repro_torch.kernels import pool
+    plan = pool.plan(shape, mode, k, s, p, sms=132)
+    b, c, h, w = shape
+    oh, ow = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+    assert (plan.oh, plan.ow, plan.bc, plan.is_max) == \
+        (oh, ow, b * c, int(mode == "max"))
+    if oh == ow == 1 and p == 0:
+        warps = plan.block // 32
+        assert plan.block == 32 * warps and 1 <= warps <= pool.PLANE_WARPS
+        assert plan.route == pool.ROUTE_PLANE
+        assert plan.grid == -(-b * c // warps)
+        assert plan.grid >= min(b * c, 132)
+        chunk = plan.smem // (4 * warps)
+        assert plan.smem == 0 if mode == "max" else \
+            (chunk % 4 == 0 and 0 < chunk <= pool.PLANE_CHUNK)
+        return
+    assert plan.route == pool.ROUTE_WINDOW
+    assert plan.block == plan.band_cols * plan.band_rows * plan.planes
+    assert plan.block <= pool.TILE_OUTPUTS and plan.planes <= 64
+    assert plan.smem == 0
+    seen = np.zeros((b * c, oh, ow), np.int32)
+    for planes, rows, cols in _window_tiles(plan):
+        seen[planes.start:planes.stop, rows.start:rows.stop,
+             cols.start:cols.stop] += 1
+    assert (seen == 1).all()
+    if (shape, k, s, p) in PATH_POOLS:      # NIN and LeNet spread out
+        assert plan.grid >= 132 or plan.planes == 1
+
+
+def test_pool_plan_is_cached_per_call_shape():
+    from repro_torch.kernels import pool
+    first = pool.cached_plan((3, 7, 16, 16), "avg", 3, 2, 1, 132)
+    again = pool.cached_plan(torch.Size((3, 7, 16, 16)), "avg", 3, 2, 1, 132)
+    assert again is first and again[0] is first[0]
+    assert first[1] == ctypes.addressof(first[0])
+    assert first[2] == (3, 7, 8, 8)
+    assert pool._PLANS[((3, 7, 16, 16), "avg", 3, 2, 1)] is first
+    other = pool.cached_plan((3, 7, 16, 16), "max", 3, 2, 1, 132)
+    assert other is not first and other[0].is_max == 1
+
+
+@pytest.mark.parametrize("shape,kw,msg", [
+    ((2, 3, 8, 8), dict(mode="sum"), "unknown pool mode 'sum'"),
+    ((3, 8, 8), {}, r"pool2d: expected \(B, C, H, W\), got \(3, 8, 8\)"),
+    ((1, 1, 4, 4), dict(kernel=5, stride=1), "pool2d: window 5/1/0 on 4x4"),
+    ((1, 1, 4, 4), dict(kernel=2, stride=0), "pool2d: window 2/0/0 on 4x4"),
+    ((1, 1, 4, 4), dict(kernel=2, pad=-1), "pool2d: window 2/2/-1 on 4x4"),
+])
+def test_pool2d_refuses_bad_geometry_with_the_same_messages(shape, kw, msg):
+    """The wrapper on a CPU tensor and the plan both raise the geometry
+    errors before anything else."""
+    from repro_torch.kernels import pool
+    args = dict(dict(mode="max", kernel=2, stride=2, pad=0), **kw)
+    with pytest.raises(ValueError, match=f"^{msg}$"):
+        tops.pool2d(torch.zeros(shape), **args)
+    with pytest.raises(ValueError, match=f"^{msg}$"):
+        pool.plan(shape, args["mode"], args["kernel"], args["stride"],
+                  args["pad"], sms=132)
+
+
 # ---------------------------------------------------------------------------
 # B4 elementwise / B5 softmax
 # ---------------------------------------------------------------------------
@@ -204,6 +313,21 @@ def test_elementwise_matches_pallas(act):
     want = jops.elementwise(jnp.asarray(x), act)
     got = tops.elementwise(t(x), act)
     assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
+def test_relu_out_of_place_and_in_place_on_the_cpu():
+    """``relu`` leaves its input alone; ``relu_`` writes into it and returns
+    it; both give the Pallas kernel's values."""
+    x = rand(5, 33, scale=3.0)
+    want = jops.elementwise(jnp.asarray(x), "relu")
+    xt = t(x)
+    out = tops.relu(xt)
+    assert torch.equal(xt, t(x)) and out.data_ptr() != xt.data_ptr()
+    assert_close(out, want, rtol=0, atol=0)
+    same = tops.relu_(xt)
+    assert same is xt and torch.equal(xt, out)
+    with pytest.raises(ValueError, match="unknown activation 'swish'"):
+        tops.elementwise(xt, "swish")
 
 
 @pytest.mark.parametrize("r,n,scale", [(8, 10, 1.0), (13, 200, 5.0),
@@ -334,7 +458,10 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 
 @pytest.mark.parametrize("call", [
     lambda x: tops.relu(x),
+    lambda x: tops.relu_(x),
+    lambda x: tops.elementwise(x, "gelu"),
     lambda x: tops.pool2d(x.reshape(1, 1, 4, 4)),
+    lambda x: tops.pool2d(x.reshape(1, 1, 4, 4), mode="avg", kernel=4),
     lambda x: tops.softmax(x.reshape(2, 8)),
     lambda x: tops.matmul(x.reshape(4, 4), x.reshape(4, 4)),
     lambda x: tops.rwkv6_chunked(*[x.reshape(1, 1, 1, 16)] * 4,
