@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Host cost of the PyTorch/CUDA port's kernel launches and of a NIN
-request, the redesigned B1, B3, B4 and B9 backward beside their library
+request, the redesigned B1, B3, B4, B8 and B9 beside their library
 calls, and the TinyLlama train step, for one tree of the port, on one
 CUDA card.
 
@@ -26,9 +26,11 @@ built as its own ``_build`` builds them.  The measurements are
          the tree has ``relu_``), the plain version's ms and the bound
   b1     each LeNet dense layer at batch 8 (8 x 800 x 500, 8 x 500 x 10):
          events ms, device µs (torch.profiler), ``addmm``'s ms and µs
-  b9     dq and dk/dv at TinyLlama's train shape (batch 4 x 2048, 32/4
-         heads of 64, causal, fp32): events ms and device µs, and the
-         efficient-attention backward's (dq, dk, dv in one call)
+  b9     B8, B9's forward, dq and dk/dv at TinyLlama's train shape
+         (batch 4 x 2048, 32/4 heads of 64, causal, fp32): events ms and
+         device µs, beside SDPA's forward and the efficient-attention
+         backward (dq, dk, dv in one call); B8 and SDPA's forward at the
+         serving prefill (1 x 300, the same heads)
   train  TinyLlama-1.1B at batch 4 x 2048, fp32: train tokens/s and the
          step's device time by part (``train_step_record``)
 
@@ -49,7 +51,11 @@ TRAIN_SHAPE = (4, 2048, 32, 4, 64)      # B, S, H, KV, D: TinyLlama's train
 
 
 def b9_calls(torch, fa):
-    """dq, dk/dv and the efficient-attention backward at the train shape."""
+    """B8, B9's forward, dq and dk/dv at the train shape beside SDPA's
+    forward and the efficient-attention backward; B8 and SDPA's forward
+    at the serving prefill."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops
     b, s, h, kvh, d = TRAIN_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(95)
 
@@ -57,6 +63,10 @@ def b9_calls(torch, fa):
         return torch.randn(*shape, generator=gen, device="cuda")
     q, do = randn(b, s, h, d), randn(b, s, h, d)
     k, v = randn(b, s, kvh, d), randn(b, s, kvh, d)
+    qp, kp, vp = randn(1, 300, h, d), randn(1, 300, kvh, d), randn(1, 300, kvh, d)
+    qpt = qp.transpose(1, 2).contiguous()
+    kpt = kp.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
+    vpt = vp.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
     o, lse = fa.flash_fwd_lse(q, k, v)
     res = (q, k, v, do, lse, fa.dsum_of(o, do))
     qt = q.transpose(1, 2).contiguous()
@@ -70,9 +80,16 @@ def b9_calls(torch, fa):
         return torch.ops.aten._scaled_dot_product_efficient_attention_backward(
             dot, qt, kt, vt, None, out_l, lse_l, seed_l, off_l, 0.0,
             [True, True, True, False], True)
-    return {"dq": lambda: fa.flash_dq(*res),
+    return {"b8": lambda: kops.flash_attention(q, k, v),
+            "b9_forward": lambda: fa.flash_fwd_lse(q, k, v),
+            "sdpa_forward": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True),
+            "dq": lambda: fa.flash_dq(*res),
             "dkv": lambda: fa.flash_dkv(*res),
-            "efficient_attention_backward": library}
+            "efficient_attention_backward": library,
+            "b8_prefill_1x300": lambda: kops.flash_attention(qp, kp, vp),
+            "sdpa_forward_prefill_1x300": lambda: F.scaled_dot_product_attention(
+                qpt, kpt, vpt, is_causal=True)}
 
 
 def main(argv=None) -> int:

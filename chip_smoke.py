@@ -67,7 +67,8 @@ its seconds:
                   to 2048, window 0 and 256, fp32 and bf16; head_dim 256
                   (RecurrentGemma, window 2048) and Sq != Sk (Whisper's
                   300 x 1500 cross attention, causal and not; rows no key
-                  can see); dq and dk/dv run twice, bit-equal; causality
+                  can see); every kernel runs each case twice, bit-equal;
+                  causality
   cli             ``launch.serve --model tinyllama-1.1b`` on an empty store
                   (bootstraps a reduced model; B8 prefill, B6 decode; tokens
                   equal ``ref``) and ``launch.train`` with its defaults
@@ -81,10 +82,11 @@ its seconds:
                   ServingEngine: tokens equal ``ref``, B8 22 x prefills
   train_times     train tokens/s, device time per step by part and idle
                   share; B8/B9 per launch at the train shapes (events ms,
-                  device µs) against the bound (dq and dk/dv: 3xTF32 at
-                  the TF32 peak, the FFMA bound beside it), the plain
-                  versions and the library (SDPA forward; the
-                  efficient-attention backward for dq and dk/dv)
+                  device µs) against the bound (3xTF32 at the TF32 peak,
+                  the FFMA bound beside it), the plain versions and the
+                  library (SDPA forward; the efficient-attention backward
+                  for dq and dk/dv); B8 at the serving prefill (1 x 300)
+                  beside SDPA there
   slice 4, RWKV-6 serving and the meta-selector:
   wkv_kernels     B10 against its plain version evaluated in fp64: B 1, 4,
                   8, T 1 to 2048, heads 40 x 64 and 8 x 32, decays in
@@ -1952,9 +1954,11 @@ FLASH_EXTRA = (
     ("whisper-cross", 2, 300, 1500, 16, 16, 64, True, 0),
     ("blind-rows", 2, 300, 100, 16, 1, 256, True, 64),
     ("blind-rows", 1, 300, 100, 32, 4, 64, False, 64))
-# rtol, atol.  fp32: outputs and lse differ from the plain versions in
-# summation order only; grads take the JAX suite's bar for its fused
-# backward (tests/test_kernels.py:441-446).  bf16: the plain B8 rounds p
+# rtol, atol.  fp32: outputs, lse and grads differ from the plain
+# versions in summation order and in the forward's and the backward's
+# 3xTF32 products (each split x = hi + lo, the lo.lo term left out);
+# grads take the JAX suite's bar for its fused backward
+# (tests/test_kernels.py:441-446).  bf16: the plain B8 rounds p
 # to bf16 before PV, and every output is rounded to bf16.
 FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 3e-2)}
 FLASH_GRAD_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (2e-2, 3e-2)}
@@ -1963,6 +1967,27 @@ TRAIN = {"tinyllama-1.1b": dict(batch=4, seq=2048, steps=4),
          "qwen3-0.6b": dict(batch=4, seq=1024, steps=2)}
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_REL = 1e-3                       # ||g_cuda - g_ref|| / ||g_ref||
+PREFILL_SEQ = 300          # B8 timed at a serving prompt's length as well
+
+
+def _flash_fp64_error(torch, q, k, v, o):
+    """(rms of o - exact, slope of o against exact less 1), exact being
+    causal attention in fp64 on the same inputs, one batch row at a time."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    future = torch.ones(s, s, dtype=torch.bool, device=q.device).triu(1)
+    sq = gw = ww = 0.0
+    for i in range(b):
+        qi = q[i].double().transpose(0, 1)
+        ki = k[i].double().repeat_interleave(g, dim=1).transpose(0, 1)
+        vi = v[i].double().repeat_interleave(g, dim=1).transpose(0, 1)
+        sc = (qi @ ki.transpose(1, 2)) / math.sqrt(d)
+        exact = torch.softmax(sc.masked_fill_(future, float("-inf")), -1) @ vi
+        got = o[i].double().transpose(0, 1)
+        sq += float(((got - exact) ** 2).sum())
+        gw += float((got * exact).sum())
+        ww += float((exact * exact).sum())
+    return math.sqrt(sq / o.numel()), gw / ww - 1.0
 
 
 def phase_flash_kernels(run, torch):
@@ -1972,7 +1997,9 @@ def phase_flash_kernels(run, torch):
     to 2048 (ragged against the 64-row tiles), causal with window 0 and
     256, fp32 and bf16; then FLASH_EXTRA: head_dim 256 and Sq != Sk
     (RecurrentGemma, Whisper cross attention, rows no key can see); then
-    a perturbed future token."""
+    a perturbed future token; then B8 and B9's forward at the train shape
+    against fp64.  Every kernel runs each case twice: the two runs are
+    bit-equal."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
@@ -2012,6 +2039,26 @@ def phase_flash_kernels(run, torch):
                   "bit-equal", all(torch.equal(x, y) for x, y in
                                    zip((dq,) + dkv, again)))
 
+    def check_fwd(dtype, what, q, k, v, kw):
+        """B8's o, B9's (o, lse) against their plain versions, and a second
+        run of each bit-equal to the first (no float atomics); returns the
+        plain (o, lse)."""
+        o8 = kops.flash_attention(q, k, v, **kw)
+        check("flash_attention", dtype, what, o8,
+              ref.flash_attention_ref(q, k, v, **kw), FLASH_TOL[dtype])
+        o, lse = fa.flash_fwd_lse(q, k, v, **kw)
+        o_ref, lse_ref = ref.flash_fwd_lse_ref(q, k, v, **kw)
+        check("flash_attention_fwd", dtype, what + " o", o, o_ref,
+              FLASH_TOL[dtype])
+        check("flash_attention_fwd", dtype, what + " lse", lse, lse_ref,
+              FLASH_TOL["float32"])
+        again = (kops.flash_attention(q, k, v, **kw),) + \
+            fa.flash_fwd_lse(q, k, v, **kw)
+        run.check("flash_kernels", f"B8, B9's forward {dtype} {what}: two "
+                  "runs bit-equal", all(torch.equal(x, y) for x, y in
+                                        zip((o8, o, lse), again)))
+        return o_ref, lse_ref
+
     for heads, (h, kvh, d) in FLASH_HEADS.items():
         for b in (1, 4):
             for s in FLASH_SEQS:
@@ -2022,16 +2069,7 @@ def phase_flash_kernels(run, torch):
                         k, v = randn(b, s, kvh, d, dtype=dt), randn(b, s, kvh, d, dtype=dt)
                         kw = dict(causal=True, window=window)
                         what = f"{heads} B={b} S={s} window={window}"
-                        check("flash_attention", dtype, what,
-                              kops.flash_attention(q, k, v, **kw),
-                              ref.flash_attention_ref(q, k, v, **kw),
-                              FLASH_TOL[dtype])
-                        o, lse = fa.flash_fwd_lse(q, k, v, **kw)
-                        o_ref, lse_ref = ref.flash_fwd_lse_ref(q, k, v, **kw)
-                        check("flash_attention_fwd", dtype, what + " o", o,
-                              o_ref, FLASH_TOL[dtype])
-                        check("flash_attention_fwd", dtype, what + " lse",
-                              lse, lse_ref, FLASH_TOL["float32"])
+                        o_ref, lse_ref = check_fwd(dtype, what, q, k, v, kw)
                         res = (q, k, v, do, lse_ref, fa.dsum_of(o_ref, do))
                         check_bwd(dtype, what, res, kw)
                         torch.cuda.synchronize()    # a fault shows here
@@ -2043,15 +2081,7 @@ def phase_flash_kernels(run, torch):
             kw = dict(causal=causal, window=window)
             what = (f"{heads} B={b} Sq={sq} Sk={sk} H={h} KV={kvh} D={d} "
                     f"causal={causal} window={window}")
-            check("flash_attention", dtype, what,
-                  kops.flash_attention(q, k, v, **kw),
-                  ref.flash_attention_ref(q, k, v, **kw), FLASH_TOL[dtype])
-            o, lse = fa.flash_fwd_lse(q, k, v, **kw)
-            o_ref, lse_ref = ref.flash_fwd_lse_ref(q, k, v, **kw)
-            check("flash_attention_fwd", dtype, what + " o", o, o_ref,
-                  FLASH_TOL[dtype])
-            check("flash_attention_fwd", dtype, what + " lse", lse, lse_ref,
-                  FLASH_TOL["float32"])
+            o_ref, lse_ref = check_fwd(dtype, what, q, k, v, kw)
             res = (q, k, v, do, lse_ref, fa.dsum_of(o_ref, do))
             check_bwd(dtype, what, res, kw)
             torch.cuda.synchronize()
@@ -2066,6 +2096,21 @@ def phase_flash_kernels(run, torch):
     ok = torch.equal(base[:, :-1], pert[:, :-1]) and changed > 1e-3
     run.check("flash_kernels", "a perturbed last token changes only the "
               "last row", ok, last_row_change=changed)
+    # o against fp64 at the train shape: the tensor-core sums' structure
+    # (small terms first, hi.hi over several accumulators), which the
+    # plain-version tolerance does not see (one accumulator a product
+    # passed it and parted greedy int8 streams from ref's)
+    q, k, v = (torch.rand(4, 2048, n, 64, generator=gen, device=dev) * 4 - 2
+               for n in (32, 4, 4))
+    for name, o in (("B8", kops.flash_attention(q, k, v)),
+                    ("B9's forward", fa.flash_fwd_lse(q, k, v)[0])):
+        rms, slope = _flash_fp64_error(torch, q, k, v, o)
+        run.check("flash_kernels", f"{name} fp32 at the train shape against "
+                  "fp64: rms <= 1e-7, |slope - 1| <= 5e-7",
+                  rms <= 1e-7 and abs(slope) <= 5e-7, rms=rms,
+                  slope_minus_1=slope)
+        emit({"phase": "flash_kernels", "check": f"{name} against fp64",
+              "rms": rms, "slope_minus_1": slope})
     for key, s in summary.items():
         emit({"phase": "flash_kernels", "check": key, "result": s})
     emit({"phase": "flash_kernels", "check": "causality", "ok": ok,
@@ -2425,8 +2470,8 @@ def flash_bound(kernel, b, s, h, kvh, d, elem=4, unit="fp32"):
     written once; per visible (query, key) pair 2*D flops per product,
     2 products in the forward, 3 in dq (q.k, dO.v, ds.k), 4 in dk/dv
     (q.k, dO.v, p^T dO, ds^T q), at the fp32 peak, or with unit "3xtf32"
-    three times as many at the TF32 tensor-core peak (the backward's
-    3xTF32 products)."""
+    three times as many at the TF32 tensor-core peak (the kernels' 3xTF32
+    products)."""
     pairs = b * h * s * (s + 1) // 2
     q_bytes, kv_bytes, row_bytes = b * s * h * d * elem, b * s * kvh * d * elem, b * h * s * 4
     if kernel in ("flash_attention", "flash_attention_fwd"):
@@ -2545,11 +2590,46 @@ def train_step_record(torch, tiny_np):
     return rec
 
 
+def _b8_prefill_times(torch, randn, h, kvh, d, sq=PREFILL_SEQ):
+    """B8 at the serving prefill's shape (one 300-token prompt, fp32,
+    causal): events ms and device µs against the bound, the plain version
+    and SDPA's forward on the same inputs (K/V heads repeated outside the
+    timing)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    q, k, v = randn(1, sq, h, d), randn(1, sq, kvh, d), randn(1, sq, kvh, d)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
+
+    def fn():
+        return kops.flash_attention(q, k, v)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    b_s, o_s = flash_bound("flash_attention", 1, sq, h, kvh, d, unit="3xtf32")
+    return {"ms": time_ms(torch, fn), "device_us": device_us(torch, fn)[0],
+            "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(
+                q, k, v)),
+            "library_ms": time_ms(torch, sdpa),
+            "library_device_us": device_us(torch, sdpa)[0],
+            "library_vs_kernel_max_abs": float(
+                (sdpa().transpose(1, 2) - fn()).abs().max()),
+            "bound_ms": 1e3 * max(b_s, o_s),
+            "bound_by": "bytes" if b_s >= o_s else "operations",
+            "bound_ffma_ms": 1e3 * flash_bound("flash_attention", 1, sq, h,
+                                               kvh, d)[1],
+            "shape": {"batch": 1, "seq": sq, "heads": h, "kv_heads": kvh,
+                      "head_dim": d, "causal": True, "dtype": "float32"}}
+
+
 def phase_train_times(run, torch, np, tiny_np, card):
     """TinyLlama-1.1B, batch 4 x 2048: train_step_record; then B8 and each
     B9 kernel per launch at the train shapes (events ms, device µs)
     against the bound, the plain version and the library (SDPA forward;
-    the efficient-attention backward for dq and dk/dv)."""
+    the efficient-attention backward for dq and dk/dv); then B8 at the
+    serving prefill's shape (1 x 300) beside SDPA there."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
@@ -2626,30 +2706,28 @@ def phase_train_times(run, torch, np, tiny_np, card):
     sdpa_bwd_dev = device_us(torch, sdpa_bwd, n=3)[0]
     for name, (fn, plain) in calls.items():
         bwd = name in ("flash_attention_dq", "flash_attention_dkv")
-        # the backward runs 3xTF32 on the tensor cores: its bound is at the
-        # TF32 peak; the FFMA figure stays beside it
-        b_s, o_s = flash_bound(name, b, s, h, kvh, d,
-                               unit="3xtf32" if bwd else "fp32")
+        # every product runs 3xTF32 on the tensor cores (the forward on
+        # wgmma, the backward on mma.sync): the bound is at the TF32 peak;
+        # the FFMA figure stays beside it
+        b_s, o_s = flash_bound(name, b, s, h, kvh, d, unit="3xtf32")
         kernels[name] = {
             "ms": time_ms(torch, fn, iters=5, reps=3),
             "device_us": device_us(torch, fn, n=5)[0],
             "library_device_us": sdpa_bwd_dev if bwd else sdpa_dev,
-            "bound_unit": "3xTF32 at the TF32 peak" if bwd
-            else "fp32 FFMA peak",
+            "bound_unit": "3xTF32 at the TF32 peak",
             "bound_ffma_ms": 1e3 * flash_bound(name, b, s, h, kvh, d)[1],
             "plain_ms": time_ms(torch, plain, iters=1, reps=3),
-            "library_ms": sdpa_ms if name in ("flash_attention",
-                                              "flash_attention_fwd")
-            else sdpa_bwd_ms,
-            "library_call": "scaled_dot_product_attention (forward)"
-            if name in ("flash_attention", "flash_attention_fwd")
-            else "_scaled_dot_product_efficient_attention_backward "
-                 "(dq, dk and dv in one call)",
+            "library_ms": sdpa_bwd_ms if bwd else sdpa_ms,
+            "library_call": "_scaled_dot_product_efficient_attention_backward "
+                            "(dq, dk and dv in one call)" if bwd
+            else "scaled_dot_product_attention (forward)",
             "library_fwd_bwd_ms": sdpa_fb_ms,
             "bytes_s": b_s, "ops_s": o_s, "bound_ms": 1e3 * max(b_s, o_s),
             "bound_by": "bytes" if b_s >= o_s else "operations",
             "shape": {"batch": b, "seq": s, "heads": h, "kv_heads": kvh,
                       "head_dim": d, "causal": True, "dtype": "float32"}}
+    kernels["flash_attention"]["prefill"] = _b8_prefill_times(
+        torch, randn, h, kvh, d)
     rec["kernels"] = kernels
     rec["sdpa_fwd_ms"], rec["sdpa_fwd_bwd_ms"] = sdpa_ms, sdpa_fb_ms
     rec["sdpa_bwd_ms"] = sdpa_bwd_ms
@@ -3511,21 +3589,52 @@ def int8_bound(m, k, n):
     return nbytes / PEAK_HBM_BYTES, 2 * m * k * n / PEAK_INT8_OPS
 
 
-def device_us(torch, fn, n=20):
+def device_us(torch, fn, n=20, warm=20, tries=3):
     """(device µs per call of ``fn``, the kernel names): the spans of the
-    kernels torch.profiler records over ``n`` calls (the host's launch
-    gaps left out); None when it records none."""
-    from torch.profiler import ProfilerActivity, profile
+    device events torch.profiler records for the launches of ``n`` calls
+    (the host's launch gaps left out); None when a launch's device event
+    is missing.
+
+    Kineto drops device events "outside of profiling window": in a
+    session that starts tracing at once, the first launches' events went
+    missing, more of them the older the process (our kernels and SDPA's
+    alike), which left every train_times row without device µs.  So a schedule
+    step of ``warm`` calls runs with tracing on and its events discarded,
+    and the active step's ``n`` calls count through their runtime API
+    events, each matched to its device events by correlation id.  A
+    trace in which some launch has no device event is taken again, up to
+    ``tries`` times; a missing launch is never estimated."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if _is_device(e)]
-    us = sum(e.time_range.elapsed_us() for e in kernels) / n
-    return (us if kernels else None), sorted({e.name[:60] for e in kernels})
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            for _ in range(warm):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+            with record_function("device_us"):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+        events = list(prof.events())       # the active step's, kept at exit
+        span = next(e.time_range for e in events if e.name == "device_us"
+                    and not _is_device(e))
+        runtime = [e for e in events if not _is_device(e)
+                   and e.name.startswith("cu")
+                   and span.start <= e.time_range.start <= span.end]
+        by_id = {}
+        for e in events:
+            if _is_device(e) and e.name != "device_us":
+                by_id.setdefault(e.id, []).append(e)
+        launched = [e for e in runtime if "Launch" in e.name]
+        if launched and all(e.id in by_id for e in launched):
+            kernels = [d for e in runtime for d in by_id.get(e.id, [])]
+            us = sum(e.time_range.elapsed_us() for e in kernels)
+            return us / n, sorted({e.name[:60] for e in kernels})
+    return None, []
 
 
 def _int8_library(torch, a, b, sa, sb):
@@ -3737,6 +3846,7 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
             "library_device_us": t.get("library_device_us"),
             "bound_unit": t.get("bound_unit"),
             "bound_ffma_ms": t.get("bound_ffma_ms"),
+            **({"prefill": t["prefill"]} if "prefill" in t else {}),
             "ms_per": "one launch (one layer), TinyLlama heads, batch 4 x "
                       "2048, fp32, causal"})
     t = (wkv or {}).get("1x300x40x64", {})

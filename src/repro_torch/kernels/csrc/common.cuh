@@ -67,20 +67,26 @@ static inline int dlk_last_error() { return static_cast<int>(cudaGetLastError())
 
 // Above 48 KB a block's shared memory must be asked for: once per kernel
 // and device, at its first launch there (each launcher keeps its own
-// DlkSmemOnce in a function-local static).
+// DlkSmemOnce in a function-local static).  max_carveout also asks for the
+// largest shared-memory share of the SM's L1, for kernels that fit
+// several such blocks an SM.
 constexpr int DLK_MAX_DEVICES = 64;
 struct DlkSmemOnce {
   std::atomic<bool> done[DLK_MAX_DEVICES];
 };
 
 template <typename K>
-int dlk_prepare_smem(K kern, size_t smem, DlkSmemOnce& once) {
+int dlk_prepare_smem(K kern, size_t smem, DlkSmemOnce& once,
+                     bool max_carveout = false) {
   int dev = 0;
   if (cudaError_t err = cudaGetDevice(&dev)) return static_cast<int>(err);
   const bool known = dev < DLK_MAX_DEVICES;
   if (known && once.done[dev].load(std::memory_order_acquire)) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess && max_carveout)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               static_cast<int>(cudaSharedmemCarveoutMaxShared));
   if (err == cudaSuccess && known) once.done[dev].store(true, std::memory_order_release);
   return static_cast<int>(err);
 }

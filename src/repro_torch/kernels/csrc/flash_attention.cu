@@ -15,20 +15,19 @@
 //
 // Bound on the H100: operations.  A 64 x 64 score tile costs 2*64*64*D
 // flops for QK^T and as many for PV against 2*64*D*4 bytes of K/V, so the
-// kernels sit far above the fp32 ridge (~20 flops per byte) at S >= 64.
-// The forward runs fp32 FFMA (67 TFLOP/s); the backward up to head dim
-// 128 runs 3xTF32 on the tensor cores (494.7 TFLOP/s TF32, three products
-// each), at head dim 256 fp32 FFMA.
+// kernels sit far above the ridge at S >= 64.  Up to head dim 128 every
+// product runs 3xTF32 on the tensor cores (494.7 TFLOP/s TF32, three
+// products each); at head dim 256 all four kernels run fp32 FFMA (67
+// TFLOP/s).  The forward at TinyLlama's train shape (4 x 2048, 32/4 heads
+// of 64, causal, fp32: 2.69e8 visible pairs, 6.87e10 flops) is bound at
+// 3 x 6.87e10 / 494.7e12 = 0.417 ms (FFMA: 1.026 ms).
 //
 // Design, common to all four kernels:
 //  - q has Sq rows and k, v have Sk; query positions start at 0, as in the
 //    Pallas kernels (query i sees key j when j <= i if causal and
 //    j > i - window if windowed);
-//  - tile heights are tied to the head dim (Tiles<D>): 64 query and 64 key
-//    rows up to D 128, 32 and 32 at D 256, so that every kernel's shared
-//    tiles fit the 227 KB a block can have;
-//  - one CTA of 256 threads per (query tile, head, batch) for the forward
-//    and dq, per (key tile, KV head, batch) for dk/dv;
+//  - one CTA per (query tile, head, batch) for the forward and dq, per
+//    (key tile, KV head, batch) for dk/dv;
 //  - the loop over the other axis is inside the CTA and bounded by the
 //    causal and window limits, so a tile that no row can see is never
 //    loaded; the ragged edges of Sq and Sk are masked (rows and keys past
@@ -36,33 +35,11 @@
 //    padded;
 //  - tiles are read by strides straight from (B, Sq, H, D) / (B, Sk, KV, D)
 //    (no transposes), converted to fp32 in shared memory;
-//  - FFMA kernels (the forward; dq and dk/dv at D 256): thread (ty, tx) of
-//    a 16 x 16 grid owns rows ty + 16 i and score
-//    columns tx + 16 j of a score tile, and D / 16 output columns of its
-//    rows (4 tx + 64 j + e from head_dim 64 up, 2 tx + e for 32), so the
-//    row statistics of the online softmax stay in its registers and are
-//    reduced over 16 lanes by shuffles; products read float4 rows of padded
-//    shared tiles;
-//  - tensor-core backward (dq, dk/dv up to D 128): every product (q.k^T,
-//    dO.v^T, ds.k in dq; k.q^T, v.dO^T, p^T.dO, ds^T.q in dk/dv) runs on
-//    mma.sync m16n8k8 TF32 as 3xTF32: each fp32 operand is split as
-//    hi = rna(x) (to nearest, ties away) and lo = x - hi, which the tensor
-//    core truncates to TF32, and the fp32 accumulators sum
-//    lo.hi + hi.lo + hi.hi, which keeps fp32 accuracy (single-pass TF32
-//    would not hold the fp32 bars).  bf16 data is exact in TF32, so the lo
-//    terms of q, k, v and dO are dropped (never those of p and ds, which
-//    are fp32).  Warp w of 8 owns a 16-row band (w % 4) of the CTA's tile
-//    and half w / 4 of the score columns, then half w / 4 of D; the
-//    probabilities (ds; p^T and ds^T) pass through shared memory between
-//    the two steps.  Tiles: TcTiles<D>; D-wide tiles have stride D + 8 and
-//    probability tiles their width + 4, and the fragment loads are laid
-//    out so that no load hits a bank twice: tiles read along their rows
-//    pair depth 2t, 2t + 1 into one 8-byte load (mma's k slots t, t + 4),
-//    tiles read down their columns (k in dq; q and dO in dk/dv) are read
-//    as mma lays them out.  The streamed tiles (dq: K and V; dk/dv: Q and
-//    dO with their lse and dsum rows) go by cp.async (bf16: converted on
-//    the way by plain loads); up to D 64 they have one stage and two CTAs
-//    share an SM, at D 128 one CTA has the SM and they are double-buffered;
+//  - 3xTF32: each fp32 operand x is split as x = hi + lo, lo exact in fp32,
+//    and the fp32 accumulators sum lo.hi + hi.lo + hi.hi, which keeps fp32
+//    accuracy (single-pass TF32 would not hold the fp32 bars).  bf16 data
+//    is exact in TF32, so the lo terms of q, k, v and dO are dropped (never
+//    those of p and ds, which are fp32);
 //  - masking is the reference's arithmetic: a masked score is -1e30, and
 //    p = exp(s - m) (forward) or exp(s - lse) (backward).  A row that has
 //    seen no visible key yet has m = -1e30 and so p = 1 on its masked keys,
@@ -73,15 +50,63 @@
 //    holding such rows visits every key tile (dk/dv: every query tile);
 //  - lse = m + log(max(l, 1e-30)), as the reference writes it, so the
 //    backward's exp(s - lse) are the forward's probabilities;
-//  - dk/dv: one CTA per key tile loops over the G query heads of its KV
-//    head and over the query tiles that can see it, accumulating dk and dv
-//    in fp32 registers (each tile's products summed apart, then added; dq
-//    likewise per key tile on the tensor cores), and writes the group sum
-//    once (the reference's per-head outputs and their sum over G are never
-//    stored).  No float atomics: two runs are bit-equal.
+//  - no float atomics: two runs are bit-equal.
 //
-// Not yet done (a later PR): the forward (B8, B9's) on the same 3xTF32
-// fragments; wgmma/TMA tiles; the backward at D 256 on the tensor cores.
+// The forward up to head dim 128 (flash_fwd_tc, FwdTc): wgmma m64nNk8 TF32
+// (csrc/sm90.cuh), one warpgroup of 128 threads a CTA and 64 query rows,
+// long rows first.  What it does about the four limits of the FFMA forward
+// it replaced (2.5 ms at the train shape, 1.11-1.15x SDPA's forward):
+//  1. FFMA's 67 TFLOP/s: both products on the tensor cores in 3xTF32, hi
+//     = rna(x) (K's written back over its landed tile).  The tensor core
+//     truncates its running sum at every step, so each product's small
+//     terms are issued first, its hi.hi terms are spread over several
+//     accumulators added in fp32, and each tile's p.V is summed apart and
+//     added to o in fp32 (o's error against fp64 at or under FFMA's:
+//     benchmarks/flash_fwd_variants.cu);
+//  2. synchronous K/V loads: a ring of 2-3 stages filled by cp.async (16
+//     bytes, zero-fill past Sk), the next tiles' copies in flight during
+//     this tile's products; a pass over the landed tile writes K's lo and
+//     V's hi and lo transposed (TF32 wgmma reads K-major operands only);
+//  3. probabilities through shared memory: p stays in the score
+//     accumulator's registers and is p.V's A operand, V^T's keys stored in
+//     each group of 8 in the order (0, 2, 4, 6, 1, 3, 5, 7) to match the
+//     accumulator's columns (a product's depth order is free);
+//  4. row statistics over 16 lanes: a thread holds two whole-row slices,
+//     and a row's max and sum take 2 shuffles within its quad.
+// At head dim 256 the FFMA forward (flash_fwd) stays: see launch_fwd.
+//
+// The FFMA kernels (the forward, dq and dk/dv at head dim 256): 32 query
+// and 32 key rows a tile (Tiles<256>), 256 threads; thread (ty, tx) of a
+// 16 x 16 grid owns rows ty + 16 i and score columns tx + 16 j of a score
+// tile, and D / 16 output columns of its rows (4 tx + 64 j + e), so the
+// row statistics of the online softmax stay in its registers and are
+// reduced over 16 lanes by shuffles; products read float4 rows of padded
+// shared tiles; the probabilities pass through shared memory.
+//
+// The tensor-core backward (dq, dk/dv up to D 128): every product (q.k^T,
+// dO.v^T, ds.k in dq; k.q^T, v.dO^T, p^T.dO, ds^T.q in dk/dv) runs on
+// mma.sync m16n8k8 TF32 as 3xTF32, hi = rna(x) (to nearest, ties away) and
+// lo = x - hi, which the tensor core truncates.  Warp w of 8 owns a
+// 16-row band (w % 4) of the CTA's tile and half w / 4 of the score
+// columns, then half w / 4 of D; the probabilities (ds; p^T and ds^T) pass
+// through shared memory between the two steps.  Tiles: TcTiles<D>; D-wide
+// tiles have stride D + 8 and probability tiles their width + 4, and the
+// fragment loads are laid out so that no load hits a bank twice: tiles
+// read along their rows pair depth 2t, 2t + 1 into one 8-byte load (mma's
+// k slots t, t + 4), tiles read down their columns (k in dq; q and dO in
+// dk/dv) are read as mma lays them out.  The streamed tiles (dq: K and V;
+// dk/dv: Q and dO with their lse and dsum rows) go by cp.async (bf16:
+// converted on the way by plain loads); up to D 64 they have one stage and
+// two CTAs share an SM, at D 128 one CTA has the SM and they are
+// double-buffered.  dk/dv: one CTA per key tile loops over the G query
+// heads of its KV head and over the query tiles that can see it,
+// accumulating dk and dv in fp32 registers (each tile's products summed
+// apart, then added; dq likewise per key tile), and writes the group sum
+// once (the reference's per-head outputs and their sum over G are never
+// stored).
+//
+// Not yet done (a later PR): the backward on wgmma (this forward's
+// sm90.cuh pieces); the kernels at head dim 256 on the tensor cores.
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
@@ -89,6 +114,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -136,38 +162,29 @@ __device__ __forceinline__ void st2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-// The D / 16 output columns that thread tx owns in a row of D: float4
-// groups 4 tx + 64 j + e (e < 4) from D = 64 up, one float2 pair
-// 2 tx + e (e < 2) for D = 32.
+// The D / 16 output columns that thread tx owns in a row of D (the FFMA
+// kernels: head dim 256, or 64 in benchmarks/flash_fwd_variants.cu):
+// float4 groups 4 tx + 64 j + e (e < 4).
 template <int D>
 __device__ __forceinline__ void ld_cols(float (&x)[D / 16], const float* row,
                                         int tx) {
-  if constexpr (D == 32) {
-    const float2 a = *reinterpret_cast<const float2*>(row + 2 * tx);
-    x[0] = a.x;
-    x[1] = a.y;
-  } else {
+  static_assert(D % 64 == 0, "the FFMA kernels take head dims 64 and 256");
 #pragma unroll
-    for (int j = 0; j < D / 64; ++j) {
-      const float4 a = ld4(row + 4 * tx + 64 * j);
-      x[4 * j + 0] = a.x;
-      x[4 * j + 1] = a.y;
-      x[4 * j + 2] = a.z;
-      x[4 * j + 3] = a.w;
-    }
+  for (int j = 0; j < D / 64; ++j) {
+    const float4 a = ld4(row + 4 * tx + 64 * j);
+    x[4 * j + 0] = a.x;
+    x[4 * j + 1] = a.y;
+    x[4 * j + 2] = a.z;
+    x[4 * j + 3] = a.w;
   }
 }
 template <int D, typename T>
 __device__ __forceinline__ void st_cols(T* row, const float (&x)[D / 16],
                                         int tx) {
-  if constexpr (D == 32) {
-    st2(row + 2 * tx, x[0], x[1]);
-  } else {
 #pragma unroll
-    for (int j = 0; j < D / 64; ++j)
-      st4(row + 4 * tx + 64 * j,
-          make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]));
-  }
+  for (int j = 0; j < D / 64; ++j)
+    st4(row + 4 * tx + 64 * j,
+        make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]));
 }
 
 // The reference's mask of query position qp against key position kp.
@@ -1007,6 +1024,425 @@ flash_dkv_tc(const T* __restrict__ q, const T* __restrict__ k,
   store_frags<MT, ND>(dv + koff, krow, sh.Sk - k0, dv_acc, r0, half * (D / 2), g, t);
 }
 
+// ---------------------------------------------------------------------------
+// The forward on the warpgroup tensor cores (head dims 32, 64, 128): both
+// products in 3xTF32 on wgmma m64nNk8
+// ---------------------------------------------------------------------------
+
+// One warpgroup of 128 threads a CTA owns 64 query rows (warp w rows 16 w
+// .. 16 w + 15, a thread rows g and g + 8 of them) and streams key tiles of
+// KR rows through a ring of NS stages filled by cp.async.  Shared memory
+// (the wgmma operands in Sm90Swizzle128's 128-byte swizzle; the
+// no-swizzle layout took 1.16-1.22x as long at the train shape, PERF.md):
+//  - ring: NS stages of a K tile and a V tile as they are in memory (T); an
+//    fp32 K tile lands swizzled and, rounded in place, is the hi operand
+//    of q.k^T, a bf16 K tile and every V tile land row-major (row stride D);
+//  - work (one tile): fp32: K's lo, V^T's hi and lo; bf16: K's hi (fp32)
+//    and V^T's hi; V^T is D rows by KR keys, each group of 8 keys stored in
+//    the order (0, 2, 4, 6, 1, 3, 5, 7), so that the score accumulator's
+//    columns 2t, 2t + 1 feed k slots t, t + 4 of p.V's A fragment;
+//  - at D 128 q's hi and lo tiles (64 x D); up to D 64 q's fragments stay
+//    in registers instead.
+// Tiles: 64 keys up to D 64, 32 at D 128; three stages at D 32, two above;
+// fp32 takes 73 / 113 / 177 KB with the alignment pad (2, 2 and 1 CTAs an
+// SM), bf16 less.
+template <int D, typename T>
+struct FwdTc {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr int QR = 64, THREADS = 128;
+  static constexpr int KR = D <= 64 ? 64 : 32;
+  static constexpr int NS = D <= 32 ? 3 : 2;
+  static constexpr bool QREG = D <= 64;
+  static constexpr int CH = 16 / sizeof(T);            // elements a 16-byte copy
+  static constexpr size_t RING = sizeof(T) * NS * 2 * KR * D;
+  static constexpr size_t WORK = sizeof(float) * KR * D * (F32 ? 3 : 2);
+  static constexpr size_t QS = QREG ? 0 : sizeof(float) * QR * D * (F32 ? 2 : 1);
+  static constexpr size_t PAD = Sm90Swizzle128::ALIGN;   // to align the base
+  static constexpr size_t SMEM = RING + WORK + QS + PAD;
+  // CTAs an SM: as many as shared memory holds (228 KB an SM, 1 KB of it
+  // reserved a CTA), at most 2 (registers: q's fragments, the score
+  // chains, p's lo, o and each tile's two parts of o; at D 32 a bound of
+  // 3 CTAs capped them at 168 and spilled 156-236 bytes, at 2 it takes
+  // 220-242 and spills none)
+  static constexpr int CTAS_PER_SM = 233472 / (SMEM + 1024) < 2
+                                         ? static_cast<int>(233472 / (SMEM + 1024)) : 2;
+  static_assert(KR * (D / CH) % THREADS == 0 && KR * D % (4 * THREADS) == 0 &&
+                    D * KR % (8 * THREADS) == 0,
+                "every thread takes the same number of copies and splits");
+};
+
+// x = hi + lo, lo exact in fp32 (and truncated to TF32 by the tensor
+// core): hi = rna(x), to nearest with ties away (the integer form of
+// cvt.rna.tf32), so |lo| <= 2^-11 |x| and lo's sign is x's or not, and
+// the truncation of lo shrinks no product in one direction (with hi =
+// trunc(x) every lo has x's sign and every score shrank by ~2^-21).
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+__device__ __forceinline__ float4 tf32_rna(float4 x) {
+  return make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z), tf32_rna(x.w));
+}
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+// 2^x by ex2.approx (relative error below 2^-22; 0 below about -126, so
+// for the -1e30 mask value).  The forward keeps its scores and running max
+// in log2 units (scaled by scale * log2(e)), so that p = 2^(s - m) is one
+// FADD and one ex2, and turns m back into natural units for lse only.
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Issue the cp.async copies of key tile [k0, k0 + KR) of K and V into ring
+// stage kv (K then V); rows at or past Sk are zero-filled.
+template <int D, typename T>
+__device__ __forceinline__ void fwd_stage(T* __restrict__ kv, const T* __restrict__ k,
+                                          const T* __restrict__ v,
+                                          long long base, long long krow,
+                                          int rows) {
+  using FT = FwdTc<D, T>;
+  constexpr int KR = FT::KR, CH = FT::CH, PER_ROW = D / CH;
+  T* vs = kv + KR * D;
+#pragma unroll
+  for (int u = 0; u < KR * PER_ROW / FT::THREADS; ++u) {
+    const int i = threadIdx.x + u * FT::THREADS;
+    const int r = i / PER_ROW, c = (i % PER_ROW) * CH;
+    const bool ok = r < rows;
+    const long long src = ok ? base + r * krow + c : 0;
+    float* kd = reinterpret_cast<float*>(
+        FT::F32 ? kv + Sm90Swizzle128::off(r, c, KR, D) : kv + r * D + c);
+    dlk_cp_async16(kd, reinterpret_cast<const float*>(k + src), ok);
+    dlk_cp_async16(reinterpret_cast<float*>(vs + r * D + c),
+                   reinterpret_cast<const float*>(v + src), ok);
+  }
+}
+
+// From ring stage kv: fp32 K's hi rounded in place and its lo into the
+// work tiles, or bf16 K converted into them; V^T's hi (and lo, fp32) with
+// each group of 8 keys in the order (0, 2, 4, 6, 1, 3, 5, 7).  Every load
+// is issued before the first store (their latencies overlap); lanes take
+// consecutive head-dim columns, so the V reads and the swizzled writes
+// hit every bank once.
+template <int D, typename T>
+__device__ __forceinline__ void fwd_split(T* __restrict__ kv,
+                                          float* __restrict__ work) {
+  using FT = FwdTc<D, T>;
+  constexpr int KR = FT::KR, NK = KR * D / 4 / FT::THREADS;
+  constexpr int NV = D * (KR / 8) / FT::THREADS;
+  const T* vs = kv + KR * D;
+  float* k_op = work;                   // fp32: K's lo; bf16: K's hi
+  float* vt_hi = work + KR * D;
+  float* vt_lo = vt_hi + KR * D;        // fp32 only
+  float4 x[NK];
+  if constexpr (FT::F32) {
+    // the same offsets as the landed tile, which takes K's hi in place
+    float* kf = reinterpret_cast<float*>(kv);
+#pragma unroll
+    for (int u = 0; u < NK; ++u) x[u] = ld4(kf + 4 * (threadIdx.x + u * FT::THREADS));
+#pragma unroll
+    for (int u = 0; u < NK; ++u) {
+      const float4 xh = tf32_rna(x[u]);
+      st4(kf + 4 * (threadIdx.x + u * FT::THREADS), xh);
+      st4(k_op + 4 * (threadIdx.x + u * FT::THREADS), sub4(x[u], xh));
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < NK; ++u) {
+      const int i = threadIdx.x + u * FT::THREADS;
+      x[u] = ld4(kv + (i / (D / 4)) * D + (i % (D / 4)) * 4);
+    }
+#pragma unroll
+    for (int u = 0; u < NK; ++u) {
+      const int i = threadIdx.x + u * FT::THREADS;
+      st4(k_op + Sm90Swizzle128::off(i / (D / 4), (i % (D / 4)) * 4, KR, D), x[u]);
+    }
+  }
+  float y[NV][8];
+#pragma unroll
+  for (int u = 0; u < NV; ++u) {
+    const int i = threadIdx.x + u * FT::THREADS, d = i % D, j = i / D;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) y[u][e] = to_f32(vs[(8 * j + e) * D + d]);
+  }
+#pragma unroll
+  for (int u = 0; u < NV; ++u) {
+    const int i = threadIdx.x + u * FT::THREADS, d = i % D, j = i / D;
+    const float4 even = make_float4(y[u][0], y[u][2], y[u][4], y[u][6]);
+    const float4 odd = make_float4(y[u][1], y[u][3], y[u][5], y[u][7]);
+    if constexpr (FT::F32) {
+      const float4 eh = tf32_rna(even), oh = tf32_rna(odd);
+      st4(vt_hi + Sm90Swizzle128::off(d, 8 * j, D, KR), eh);
+      st4(vt_hi + Sm90Swizzle128::off(d, 8 * j + 4, D, KR), oh);
+      st4(vt_lo + Sm90Swizzle128::off(d, 8 * j, D, KR), sub4(even, eh));
+      st4(vt_lo + Sm90Swizzle128::off(d, 8 * j + 4, D, KR), sub4(odd, oh));
+    } else {
+      st4(vt_hi + Sm90Swizzle128::off(d, 8 * j, D, KR), even);
+      st4(vt_hi + Sm90Swizzle128::off(d, 8 * j + 4, D, KR), odd);
+    }
+  }
+}
+
+template <int D, typename T, bool LSE>
+__global__ void __launch_bounds__(128, FwdTc<D, T>::CTAS_PER_SM)
+flash_fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, Shape sh) {
+  using FT = FwdTc<D, T>;
+  using SW = Sm90Swizzle128;
+  constexpr int QR = FT::QR, KR = FT::KR, NS = FT::NS;
+  constexpr int NJ = KR / 8, NO = D / 8;          // 8-column groups of s, of o
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4);
+  {
+    const uint32_t mis = static_cast<uint32_t>(__cvta_generic_to_shared(base)) & (FT::PAD - 1);
+    base += mis ? FT::PAD - mis : 0;
+  }
+  T* ring = reinterpret_cast<T*>(base);
+  float* work = reinterpret_cast<float*>(base + FT::RING);
+  float* q_hi = work + (FT::F32 ? 3 : 2) * KR * D;   // D 128 only
+  float* q_lo = q_hi + QR * D;                        // D 128, fp32 only
+  const int nq = (sh.Sq + QR - 1) / QR;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * QR;  // long rows first
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / sh.G;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const long long qrow = static_cast<long long>(sh.H) * D;
+  const long long krow = static_cast<long long>(sh.KV) * D;
+  const long long qoff = (static_cast<long long>(b) * sh.Sq + q0) * qrow + h * D;
+  const long long kbase = static_cast<long long>(b) * sh.Sk * krow + kvh * D;
+  int lo, hi;
+  key_range<QR, KR>(sh, q0, lo, hi);
+  const int ntiles = (hi - lo + KR - 1) / KR;
+
+  // q: up to D 64 its A fragments in registers (hi and lo), at D 128 its
+  // hi and lo tiles in shared memory (the copies in their own group)
+  uint32_t qh[FT::QREG ? NO : 1][4], ql[FT::QREG ? NO : 1][4];
+  if constexpr (FT::QREG) {
+#pragma unroll
+    for (int s = 0; s < NO; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 16 * warp + g + 8 * (i & 1), c = 8 * s + t + 4 * (i >> 1);
+        const float x = q0 + r < sh.Sq ? to_f32(q[qoff + r * qrow + c]) : 0.0f;
+        qh[s][i] = __float_as_uint(tf32_rna(x));
+        ql[s][i] = __float_as_uint(x - tf32_rna(x));
+      }
+  } else {
+    constexpr int PER_ROW = D / 4;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < QR * PER_ROW; i += FT::THREADS) {
+      const int r = i / PER_ROW, c = (i % PER_ROW) * 4;
+      const bool ok = q0 + r < sh.Sq;
+      if constexpr (FT::F32) {
+        dlk_cp_async16(q_hi + SW::off(r, c, QR, D),
+                       reinterpret_cast<const float*>(q + (ok ? qoff + r * qrow + c : 0)),
+                       ok);
+      } else {
+        st4(q_hi + SW::off(r, c, QR, D),
+            ok ? ld4(q + qoff + r * qrow + c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+      }
+    }
+  }
+  dlk_cp_async_commit();
+  // the ring's first NS - 1 tiles, one group each
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < ntiles) {
+      const int k0 = lo + i * KR;
+      fwd_stage<D, T>(ring + i * 2 * KR * D, k, v, kbase + k0 * krow, krow,
+                      sh.Sk - k0);
+    }
+    dlk_cp_async_commit();
+  }
+  if constexpr (!FT::QREG && FT::F32) {
+    dlk_cp_async_wait<NS - 1>();          // q's group is in
+    __syncthreads();
+#pragma unroll 4
+    for (int i = threadIdx.x; i < QR * D / 4; i += FT::THREADS) {
+      const float4 x = ld4(q_hi + 4 * i), xh = tf32_rna(x);
+      st4(q_hi + 4 * i, xh);
+      st4(q_lo + 4 * i, sub4(x, xh));
+    }
+  }
+
+  const float scale_log2 = sh.scale * LOG2E;
+  float acc[D / 2], m[2], l[2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  m[0] = m[1] = NEG_INF;
+  l[0] = l[1] = 0.0f;
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = lo + it * KR;
+    T* kv = ring + (it % NS) * 2 * KR * D;
+    dlk_cp_async_wait<NS - 2>();          // tile it is in (this thread's copies)
+    __syncthreads();   // ... every thread's; tile it - 1's stage and work are free
+    if (it + NS - 1 < ntiles) {
+      const int kn = k0 + (NS - 1) * KR;
+      fwd_stage<D, T>(ring + ((it + NS - 1) % NS) * 2 * KR * D, k, v,
+                      kbase + kn * krow, krow, sh.Sk - kn);
+    }
+    dlk_cp_async_commit();
+    fwd_split<D, T>(kv, work);
+    sm90_fence_proxy_async();
+    __syncthreads();
+
+    // s = q.k^T in 3xTF32 (bf16: q and k are exact in TF32, hi.hi alone).
+    // The tensor core truncates its running sum at every step, so the
+    // small terms (lo.hi, hi.lo) of every k-step go first, while the sum is
+    // small, and the hi.hi terms are spread over SC chains (k-step d8 on
+    // chain d8 % SC), added in fp32 at the end.  With every term on one
+    // chain the error showed: greedy int8 streams of chip_smoke's serve
+    // phases parted from ref's
+    constexpr int SC = NO < 4 ? NO : 4;
+    float sc[SC][KR / 2];
+#pragma unroll
+    for (int c = 0; c < SC; ++c)
+#pragma unroll
+      for (int i = 0; i < KR / 2; ++i) sc[c][i] = 0.0f;
+    const float* k_hi = FT::F32 ? reinterpret_cast<const float*>(kv) : work;
+#pragma unroll
+    for (int c = 0; c < SC; ++c) sm90_fence_operand(sc[c]);
+    sm90_wgmma_fence();
+    if constexpr (FT::F32) {
+#pragma unroll
+      for (int d8 = 0; d8 < NO; ++d8) {
+        if constexpr (FT::QREG) Sm90Tf32<KR>::rs(sc[0], ql[d8], SW::desc(k_hi, KR, D, d8));
+        else Sm90Tf32<KR>::ss(sc[0], SW::desc(q_lo, QR, D, d8), SW::desc(k_hi, KR, D, d8));
+      }
+#pragma unroll
+      for (int d8 = 0; d8 < NO; ++d8) {
+        if constexpr (FT::QREG) Sm90Tf32<KR>::rs(sc[0], qh[d8], SW::desc(work, KR, D, d8));
+        else Sm90Tf32<KR>::ss(sc[0], SW::desc(q_hi, QR, D, d8), SW::desc(work, KR, D, d8));
+      }
+    }
+#pragma unroll
+    for (int d8 = 0; d8 < NO; ++d8) {
+      if constexpr (FT::QREG) Sm90Tf32<KR>::rs(sc[d8 % SC], qh[d8], SW::desc(k_hi, KR, D, d8));
+      else Sm90Tf32<KR>::ss(sc[d8 % SC], SW::desc(q_hi, QR, D, d8), SW::desc(k_hi, KR, D, d8));
+    }
+    sm90_wgmma_commit();
+    sm90_wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < SC; ++c) sm90_fence_operand(sc[c]);
+    float (&s)[KR / 2] = sc[0];              // the scores: the chains' sum
+#pragma unroll
+    for (int c = 1; c < SC; ++c)
+#pragma unroll
+      for (int i = 0; i < KR / 2; ++i) s[i] += sc[c][i];
+
+    // the online softmax on the thread's rows g (e < 2) and g + 8 (e >= 2),
+    // each row's max and sum over the 4 lanes of its quad, in log2 units
+    const bool full = tile_visible<QR, KR>(sh, q0, k0);
+    float corr[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int qp = q0 + 16 * warp + g + 8 * hr;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kp = k0 + 8 * j + 2 * t + e;
+          float& x = s[4 * j + 2 * hr + e];
+          x = full || (kp < sh.Sk && visible(sh, qp, kp)) ? x * scale_log2 : NEG_INF;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      corr[hr] = ex2(m[hr] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kp = k0 + 8 * j + 2 * t + e;
+          float& x = s[4 * j + 2 * hr + e];
+          x = full || kp < sh.Sk ? ex2(x - m_new) : 0.0f;
+          sum += x;
+        }
+      sum += __shfl_xor_sync(FULL, sum, 1);
+      sum += __shfl_xor_sync(FULL, sum, 2);
+      l[hr] = l[hr] * corr[hr] + sum;
+      m[hr] = m_new;
+    }
+
+    // the tile's p.v in 3xTF32 straight from the score registers (k slots
+    // t and t + 4 of key group j are columns 8 j + 2 t and 8 j + 2 t + 1;
+    // V^T's key order matches; p is fp32, its lo is never dropped), summed
+    // apart and then added, o = o corr + part in fp32, for the same reason:
+    // o accumulated on the tensor core over every tile took one truncation
+    // at its full size for each of the tile's 3 KR / 8 products
+    float plo[KR / 2], part[2][D / 2];
+#pragma unroll
+    for (int i = 0; i < KR / 2; ++i) {
+      const float hv = tf32_rna(s[i]);
+      plo[i] = s[i] - hv;
+      s[i] = hv;
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) part[0][i] = part[1][i] = 0.0f;
+    sm90_fence_operand(s);        // every A fragment and accumulator is
+    sm90_fence_operand(plo);      // written before the first issue (else
+    sm90_fence_operand(part[0]);  // ptxas serializes the products)
+    sm90_fence_operand(part[1]);
+    sm90_wgmma_fence();
+    // the same order: every key group's small terms, then the hi.hi terms
+    // on two chains (key group j on chain j % 2)
+    auto frag = [](const float (&x)[KR / 2], int j, uint32_t (&a)[4]) {
+      a[0] = __float_as_uint(x[4 * j]);
+      a[1] = __float_as_uint(x[4 * j + 2]);
+      a[2] = __float_as_uint(x[4 * j + 1]);
+      a[3] = __float_as_uint(x[4 * j + 3]);
+    };
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t pl[4];
+      frag(plo, j, pl);
+      Sm90Tf32<D>::rs(part[0], pl, SW::desc(work + KR * D, D, KR, j));
+    }
+    if constexpr (FT::F32) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t ph[4];
+        frag(s, j, ph);
+        Sm90Tf32<D>::rs(part[0], ph, SW::desc(work + 2 * KR * D, D, KR, j));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t ph[4];
+      frag(s, j, ph);
+      Sm90Tf32<D>::rs(part[j % 2], ph, SW::desc(work + KR * D, D, KR, j));
+    }
+    sm90_wgmma_commit();
+    sm90_wgmma_wait<0>();
+    sm90_fence_operand(part[0]);
+    sm90_fence_operand(part[1]);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i)
+      acc[i] = fmaf(acc[i], corr[(i >> 1) & 1], part[0][i] + part[1][i]);
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = 16 * warp + g + 8 * hr;
+    if (q0 + r >= sh.Sq) continue;
+    const float lf = fmaxf(l[hr], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      st2(o + qoff + r * qrow + 8 * j + 2 * t, acc[4 * j + 2 * hr] / lf,
+          acc[4 * j + 2 * hr + 1] / lf);
+    if (LSE && t == 0)       // a row that saw no key keeps m = -1e30
+      lse[(static_cast<long long>(b) * sh.H + h) * sh.Sq + q0 + r] =
+          (m[hr] == NEG_INF ? NEG_INF : m[hr] * LN2) + logf(lf);
+  }
+}
+
 template <int D>
 constexpr size_t fwd_smem() {
   constexpr int Q = Tiles<D>::Q, K = Tiles<D>::K;
@@ -1037,9 +1473,12 @@ constexpr size_t dkv_tc_smem() {
                           2 * TL::DKV_K * (TL::DKV_Q + 4) +
                           2 * TL::STAGES * TL::DKV_Q);
 }
-static_assert(dkv_smem<256>() <= 232448 && dq_smem<256>() <= 232448 &&
-              dq_tc_smem<128>() <= 232448 && dkv_tc_smem<128>() <= 232448,
-              "a tile set must fit 227 KB");
+static_assert(fwd_smem<256>() <= 232448 && dkv_smem<256>() <= 232448 &&
+              dq_smem<256>() <= 232448 && dq_tc_smem<128>() <= 232448 &&
+              dkv_tc_smem<128>() <= 232448 &&
+              FwdTc<128, float>::SMEM <= 232448 &&
+              FwdTc<64, float>::CTAS_PER_SM == 2,
+              "a tile set must fit 227 KB (the forward's at head dim 64 twice an SM)");
 
 Shape make_shape(int Sq, int Sk, int H, int KV, int D, int causal, int window) {
   Shape sh;
@@ -1054,16 +1493,31 @@ Shape make_shape(int Sq, int Sk, int H, int KV, int D, int causal, int window) {
   return sh;
 }
 
+// The forward: the tensor-core kernel up to head dim 128; at 256 the FFMA
+// kernel, because one warpgroup's 64 x 256 fp32 accumulator alone would
+// take 128 registers a thread beside the scores and q's fragments, and the
+// K/V ring with V^T's hi and lo at 256 columns would leave 16-key tiles
+// (RecurrentGemma, the one config with head dim 256, has no served path).
 template <int D, typename T, bool LSE>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                int B, const Shape& sh, cudaStream_t stream) {
-  auto kern = flash_fwd<D, T, LSE>;
   static DlkSmemOnce once;
-  if (int err = dlk_prepare_smem(kern, fwd_smem<D>(), once)) return err;
-  const dim3 grid((sh.Sq + Tiles<D>::Q - 1) / Tiles<D>::Q, sh.H, B);
-  kern<<<grid, THREADS, fwd_smem<D>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, sh);
+  if constexpr (D <= 128) {
+    using FT = FwdTc<D, T>;
+    auto kern = flash_fwd_tc<D, T, LSE>;
+    if (int err = dlk_prepare_smem(kern, FT::SMEM, once, true)) return err;
+    const dim3 grid((sh.Sq + FT::QR - 1) / FT::QR, sh.H, B);
+    kern<<<grid, FT::THREADS, FT::SMEM, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, sh);
+  } else {
+    auto kern = flash_fwd<D, T, LSE>;
+    if (int err = dlk_prepare_smem(kern, fwd_smem<D>(), once)) return err;
+    const dim3 grid((sh.Sq + Tiles<D>::Q - 1) / Tiles<D>::Q, sh.H, B);
+    kern<<<grid, THREADS, fwd_smem<D>(), stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, sh);
+  }
   return dlk_last_error();
 }
 

@@ -11,6 +11,10 @@ points, one count each:
   flash_attention_dq    B9's dq
   flash_attention_dkv   B9's dk and dv, summed over each KV head's group
 
+Up to head_dim 128 the forward (both entry points) runs 3xTF32 on the
+warpgroup tensor cores (``wgmma``) and dq, dk/dv 3xTF32 on ``mma.sync``;
+at 256 all four run fp32 FFMA.
+
 q is (B, Sq, H, D), k and v (B, Sk, KV, D), fp32 or bf16, head_dim 32,
 64, 128 or 256; Sq and Sk need not be equal nor multiples of the
 kernel's tiles, and query positions start at 0 (the Pallas kernels'

@@ -584,6 +584,79 @@ def test_flash_backward_reruns_bit_equal(dev, b, sq, sk, h, kvh, d, causal,
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window", [
+    (2, 300, 300, 32, 4, 64, True, 0), (1, 127, 127, 16, 8, 128, True, 48),
+    (1, 300, 1500, 8, 8, 32, False, 0), (1, 300, 100, 16, 1, 256, True, 64),
+    (4, 2048, 2048, 32, 4, 64, True, 0)])
+def test_flash_forward_reruns_bit_equal(dev, b, sq, sk, h, kvh, d, causal,
+                                        window, dtype):
+    """B8 and B9's forward take no float atomics: two runs on the same
+    inputs are bit-equal (o and lse), at every head-dim route and at the
+    train shape."""
+    from repro_torch.kernels import flash_attention as fa
+    q = randn(dev, b, sq, h, d, seed=35).to(dtype)
+    k = randn(dev, b, sk, kvh, d, seed=36).to(dtype)
+    v = randn(dev, b, sk, kvh, d, seed=37).to(dtype)
+    kw = dict(causal=causal, window=window)
+    first = (kops.flash_attention(q, k, v, **kw),) + fa.flash_fwd_lse(q, k, v, **kw)
+    second = (kops.flash_attention(q, k, v, **kw),) + fa.flash_fwd_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_flash_forward_at_the_train_shape(dev):
+    """B8 and B9's forward at TinyLlama's train shape (batch 4 x 2048,
+    32/4 heads of 64, causal, fp32) against the plain versions."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(dev, 4, 2048, 32, 4, 64, torch.float32, seed=45)
+    o_ref, lse_ref = ref.flash_fwd_lse_ref(q, k, v)
+    close(kops.flash_attention(q, k, v), o_ref, **FLASH_TOL[torch.float32])
+    o, lse = fa.flash_fwd_lse(q, k, v)
+    close(o, o_ref, **FLASH_TOL[torch.float32])
+    close(lse, lse_ref, **FLASH_TOL[torch.float32])
+
+
+def _fp64_error(q, k, v, o):
+    """(rms of o - exact, slope of o against exact less 1), exact being
+    causal attention in fp64 on the same inputs, one batch row at a time."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    future = torch.ones(s, s, dtype=torch.bool, device=q.device).triu(1)
+    sq = gw = ww = 0.0
+    for i in range(b):
+        qi = q[i].double().transpose(0, 1)
+        ki = k[i].double().repeat_interleave(g, dim=1).transpose(0, 1)
+        vi = v[i].double().repeat_interleave(g, dim=1).transpose(0, 1)
+        sc = (qi @ ki.transpose(1, 2)) / d ** 0.5
+        exact = torch.softmax(sc.masked_fill_(future, float("-inf")), -1) @ vi
+        got = o[i].double().transpose(0, 1)
+        sq += float(((got - exact) ** 2).sum())
+        gw += float((got * exact).sum())
+        ww += float((exact * exact).sum())
+    return (sq / o.numel()) ** 0.5, gw / ww - 1.0
+
+
+def test_flash_forward_accuracy_against_fp64_at_the_train_shape(dev):
+    """B8 and B9's forward at TinyLlama's train shape (fp32, inputs
+    uniform in [-2, 2)) against causal attention in fp64: o's rms error
+    at most 1e-7 and its slope within 5e-7 of 1.  The shipped 3xTF32
+    kernel reads rms 3.1e-8 and slope -1.2e-7 there
+    (benchmarks/flash_fwd_variants.cu); the FFMA kernel 6.7e-8.  The
+    bars hold the structure of the tensor-core sums (small terms first,
+    hi.hi spread over several accumulators), which the plain-version
+    tolerance does not see: with every term on one accumulator the
+    kernel passed it and still parted greedy int8 streams from ref's."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator().manual_seed(46)
+    q, k, v = (torch.rand(4, 2048, n, 64, generator=g).mul_(4).sub_(2).to(dev)
+               for n in (32, 4, 4))
+    for o in (kops.flash_attention(q, k, v), fa.flash_fwd_lse(q, k, v)[0]):
+        rms, slope = _fp64_error(q, k, v, o)
+        assert rms <= 1e-7 and abs(slope) <= 5e-7, (rms, slope)
+
+
 def test_flash_backward_at_the_train_shape(dev):
     """dq and dk/dv at TinyLlama's train shape (batch 4 x 2048, 32/4
     heads of 64, causal, fp32) against the plain versions."""

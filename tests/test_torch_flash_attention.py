@@ -381,6 +381,158 @@ def test_1xtf32_backward_misses_the_fp32_grad_bar(s, h, kv):
 
 
 # ---------------------------------------------------------------------------
+# the numerical premise of the tensor-core forward (B8, B9's forward on
+# wgmma): its schedule in 3xTF32, emulated step by step, holds the fp32 bar
+# ---------------------------------------------------------------------------
+
+# The kernel stores V^T's keys in each group of 8 in this order, so that k
+# slot t of p.V's A fragment (the score accumulator's column 2t) and slot
+# t + 4 (column 2t + 1) meet the same key.
+PV_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def mm_tf32(a, b, a_hi, b_hi, a_exact=False, b_exact=False, products=3):
+    """a @ b as the forward's wgmma products: each operand split as
+    hi = ``a_hi(x)`` / ``b_hi(x)`` and lo = x - hi, read truncated to TF32
+    by the tensor core, and lo.hi + hi.lo + hi.hi (``products`` 1: hi.hi
+    alone); an operand exact in TF32 (bf16 data) drops its lo term."""
+    ah, bh = a_hi(a), b_hi(b)
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    if products == 3 and not a_exact:
+        out = out + tf32_truncate(a - ah) @ tf32_truncate(bh)
+    if products == 3 and not b_exact:
+        out = out + tf32_truncate(ah) @ tf32_truncate(b - bh)
+    return out + tf32_truncate(ah) @ tf32_truncate(bh)
+
+
+def fwd_tf32(q, k, v, causal, window, products=3, kr=64):
+    """(o, lse) of the tensor-core forward, its schedule step by step:
+    key tiles of ``kr`` (zero-filled past Sk), masked scores (-1e30) and
+    the others scaled by scale * log2(e), the online softmax in log2 units
+    (p = 2^(s - m), m, l, corr), each tile's p.V summed apart with p's
+    columns as k slots and V^T's keys in PV_KEY_ORDER within each group of
+    8, then o = o corr + part; lse = m ln 2 + log(l) (-1e30 + log(l) where
+    no key was seen).  Products in 3xTF32 (``products`` 1: hi.hi alone)
+    with hi = rna(x) for every operand; bf16 inputs are exact in TF32, so
+    q, k and v drop their lo terms (p, fp32, never does)."""
+    exact = q.dtype == torch.bfloat16
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = np.float32(np.float32(1.0 / np.sqrt(d)) * np.float32(np.log2(np.e)))
+    nk = -(-sk // kr) * kr
+    pad = (0, 0, 0, 0, 0, nk - sk)
+    qh = q.float().transpose(1, 2)                            # (B, H, Sq, D)
+    kh = torch.nn.functional.pad(k.float(), pad).repeat_interleave(
+        g, dim=2).transpose(1, 2)
+    vh = torch.nn.functional.pad(v.float(), pad).repeat_interleave(
+        g, dim=2).transpose(1, 2)
+    order = torch.tensor([8 * j + e for j in range(kr // 8)
+                          for e in PV_KEY_ORDER])
+    qpos = torch.arange(sq)[:, None]
+    m = torch.full((b, h, sq), -1e30)
+    l = torch.zeros((b, h, sq))
+    acc = torch.zeros((b, h, sq, d))
+    for k0 in range(0, nk, kr):
+        kpos = torch.arange(k0, k0 + kr)[None, :]
+        mask = (kpos < sk).expand(sq, kr)
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window:
+            mask = mask & (kpos > qpos - window)
+        s = mm_tf32(qh, kh[:, :, k0:k0 + kr].transpose(-1, -2), tf32_rna,
+                    tf32_rna, exact, exact, products)
+        s = torch.where(mask, s * scale, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.where(kpos < sk, torch.exp2(s - m_new[..., None]),
+                        torch.tensor(0.0))
+        l = l * corr + p.sum(-1)
+        m = m_new
+        vt = vh[:, :, k0:k0 + kr]
+        part = mm_tf32(p[..., order], vt[:, :, order], tf32_rna, tf32_rna,
+                       False, exact, products)
+        acc = acc * corr[..., None] + part
+    lf = torch.clamp_min(l, 1e-30)
+    o = (acc / lf[..., None]).transpose(1, 2).to(q.dtype)
+    m = torch.where(m == -1e30, m, m * np.float32(np.log(2.0)))
+    return o, m + torch.log(lf)
+
+
+def test_pv_key_order_matches_the_score_accumulator():
+    """Thread (g, t) of a warp holds score columns 8j + 2t and 8j + 2t + 1
+    of its rows (the m64nN accumulator); handed on as p.V's A fragment they
+    sit in k slots t and t + 4 (the m64k8 A layout).  V^T's key at slot
+    kappa of group j must be the key that slot holds."""
+    for t_ in range(4):
+        slot_t, slot_t4 = t_, t_ + 4
+        assert PV_KEY_ORDER[slot_t] == 2 * t_
+        assert PV_KEY_ORDER[slot_t4] == 2 * t_ + 1
+    assert sorted(PV_KEY_ORDER) == list(range(8))
+    # a product with p's columns in slot order and V^T's keys permuted the
+    # same way is the same sum; permuting one side alone is not
+    rng = np.random.default_rng(20)
+    p = torch.from_numpy(rng.random((4, 64)).astype(np.float32))
+    vv = torch.from_numpy(rng.standard_normal((64, 16)).astype(np.float32))
+    order = torch.tensor([8 * j + e for j in range(8) for e in PV_KEY_ORDER])
+    assert_close(p[:, order] @ vv[order], p @ vv, rtol=1e-6, atol=1e-6)
+    with pytest.raises(AssertionError):
+        assert_close(p[:, order] @ vv, p @ vv, rtol=1e-3, atol=1e-3)
+
+
+def _pallas_fwd(q, k, v, s, window, dtype):
+    """o of _flash_kernel (B8) and (o, lse) of _fwd_kernel (B9's
+    forward), both in interpret mode, blocks of 100 rows at S 300."""
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
+    blk = 100 if s == 300 else s
+    b8 = jops.flash_attention(jq, jk, jv, window=window, block_q=blk,
+                              block_k=blk)
+    o_flat, lse = jfwd(jq, jk, jv, causal=True, window=window, block_q=blk,
+                       block_k=blk, interpret=True)
+    b, _, h, d = q.shape
+    o = o_flat.reshape(b, h, s, d).transpose(0, 2, 1, 3)
+    return (np.asarray(jnp.asarray(b8, jnp.float32)),
+            np.asarray(jnp.asarray(o, jnp.float32)),
+            np.asarray(lse).reshape(b, h, s))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g", [8, 2])
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("s", [127, 300])
+def test_3xtf32_forward_matches_pallas(s, window, g, dtype):
+    """The forward's wgmma schedule in 3xTF32 (hi rounded to nearest),
+    emulated in torch, gives o and lse within the fp32 bar (bf16: the bf16
+    bar) of _flash_kernel and _fwd_kernel in interpret mode: 8 query heads
+    on 8 / g KV heads of 64, causal."""
+    h, d = 8, 64
+    q, k, v = qkv(1, s, h, h // g, d, seed=14)
+    want8, want_o, want_lse = _pallas_fwd(q, k, v, s, window, dtype)
+    tdt = getattr(torch, dtype)
+    o, lse = fwd_tf32(*(t(x).to(tdt) for x in (q, k, v)), True, window)
+    assert o.dtype == tdt
+    tol = OUT_TOL if dtype == "float32" else BF16_TOL
+    assert_close(o.float(), want_o, **tol, err_msg="o vs _fwd_kernel")
+    assert_close(o.float(), want8, **tol, err_msg="o vs _flash_kernel")
+    assert_close(lse, want_lse, **OUT_TOL, err_msg="lse")
+
+
+def test_1xtf32_forward_misses_the_fp32_bar():
+    """The negative control of the test above: with one TF32 product
+    (hi.hi alone) o breaks the fp32 bar (rtol 1e-4 / atol 1e-5) against
+    _fwd_kernel at its longest case, where 3xTF32 holds it."""
+    s, window, h, g, d = 300, 0, 8, 8, 64
+    q, k, v = qkv(1, s, h, h // g, d, seed=14)
+    _, want_o, _ = _pallas_fwd(q, k, v, s, window, "float32")
+    three, _ = fwd_tf32(t(q), t(k), t(v), True, window)
+    one, _ = fwd_tf32(t(q), t(k), t(v), True, window, products=1)
+    assert_close(three, want_o, **OUT_TOL)
+    with pytest.raises(AssertionError):
+        assert_close(one, want_o, **OUT_TOL)
+
+
+# ---------------------------------------------------------------------------
 # the named backends of the model's full-sequence attention
 # ---------------------------------------------------------------------------
 
