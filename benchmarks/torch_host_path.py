@@ -33,8 +33,16 @@ built as its own ``_build`` builds them.  The measurements are
          serving prefill (1 x 300, the same heads)
   train  TinyLlama-1.1B at batch 4 x 2048, fp32: train tokens/s and the
          step's device time by part (``train_step_record``)
+  decode B6 (ring fp32) and B7 (paged int8) of TinyLlama-1.1B at batch 8
+         (``serve_time_record``): decode tokens/s, TTFT, device ms per
+         step by part and idle share, and per launch events ms and device
+         µs at the live lanes and at 8 x 1000 of 1024 slots beside SDPA;
+         the decode wrappers' host µs per launch (their ``launch_path``
+         cases); on a split-KV tree (``decode_attention.plan``), both
+         kernels at chunks of 32, 64 and 128 slots on 22
+         synthetic layers at DECODE_SERVE_VALID and at 8 x 1000
 
-``--phases`` runs the named phases only (default: all five).  Prints
+``--phases`` runs the named phases only (default: all six).  Prints
 JSON lines, the card's name and power limit in each; exits 2 without a
 CUDA card.
 """
@@ -46,7 +54,10 @@ import sys
 import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PHASES = ("host_path", "b3b4", "b1", "b9", "train")
+PHASES = ("host_path", "b3b4", "b1", "b9", "train", "decode")
+# a decode step's 8 lanes of 5 to 300 slots (prompts of 5-300 plus new
+# tokens), for the chunk sweep
+DECODE_SERVE_VALID = (37, 300, 100, 5, 180, 120, 16, 250)
 TRAIN_SHAPE = (4, 2048, 32, 4, 64)      # B, S, H, KV, D: TinyLlama's train
 
 
@@ -90,6 +101,44 @@ def b9_calls(torch, fa):
             "b8_prefill_1x300": lambda: kops.flash_attention(qp, kp, vp),
             "sdpa_forward_prefill_1x300": lambda: F.scaled_dot_product_attention(
                 qpt, kpt, vpt, is_causal=True)}
+
+
+def decode_chunks(torch, cs, head):
+    """B6 (ring fp32) and B7 (paged int8) at TinyLlama's heads through
+    ``decode_attention.launch(..., chunk=)`` at chunks of 32, 64 and 128
+    slots: events ms and device µs per launch over cs.DECODE_TIME_LAYERS
+    synthetic layers cycled, and the largest distance from the plain
+    version on the first layer, at DECODE_SERVE_VALID and at 8 x 1000."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    gen = torch.Generator().manual_seed(cs.SEED + 61)
+    for form, dtype, paged, kern in (("ring fp32", "float32", False, da.RING),
+                                     ("paged int8", "int8", True, da.PAGED_Q8)):
+        for shape, valid in (("serve", DECODE_SERVE_VALID),
+                             ("8 x 1000", (cs.DECODE_LONG_VALID,) * 8)):
+            cases = [cs.decode_case(torch, gen, "cuda", b=8, kvh=4, g=8,
+                                    dtype=dtype, layout="bksd", paged=paged,
+                                    valid=list(valid))
+                     for _ in range(cs.DECODE_TIME_LAYERS)]
+            n = len(cases)
+            want = cs.decode_call(kops, ref, cases[0], "bksd", plain=True)
+            for chunk in (32, 64, 128):
+                def call(c, chunk=chunk):
+                    return da.launch(kern, c["q"], c["k"], c["v"], c["valid"],
+                                     layout="bksd", scales=c["scales"],
+                                     page_table=c.get("pt"), chunk=chunk)
+                nxt = iter(range(1 << 62))
+                cs.emit({"phase": "decode", **head, "chunk_sweep": form,
+                         "shape": shape, "valid_len": list(valid),
+                         "chunk": chunk,
+                         "ms": cs.time_ms(torch, lambda: [call(c) for c in cases],
+                                          iters=5) / n,
+                         "device_us": cs.device_us(
+                             torch, lambda: call(cases[next(nxt) % n]),
+                             n=2 * n)[0],
+                         "max_abs_vs_plain": float(
+                             (call(cases[0]) - want).abs().max())})
 
 
 def main(argv=None) -> int:
@@ -162,6 +211,23 @@ def main(argv=None) -> int:
                  **{name: {"ms": cs.time_ms(torch, fn, iters=5, reps=3),
                            "device_us": cs.device_us(torch, fn, n=5)[0]}
                     for name, fn in b9_calls(torch, fa).items()}})
+    if "decode" in phases:
+        from repro_torch.kernels import decode_attention as da
+        for row in [r for r in cs.launch_path_cases(torch)
+                    if r[0].startswith("decode")]:
+            cs.emit({"phase": "decode", **head, "wrapper": row[0],
+                     "shape": row[1], "calls": cs.LAUNCH_CALLS,
+                     "host_us": cs.host_us(torch, row[2])})
+        if hasattr(da, "plan"):                  # a split-KV tree: chunks to sweep
+            decode_chunks(torch, cs, head)
+        cfg = get_config("tinyllama-1.1b")
+        params = params_from_numpy(cs.numpy_weights(np, cfg, cs.SEED), "cuda",
+                                   cfg=cfg)
+        for name in ("ring-fp32", "paged-int8"):
+            cs.emit({**cs.serve_time_record(torch, np, cfg, params, name, card),
+                     "phase": "decode", **head})
+        del params
+        torch.cuda.empty_cache()
     if "train" in phases:
         torch.cuda.empty_cache()
         tiny_np = cs.numpy_weights(np, get_config("tinyllama-1.1b"), cs.SEED)

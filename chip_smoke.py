@@ -46,7 +46,10 @@ its seconds:
                   Qwen3, Granite-MoE and RecurrentGemma (16/1 heads of
                   256) heads, B 1 and 8, S 1024, fp32/bf16/int8, both
                   layouts, fragmented page tables; nothing read past
-                  valid_len
+                  valid_len; the split-KV kernel's chunk edges, the
+                  capacity and past it (reruns bit-equal), a lane alone
+                  bit-equal to the lane in a batch of 8, NaN for
+                  valid_len 0 and for a page id outside the pool
   serve           TinyLlama-1.1B at full width through ServingEngine in five
                   cache forms, on the kernels and on ``ref``: tokens, launches
                   (B6/B7 22 x decode steps, B8 22 x full prefills), one host
@@ -55,8 +58,10 @@ its seconds:
                   the fp32 logit gap wherever a bf16 or int8 stream parts
                   from ``ref``; teacher-forced logits and a ring that wraps
   serve_times     decode tokens/s and TTFT (scheduler counters), device time
-                  per step and idle share, B6/B7 per launch against bound,
-                  plain version and SDPA
+                  per step and idle share, B6/B7 per launch (events ms,
+                  device µs) at the live lanes and at 8 x 1000 of 1024
+                  slots against bound, plain version and SDPA, with their
+                  max and rms error against an fp64 evaluation
   multimodel      TinyLlama-1.1B and Qwen3-0.6B (and its int8 artifact),
                   full width, cut to 8 layers, through MultiModelServer:
                   hits, misses, switch log
@@ -1236,8 +1241,70 @@ def phase_decode_kernels(run, torch):
                       f"paged={paged} {dtype}", ok)
             summary.setdefault("nan_past_valid_len", []).append(
                 {"paged": paged, "dtype": dtype, "ok": ok})
+    summary["split_kv"] = split_kv_checks(run, torch, gen, dev)
     for key, s in summary.items():
         emit({"phase": "decode_kernels", "check": key, "result": s})
+
+
+def split_kv_checks(run, torch, gen, dev):
+    """The split-KV kernel at TinyLlama's heads, ring and paged, fp32, bf16
+    and int8: valid lengths on the chunk's edges and at and past the
+    capacity against the plain version (DECODE_TOL), each call run twice
+    bit-equal (a ticket counter left non-zero would break the second); one
+    lane run alone bit-equal to the same lane in the batch of 8; NaN for
+    the lane whose valid_len is 0 and, paged, for the lane whose table
+    holds a page id outside the pool in its prefix, the other lanes as
+    the plain version."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    chunk = da.plan(8, 4, 8, 64, 4, slots=1024).chunk
+    edges = [1, chunk - 1, chunk, chunk + 1, 2 * chunk, 1023, 1024, 1031]
+    rtol, atol = DECODE_TOL
+    rows = []
+    for paged in (False, True):
+        fam = "decode_attention_paged" if paged else "decode_attention"
+        for dtype in ("float32", "bfloat16", "int8"):
+            case = decode_case(torch, gen, dev, b=8, kvh=4, g=8, dtype=dtype,
+                               layout="bksd", paged=paged, valid=edges)
+            got = decode_call(kops, ref, case, "bksd")
+            again = decode_call(kops, ref, case, "bksd")
+            want = decode_call(kops, ref, case, "bksd", plain=True)
+            i = 3                                   # valid chunk + 1
+            one = {"q": case["q"][i:i + 1], "valid": case["valid"][i:i + 1],
+                   "k": case["k"], "v": case["v"], "scales": case["scales"]}
+            if paged:
+                one["pt"] = case["pt"][i:i + 1]
+            else:
+                one["k"], one["v"] = case["k"][i:i + 1], case["v"][i:i + 1]
+                if case["scales"] is not None:
+                    one["scales"] = tuple(x[i:i + 1] for x in case["scales"])
+            alone = decode_call(kops, ref, one, "bksd")
+            bad_case = dict(case, valid=case["valid"].clone())
+            bad_case["valid"][0] = 0
+            nan_lanes = [0]
+            if paged:
+                bad_case["pt"] = case["pt"].clone()
+                bad_case["pt"][2, 1] = 10 ** 6       # in lane 2's prefix
+                nan_lanes.append(2)
+            poisoned = decode_call(kops, ref, bad_case, "bksd")
+            torch.cuda.synchronize()
+            err, bad = compare(torch, got, want, rtol, atol)
+            run.max_err[fam] = max(run.max_err.get(fam, 0.0), err)
+            keep = [j for j in range(8) if j not in nan_lanes]
+            row = {"paged": paged, "dtype": dtype, "chunk": chunk,
+                   "valid_len": edges, "max_abs_err": err,
+                   "edges_within_tol": bad == 0,
+                   "rerun_bit_equal": torch.equal(got, again),
+                   "alone_bit_equal": torch.equal(alone[0], got[i]),
+                   "nan_lanes": bool(torch.isnan(poisoned[nan_lanes]).all()),
+                   "other_lanes_kept": torch.equal(poisoned[keep], got[keep])}
+            rows.append(row)
+            for key in ("edges_within_tol", "rerun_bit_equal",
+                        "alone_bit_equal", "nan_lanes", "other_lanes_kept"):
+                run.check("decode_kernels", f"split-KV {fam} {dtype}: {key}",
+                          row[key], max_abs_err=err, mismatches=bad)
+    return rows
 
 
 def poison(torch, case):
@@ -1487,6 +1554,9 @@ def phase_serve(run, torch, np, card):
                 # measured, not excused: the check below stays
                 rec["divergence_logit_gaps"] = divergence_gaps(
                     torch, cfg, params, reqs, got, want)
+                rec["parted_lane"] = parted_lane_logits(
+                    torch, kops, cfg, params, opts,
+                    lambda: serve_requests(np, cfg, SEED + 20), got, want)
             run.check("serve", f"{name}: greedy tokens on cuda equal ref",
                       got == want, requests_equal=match,
                       gaps=rec.get("divergence_logit_gaps"))
@@ -1501,6 +1571,54 @@ def phase_serve(run, torch, np, card):
     run.phase("serve_teacher_forced", phase_teacher_forced, run, torch, np,
               cfg, params)
     return cfg, np_params, params, engines, path
+
+
+def parted_lane_logits(torch, kops, cfg, params, opts, make_requests, got,
+                       want):
+    """C4: the first request whose stream on the kernels parts from
+    ``ref``'s, replayed through a batch-8 ServingEngine on each backend,
+    its lane's logits read at the decode step that chose the first
+    differing token: each backend's logits of the two tokens, their gap,
+    its argmax and the lane's valid length.  That is the engine's own
+    batch-8 int8 step, which divergence_gaps' fp32 batch-1 forward does
+    not reproduce.  The replays' launches are not counted."""
+    from repro_torch.serving.engine import ServingEngine
+    i = next(k for k, (a, b) in enumerate(zip(got, want)) if a != b)
+    j = next(k for k, (x, y) in enumerate(zip(got[i], want[i])) if x != y)
+    ta, tb = got[i][j], want[i][j]
+    out = {"request": i, "token_index": j, "cuda_token": ta, "ref_token": tb}
+    if j == 0:
+        out["note"] = "the first token comes from the prefill, not a decode step"
+        return out
+    saved = kops.launches()
+    for backend, name in ((None, "cuda"), ("ref", "ref")):
+        eng = ServingEngine(cfg, params, max_batch=8,
+                            cache_len=SERVE_CACHE_LEN, attn_backend=backend,
+                            device=DEVICE, **opts)
+        reqs = make_requests()
+        sched = eng.scheduler(max_new_cap=max(r.max_new_tokens for r in reqs))
+        step, steps = sched._decode_lanes, [0]
+
+        def capture(tokens, pos, step=step, sched=sched, steps=steps,
+                    name=name, uid=reqs[i].uid):
+            lg = step(tokens, pos)
+            slot = next((k for k, r in enumerate(sched.slots) if r is not None
+                         and r.uid == uid and sched._steps_left[k] > 0), None)
+            if slot is not None:
+                steps[0] += 1
+                if steps[0] == j:                    # this step samples token j
+                    row = lg[slot].float()
+                    out[name] = {"logit_cuda_token": float(row[ta]),
+                                 "logit_ref_token": float(row[tb]),
+                                 "gap": float(row[ta] - row[tb]),
+                                 "argmax": int(row.argmax()),
+                                 "valid_len": int(sched._host_valid[slot]) + 1}
+            return lg
+        sched._decode_lanes = capture
+        eng.generate_batch(reqs)
+    for k, n in saved.items():
+        kops.KERNELS[k].launches = n
+    return out
 
 
 def full_prefills(sched, n_requests):
@@ -1718,17 +1836,117 @@ def _profile_ticks(torch, sched, ticks):
             "device_ms_by_part": {k: v / 1e3 for k, v in parts.items()}}
 
 
-def _time_decode_kernel(torch, cfg, sched, q8, paged):
-    """B6 or B7 at the main path's shapes and data: the live scheduler's
-    layer views and the lanes' valid lengths, cycling the layers as a
-    step does (so the K/V come from device memory, not L2).  Returns
-    per-launch ms of the kernel, its plain version and SDPA on the
-    dequantized (and gathered) K/V with a boolean valid mask."""
+DECODE_LONG_VALID = 1000     # 8 lanes x 1000 of 1024: bytes the bound sees
+DECODE_TIME_LAYERS = 22      # synthetic layers cycled (TinyLlama's depth)
+
+
+def decode_fp64(torch, case, layout="bksd"):
+    """The function B6/B7 compute, evaluated in fp64 from the stored
+    values of one case: pages gathered, int8 K/V times their scales (the
+    kernel's order of scaling is exact in fp64 up to rounding), a masked
+    softmax over each lane's prefix."""
+    from repro_torch.kernels import ref
+    q, k, v, sc, valid = (case["q"], case["k"], case["v"], case["scales"],
+                          case["valid"])
+    k, v = k.double(), v.double()
+    if sc is not None:
+        k, v = k * sc[0].double()[..., None], v * sc[1].double()[..., None]
+    if "pt" in case:
+        k = ref.paged_gather(k, case["pt"], layout=layout)
+        v = ref.paged_gather(v, case["pt"], layout=layout)
+    if layout == "bskd":
+        k, v = k.transpose(1, 2), v.transpose(1, 2)      # -> (B, KV, S, D)
+    b, h, d = q.shape
+    kvh, s = k.shape[1], k.shape[2]
+    qg = q.double().reshape(b, kvh, h // kvh, d)
+    scores = torch.einsum("bkgd,bksd->bkgs", qg, k) / math.sqrt(d)
+    mask = torch.arange(s, device=q.device)[None, :] < valid.long()[:, None]
+    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    out = torch.einsum("bkgs,bksd->bkgd", torch.softmax(scores, -1), v)
+    return out.reshape(b, h, d)
+
+
+def decode_launch_record(torch, cases, h, d, plain=True):
+    """B6 or B7 per launch over ``cases`` (one a layer, cycled as a decode
+    step cycles its layers, so the K/V come from device memory): events ms
+    and device µs, the bound from the first case's bytes and its share of
+    the device time, the plain version's ms, and the kernel's (and the
+    plain version's) max and rms error against the fp64 evaluation on the
+    first case."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    n = len(cases)
+    nxt = iter(range(1 << 62))
+    got = decode_call(kops, ref, cases[0], "bksd")
+    exact = decode_fp64(torch, cases[0])
+    err = got.double() - exact
+    ms = time_ms(torch, lambda: [decode_call(kops, ref, c, "bksd")
+                                 for c in cases], iters=5) / n
+    dev_us = device_us(torch, lambda: decode_call(
+        kops, ref, cases[next(nxt) % n], "bksd"), n=2 * n)[0]
+    b_s, o_s = decode_bound(cases[0], "bksd", h, d)
+    rec = {"ms": ms, "device_us": dev_us,
+           "bytes_s": b_s, "ops_s": o_s, "bound_ms": 1e3 * max(b_s, o_s),
+           "bound_by": "bytes" if b_s >= o_s else "operations",
+           "share_of_bound": dev_us and 1e6 * max(b_s, o_s) / dev_us,
+           "max_abs_err_fp64": float(err.abs().max()),
+           "rms_err_fp64": float(err.pow(2).mean().sqrt()),
+           "valid_len": cases[0]["valid"].tolist()}
+    if plain:
+        want = decode_call(kops, ref, cases[0], "bksd", plain=True)
+        perr = want.double() - exact
+        rec["plain_ms"] = time_ms(
+            torch, lambda: [decode_call(kops, ref, c, "bksd", plain=True)
+                            for c in cases], iters=2, reps=3) / n
+        rec["plain_max_abs_err_fp64"] = float(perr.abs().max())
+        rec["plain_rms_err_fp64"] = float(perr.pow(2).mean().sqrt())
+    return rec
+
+
+def decode_library_record(torch, cases):
+    """SDPA on the dequantized (and gathered) K/V of ``cases`` with a
+    boolean valid mask, per launch: events ms, device µs and its largest
+    distance from the kernel on the first case."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
+    kv = []
+    for case in cases:                              # dequantize + gather
+        k, v = case["k"].float(), case["v"].float()
+        if case["scales"] is not None:
+            k = k * case["scales"][0][..., None]
+            v = v * case["scales"][1][..., None]
+        if "pt" in case:
+            k = ref.paged_gather(k, case["pt"], layout="bksd")
+            v = ref.paged_gather(v, case["pt"], layout="bksd")
+        kv.append((k.contiguous(), v.contiguous()))
+    valid, q = cases[0]["valid"], cases[0]["q"]
+    mask = (torch.arange(kv[0][0].shape[2], device=q.device)[None, :]
+            < valid[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+    n = len(cases)
+    nxt = iter(range(1 << 62))
+
+    def library(i):
+        return F.scaled_dot_product_attention(q4, *kv[i], attn_mask=mask,
+                                              enable_gqa=True)[:, :, 0]
+    got = decode_call(kops, ref, cases[0], "bksd")
+    return {"library_ms": time_ms(torch, lambda: [library(i) for i in range(n)],
+                                  iters=5) / n,
+            "library_device_us": device_us(
+                torch, lambda: library(next(nxt) % n), n=2 * n)[0],
+            "library_vs_kernel_max_abs": float((library(0) - got).abs().max())}
+
+
+def _time_decode_kernel(torch, cfg, sched, q8, paged):
+    """B6 or B7 at the main path's shapes and data (the live scheduler's
+    layer views and the lanes' valid lengths, every layer in turn), then
+    at 8 lanes x DECODE_LONG_VALID of 1024 slots on DECODE_TIME_LAYERS
+    synthetic layers: decode_launch_record and SDPA beside it
+    (decode_library_record) at both."""
     cache, L = sched.state["cache"], cfg.num_layers
     b, h, d = sched.max_slots, cfg.num_heads, cfg.resolved_head_dim
+    kvh = cfg.num_kv_heads
     gen = torch.Generator().manual_seed(SEED + 60)
     q = torch.randn(b, h, d, generator=gen).to(DEVICE)
     valid = torch.from_numpy(sched._host_valid.astype("int32") + 1).to(DEVICE)
@@ -1743,81 +1961,67 @@ def _time_decode_kernel(torch, cfg, sched, q8, paged):
         if paged:
             case["pt"] = cache["page_table"]
         cases.append(case)
-    lib_kv = []
-    for case in cases:                              # dequantize + gather
-        k, v = case["k"].float(), case["v"].float()
-        if q8:
-            k = k * case["scales"][0][..., None]
-            v = v * case["scales"][1][..., None]
-        if paged:
-            k = ref.paged_gather(k, case["pt"], layout="bksd")
-            v = ref.paged_gather(v, case["pt"], layout="bksd")
-        lib_kv.append((k.contiguous(), v.contiguous()))
-    s_len = lib_kv[0][0].shape[2]
-    mask = (torch.arange(s_len, device=DEVICE)[None, :]
-            < valid[:, None].long())[:, None, None, :]
-    q4 = q[:, :, None, :]
+    rec = {**decode_launch_record(torch, cases, h, d),
+           **decode_library_record(torch, cases),
+           "batch": b, "heads": h, "kv_heads": kvh, "head_dim": d}
+    long_cases = [decode_case(torch, gen, DEVICE, b=b, kvh=kvh, g=h // kvh,
+                              dtype="int8" if q8 else "float32",
+                              layout="bksd", paged=paged, d=d,
+                              valid=[DECODE_LONG_VALID] * b)
+                  for _ in range(DECODE_TIME_LAYERS)]
+    rec["long"] = {**decode_launch_record(torch, long_cases, h, d),
+                   **decode_library_record(torch, long_cases),
+                   "layers": DECODE_TIME_LAYERS}
+    return rec
 
-    def library(l):
-        return F.scaled_dot_product_attention(q4, *lib_kv[l], attn_mask=mask,
-                                              enable_gqa=True)[:, :, 0]
-    got = decode_call(kops, ref, cases[0], "bksd")
-    lib_err = float((library(0) - got).abs().max())
-    ms = time_ms(torch, lambda: [decode_call(kops, ref, c, "bksd")
-                                 for c in cases], iters=5) / L
-    plain_ms = time_ms(torch, lambda: [decode_call(kops, ref, c, "bksd",
-                                                   plain=True)
-                                       for c in cases], iters=2, reps=3) / L
-    lib_ms = time_ms(torch, lambda: [library(l) for l in range(L)],
-                     iters=5) / L
-    b_s, o_s = decode_bound(cases[0], "bksd", h, d)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bytes_s": b_s, "ops_s": o_s, "bound_ms": 1e3 * max(b_s, o_s),
-            "bound_by": "bytes" if b_s >= o_s else "operations",
-            "library_vs_kernel_max_abs": lib_err,
-            "valid_len": valid.tolist(), "batch": b, "heads": h,
-            "kv_heads": cfg.num_kv_heads, "head_dim": d}
+
+def serve_time_record(torch, np, cfg, params, name, card):
+    """One cache form of TinyLlama-1.1B at batch 8 (``name`` of
+    SERVE_CONFIGS, ring-fp32 or paged-int8): decode tokens/s and TTFT
+    from the scheduler's counters over 16 requests after a warm pass;
+    device time per decode step by part and the device's idle share
+    (torch.profiler over 8 ticks with 8 live lanes); B6 or B7 per launch
+    (_time_decode_kernel)."""
+    from repro_torch.serving.engine import ServingEngine
+    q8, paged = "int8" in name, "paged" in name
+    eng = ServingEngine(cfg, params, max_batch=8, cache_len=SERVE_CACHE_LEN,
+                        device=DEVICE, **SERVE_CONFIGS[name])
+    eng.generate_batch(serve_requests(np, cfg, SEED + 50, n=8, hi=50))
+    sched = eng.scheduler()
+    sched.metrics.reset()
+    stats = eng.generate_batch(serve_requests(np, cfg, SEED + 51))
+    ttft = sched.metrics.histogram("req.ttft_s").snapshot()
+    rec = {"phase": "serve_times", "card": card["nvidia_smi"],
+           "config": name, "requests": SERVE_REQUESTS,
+           "max_new": SERVE_MAX_NEW,
+           "decode_tokens_per_s": stats.tok_per_s,
+           "decode_s": stats.decode_s, "prefill_s": stats.prefill_s,
+           "tokens": stats.tokens_out, "ttft_s": ttft,
+           "roofline": {k: v for k, v in sched.roofline_stats().items()
+                        if k in ("bytes_per_token", "mbu", "mfu",
+                                 "roofline_tok_per_s")}}
+    # a steady window: 8 lanes live, none retiring
+    for r in serve_requests(np, cfg, SEED + 52, n=8):
+        sched.submit(r)
+    sched.tick()                                    # admits all 8
+    rec["step_profile"] = _profile_ticks(torch, sched, 8)
+    rec["kernel"] = _time_decode_kernel(torch, cfg, sched, q8, paged)
+    sched.run()
+    return rec
 
 
 def phase_serve_times(run, torch, np, cfg, params, card):
-    """TinyLlama-1.1B, batch 8, ring fp32 and paged int8: decode tokens/s
-    and TTFT from the scheduler's counters over 16 requests after a warm
-    pass; device time per decode step by part and the device's idle
-    share (torch.profiler over 8 ticks with 8 live lanes); B6 and B7 per
-    launch at those lanes' shapes against the bytes bound, the plain
-    version and SDPA."""
-    from repro_torch.serving.engine import ServingEngine
+    """serve_time_record for TinyLlama's ring fp32 (B6) and paged int8
+    (B7) forms; SDPA must compute the kernels' function (atol 1e-4)."""
     out = {}
-    for name, q8, paged in (("ring-fp32", False, False),
-                            ("paged-int8", True, True)):
-        eng = ServingEngine(cfg, params, max_batch=8,
-                            cache_len=SERVE_CACHE_LEN, device=DEVICE,
-                            **SERVE_CONFIGS[name])
-        eng.generate_batch(serve_requests(np, cfg, SEED + 50, n=8, hi=50))
-        sched = eng.scheduler()
-        sched.metrics.reset()
-        stats = eng.generate_batch(serve_requests(np, cfg, SEED + 51))
-        ttft = sched.metrics.histogram("req.ttft_s").snapshot()
-        rec = {"phase": "serve_times", "card": card["nvidia_smi"],
-               "config": name, "requests": SERVE_REQUESTS,
-               "max_new": SERVE_MAX_NEW,
-               "decode_tokens_per_s": stats.tok_per_s,
-               "decode_s": stats.decode_s, "prefill_s": stats.prefill_s,
-               "tokens": stats.tokens_out, "ttft_s": ttft,
-               "roofline": {k: v for k, v in sched.roofline_stats().items()
-                            if k in ("bytes_per_token", "mbu", "mfu",
-                                     "roofline_tok_per_s")}}
-        # a steady window: 8 lanes live, none retiring
-        for r in serve_requests(np, cfg, SEED + 52, n=8):
-            sched.submit(r)
-        sched.tick()                                # admits all 8
-        rec["step_profile"] = _profile_ticks(torch, sched, 8)
-        rec["kernel"] = _time_decode_kernel(torch, cfg, sched, q8, paged)
-        sched.run()
-        run.check("serve_times", f"{name}: SDPA computes the kernel's "
-                  "function (atol 1e-4)",
-                  rec["kernel"]["library_vs_kernel_max_abs"] <= 1e-4,
-                  err=rec["kernel"]["library_vs_kernel_max_abs"])
+    for name in ("ring-fp32", "paged-int8"):
+        rec = serve_time_record(torch, np, cfg, params, name, card)
+        for shape, k in (("serve", rec["kernel"]),
+                         ("8 x 1000", rec["kernel"]["long"])):
+            run.check("serve_times", f"{name} at {shape}: SDPA computes the "
+                      "kernel's function (atol 1e-4)",
+                      k["library_vs_kernel_max_abs"] <= 1e-4,
+                      err=k["library_vs_kernel_max_abs"])
         emit(rec)
         out[name] = rec["kernel"]
     return out
@@ -3824,6 +4028,14 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms"),
+            "device_us": t.get("device_us"),
+            "library_device_us": t.get("library_device_us"),
+            "share_of_bound": t.get("share_of_bound"),
+            "rms_err_fp64": t.get("rms_err_fp64"),
+            "long": {k: t.get("long", {}).get(k) for k in (
+                "valid_len", "ms", "device_us", "bound_ms", "share_of_bound",
+                "library_ms", "library_device_us", "max_abs_err_fp64",
+                "rms_err_fp64")},
             "ms_per": "one launch (one layer of a decode step), TinyLlama, "
                       "batch 8, " + ("paged int8" if "paged" in name
                                      else "ring fp32")})

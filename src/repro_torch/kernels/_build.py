@@ -160,7 +160,15 @@ class CudaKernel:
 
     def launch(self, device_index: int, *args) -> None:
         fn = self._fn or self._bind()
-        err = fn(*args, self._stream(device_index))
+        self._done(fn(*args, self._stream(device_index)))
+
+    def launch_on(self, stream: int, *args) -> None:
+        """As :meth:`launch`, on a raw stream the caller has already read
+        (a wrapper that keys a workspace on the stream)."""
+        fn = self._fn or self._bind()
+        self._done(fn(*args, stream))
+
+    def _done(self, err: int) -> None:
         if err:
             msg = _library.dlk_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} failed to launch: {msg} ({err})")

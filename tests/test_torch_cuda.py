@@ -475,6 +475,185 @@ def test_decode_wrappers_refuse_what_the_kernels_do_not_take(dev):
                               layout="bksd")
 
 
+# The split-KV kernel: chunk edges, tickets, determinism, batch
+# independence, poisoned lanes and pages, layer views, narrow copies.
+
+DECODE_FORMS = [(paged, dtype) for paged in (False, True)
+                for dtype in (torch.float32, torch.bfloat16, torch.int8)]
+
+
+def _decode_inputs(dev, paged, dtype, valid, *, kvh=4, g=8, d=64, s=1024,
+                   ps=16, layout="bksd", seed=0):
+    """(wrapper args, plain args, kernel handle) for one call; a paged
+    table is a shuffled permutation of the pool's pages 1.. (page 0 the
+    garbage page in unused entries)."""
+    from repro_torch.kernels import decode_attention as da
+    b = len(valid)
+    outer = 1 + b * (s // ps) if paged else b
+    slots = ps if paged else s
+    shape = (outer, kvh, slots, d) if layout == "bksd" else (outer, slots, kvh, d)
+    q = randn(dev, b, kvh * g, d, seed=seed)
+    k, v = _cache(dev, shape, dtype, seed + 1), _cache(dev, shape, dtype, seed + 2)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    args = [q, k, v]
+    if dtype == torch.int8:
+        args += [_scales(dev, shape[:3], seed + 3), _scales(dev, shape[:3], seed + 4)]
+    if paged:
+        w = s // ps
+        pt = np.random.default_rng(seed).permutation(np.arange(1, outer))
+        pt = pt[:b * w].reshape(b, w).astype(np.int32)
+        for i, n in enumerate(valid):
+            pt[i, max(0, -(-n // ps)):] = 0
+        args.append(torch.from_numpy(pt).to(dev))
+    args.append(vl)
+    q8 = dtype == torch.int8
+    names = {(False, False): ("decode_attention", "RING"),
+             (False, True): ("decode_attention_q8", "RING_Q8"),
+             (True, False): ("decode_attention_paged", "PAGED"),
+             (True, True): ("decode_attention_paged_q8", "PAGED_Q8")}
+    name, handle = names[(paged, q8)]
+    wrapper = getattr(kops, name)
+    plain = getattr(ref, name + "_ref")
+
+    def run(chunk=None, *, a=args):
+        if chunk is None:
+            return wrapper(*a, layout=layout)
+        scales = tuple(a[3:5]) if q8 else None
+        table = a[-2] if paged else None
+        return da.launch(getattr(da, handle), *a[:3], a[-1], layout=layout,
+                         scales=scales, page_table=table, chunk=chunk)
+    return args, run, lambda a=args: plain(*a, layout=layout)
+
+
+@pytest.mark.parametrize("paged,dtype", DECODE_FORMS)
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+def test_decode_split_chunk_edges(dev, paged, dtype, chunk):
+    """Valid lengths on every edge of the chunk (1, C - 1, C, C + 1, 2C,
+    the capacity and past it) at each chunk the wrapper may take, against
+    the plain version; each launch runs twice, bit-equal (a counter left
+    non-zero by one launch would break the next)."""
+    cap = 1024
+    valid = [1, chunk - 1, chunk, chunk + 1, 2 * chunk, cap - 1, cap, cap + 7]
+    args, run, plain = _decode_inputs(dev, paged, dtype, valid)
+    want = plain([*args[:-1], args[-1].clamp(max=cap)])
+    first = run(chunk)
+    again = run(chunk)
+    close(first, want, **DECODE_TOL)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("paged,dtype", DECODE_FORMS)
+def test_decode_split_lane_alone_equals_lane_in_batch(dev, paged, dtype):
+    """A lane's output depends on its own K/V and valid_len alone: lane 5
+    of a batch of 8 equals the same lane run as a batch of one, bit for
+    bit (the chunk comes from the shapes, never from the batch)."""
+    valid = [37, 1000, 64, 5, 300, 777, 16, 129]
+    args, run, _ = _decode_inputs(dev, paged, dtype, valid)
+    batch = run()
+    i = 5
+    one = [args[0][i:i + 1]]
+    if paged:
+        one += args[1:-2] + [args[-2][i:i + 1], args[-1][i:i + 1]]
+    else:
+        one += [x[i:i + 1] for x in args[1:]]
+    alone = run(a=one)
+    torch.cuda.synchronize()
+    assert torch.equal(alone[0], batch[i])
+
+
+@pytest.mark.parametrize("paged,dtype", DECODE_FORMS)
+def test_decode_split_poisoned_lanes(dev, paged, dtype):
+    """valid_len 0 gives that lane NaN (and only that lane); on the paged
+    route a table entry outside the pool inside a lane's prefix does the
+    same, an entry past the prefix is never read."""
+    valid = [0, 300, 64, 1000]
+    args, run, plain = _decode_inputs(dev, paged, dtype, valid)
+    want = plain([*args[:-1], args[-1].clamp(min=1)])
+    if paged:
+        pt = args[-2]
+        pt[2, 1] = pt.new_tensor(10 ** 6)            # in lane 2's prefix
+        pt[3, -1] = pt.new_tensor(-5)                # past lane 3's prefix
+    got = run()
+    torch.cuda.synchronize()
+    bad = [0, 2] if paged else [0]
+    assert bool(torch.isnan(got[bad]).all())
+    good = [i for i in range(4) if i not in bad]
+    close(got[good], want[good], **DECODE_TOL)
+
+
+@pytest.mark.parametrize("paged,dtype", DECODE_FORMS)
+def test_decode_split_reads_nothing_past_the_prefix(dev, paged, dtype):
+    """NaN (int8: NaN scales) in every stored slot past each lane's
+    prefix, on both routes and in layer views of (L, ...) caches, leaves
+    the output unchanged and finite."""
+    valid = [1, 31, 32, 33, 500, 1000]
+    args, run, _ = _decode_inputs(dev, paged, dtype, valid)
+    # the same caches as the middle layer of a 3-layer stack
+    stacked = [torch.stack([torch.zeros_like(x), x, torch.zeros_like(x)])[1]
+               if i in (1, 2) or (dtype == torch.int8 and i in (3, 4)) else x
+               for i, x in enumerate(args)]
+    clean = run(a=stacked)
+    ps = 16
+    targets = [3, 4] if dtype == torch.int8 else [1, 2]
+    for t in targets:
+        buf = stacked[t]
+        if paged:
+            buf[0] = float("nan")                    # the garbage page
+        for i, n in enumerate(valid):
+            if paged:
+                j, lo = divmod(n, ps)
+                if lo:
+                    buf[int(stacked[-2][i, j]), :, lo:] = float("nan")
+            else:
+                buf[i, :, n:] = float("nan")
+    dirty = run(a=stacked)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dirty).all())
+    assert torch.equal(clean, dirty)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("kvh,g,d", [(4, 8, 64), (8, 2, 64), (8, 3, 64),
+                                     (2, 4, 32), (1, 16, 256), (1, 32, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_decode_split_every_head_shape(dev, paged, kvh, g, d, dtype):
+    """The serving families' heads (TinyLlama, Qwen3, Granite-MoE, the
+    reduced Granite, RecurrentGemma's 16/1 heads of 256) and the widest
+    group the wrapper takes, both layouts."""
+    for layout in ("bksd", "bskd"):
+        args, run, plain = _decode_inputs(
+            dev, paged, dtype, [1, 1024, 65, 700, 64, 129, 1000, 2],
+            kvh=kvh, g=g, d=d, layout=layout)
+        close(run(), plain(), **DECODE_TOL)
+
+
+@pytest.mark.parametrize("layout", ["bksd", "bskd"])
+def test_decode_split_narrow_copies_and_refusals(dev, layout):
+    """int8 rows of 40 bytes (head_dim 40) take 8-byte copies and match
+    the plain version; caches whose rows do not start on 4-byte
+    boundaries (an int8 view one byte and a bf16 view one element off
+    their allocation) are refused with ValueError."""
+    from repro_torch.kernels import decode_attention as da
+    args, run, plain = _decode_inputs(dev, False, torch.int8,
+                                      [1, 40, 300, 1000], kvh=2, g=4, d=40,
+                                      layout=layout)
+    close(run(), plain(), **DECODE_TOL)
+    k = args[1]
+    assert da.vector_bytes(1, 40, da._strides(k.stride(), layout),
+                           k.data_ptr()) == 8
+    q = randn(dev, 2, 8, 64)
+    for dtype in (torch.int8, torch.bfloat16):
+        flat = _cache(dev, (2 * 4 * 16 * 64 + 1,), dtype, 5)
+        kv = flat[1:].view(2, 4, 16, 64)
+        if dtype == torch.int8:
+            sc = _scales(dev, (2, 4, 16), 6)
+            with pytest.raises(ValueError, match="4-byte"):
+                kops.decode_attention_q8(q, kv, kv, sc, sc, 4, layout="bksd")
+        else:
+            with pytest.raises(ValueError, match="4-byte"):
+                kops.decode_attention(q, kv, kv, 4, layout="bksd")
+
+
 # ---------------------------------------------------------------------------
 # B8 / B9: full-sequence flash attention and its backward against the plain
 # versions.  fp32: rtol 1e-4 / atol 1e-5 on outputs and lse, 1e-3 / 1e-4 on

@@ -21,6 +21,7 @@ from repro.kernels import ref as jref
 from repro.models import common as jcm
 from repro_torch.core.ops import REGISTRY, resolve_decode_backend
 from repro_torch.core.quantize import dequantize_block, quantize_into
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import common as tcm
@@ -155,6 +156,205 @@ def test_wrappers_raise_off_the_cpu():
                                                         layout="bksd")):
         with pytest.raises(ValueError, match="CUDA device"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# the split-KV kernel's plan and arithmetic (the kernel runs on the card;
+# its chunking, tickets and merge order are held here)
+# ---------------------------------------------------------------------------
+
+SPLIT_TOL = dict(rtol=1e-4, atol=1e-5)     # chip_smoke.py's DECODE_TOL
+
+
+def _ring_plan_edges(p):
+    return [1, p.chunk - 1, p.chunk, p.chunk + 1, p.capacity,
+            p.capacity + 9]
+
+
+def test_plan_splits_the_ring_by_a_fixed_chunk():
+    """TinyLlama's serving ring (8 lanes, 4 KV heads of 8 query heads of
+    64, 1024 slots): n_split = capacity / chunk whatever the batch, the
+    workspace holds the counters and each split's acc and (m, l)."""
+    p = da.plan(8, 4, 8, 64, 4, slots=1024)
+    assert p.chunk == da.CHUNK and p.capacity == 1024
+    assert p.n_split == -(-1024 // da.CHUNK)
+    assert p.ws_words == 32 + 8 * 4 * p.n_split * 8 * (64 + 2)
+    assert p.smem == da.smem_bytes(8, 64, p.chunk, 4, False) <= da.SMEM_BUDGET
+    assert da.plan(1, 4, 8, 64, 4, slots=1024)[:4] == p[:4]   # batch-free
+    assert da.plan(8, 4, 8, 64, 4, slots=1000, chunk=64).n_split == 16
+    with pytest.raises(ValueError, match="chunk"):
+        da.plan(8, 4, 8, 64, 4, slots=1024, chunk=da.MAX_CHUNK + 1)
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+def test_plan_tickets_at_the_chunk_edges(chunk):
+    """Splits that work and tickets taken for valid_len at 0, 1, chunk-1,
+    chunk, chunk+1, the capacity and past it: one split writes its output
+    and takes no ticket; two or more take one each."""
+    p = da.plan(8, 4, 8, 64, 4, slots=1024, chunk=chunk)
+    want = {0: (0, 0), 1: (1, 0), chunk - 1: (1, 0), chunk: (1, 0),
+            chunk + 1: (2, 2), 1024: (1024 // chunk, 1024 // chunk),
+            5000: (1024 // chunk, 1024 // chunk)}
+    for valid, (used, tickets) in want.items():
+        assert da.splits_used(p, valid) == used, valid
+        assert da.tickets(p, valid) == tickets, valid
+
+
+@pytest.mark.parametrize("ps,chunk,want", [(16, 32, 32), (16, 64, 64),
+                                           (16, 40, 32), (24, 64, 48),
+                                           (8, 32, 32), (48, 32, 24),
+                                           (64, 32, 32), (37, 32, 1)])
+def test_plan_paged_chunk_is_whole_pages(ps, chunk, want):
+    """Paged: the chunk is a multiple of the page size, or for pages longer
+    than the chunk the largest divisor of ps under it, so a CTA reads each
+    of its pages' ids once; the capacity is W * ps."""
+    p = da.plan(8, 4, 8, 64, 1, slots=ps, page_size=ps, width=10,
+                scaled=True, chunk=chunk)
+    assert p.chunk == want
+    assert p.chunk % ps == 0 or ps % p.chunk == 0
+    assert p.capacity == 10 * ps and p.n_split == -(-10 * ps // want)
+    assert da.tickets(p, 10 * ps) == (p.n_split if p.n_split > 1 else 0)
+
+
+def test_plan_fits_the_widest_heads_in_shared_memory():
+    """RecurrentGemma's 16 query heads of 256 on one KV head and the widest
+    group the wrapper takes (32): the chunk halves until two CTAs fit an
+    SM; int8 rows take a quarter of fp32's."""
+    for g in (16, 32):
+        for elem in (4, 2, 1):
+            p = da.plan(8, 1, g, 256, elem, slots=2048)
+            assert p.smem <= da.SMEM_BUDGET and p.chunk >= 16
+    assert da.plan(1, 1, 32, 256, 4, slots=2048).chunk == min(da.CHUNK, 32)
+
+
+def test_vector_bytes_from_pointers_and_strides():
+    """16-byte copies where every row start allows, 8 or 4 otherwise, 0
+    (refused) below 4 bytes."""
+    assert da.vector_bytes(4, 64, (262144, 65536, 64), 0x7f0000000000) == 16
+    assert da.vector_bytes(2, 64, (262144, 65536, 64), 0x7f0000000008) == 8
+    assert da.vector_bytes(1, 40, (81920, 40960, 40), 0x7f0000000000) == 8
+    assert da.vector_bytes(1, 64, (4096, 1024, 64), 0x7f0000000004) == 4
+    assert da.vector_bytes(1, 64, (4096, 1024, 64), 0x7f0000000001) == 0
+    assert da.vector_bytes(2, 64, (4096, 1024, 64), 0x7f0000000002) == 0
+
+
+def split_kv_emulation(q, k, v, valid, *, chunk, layout, scales=None,
+                       page_table=None):
+    """The kernel's arithmetic in plain torch fp32, in its order: per chunk
+    of ``chunk`` slots of a lane's prefix, scores q.k x (1/sqrt(D)), times
+    k_scale; m = max, p = e^(s - m), l = sum p, then p x v_scale; acc = p.V.
+    One chunk writes acc / max(l, 1e-30); several merge in split order:
+    m = max m_i, l = sum l_i e^(m_i - m), acc likewise."""
+    if page_table is not None:
+        k = tref.paged_gather(k, page_table, layout=layout)
+        v = tref.paged_gather(v, page_table, layout=layout)
+        if scales is not None:
+            scales = tuple(tref.paged_gather(x, page_table, layout=layout)
+                           for x in scales)
+    if layout == "bskd":
+        k, v = k.transpose(1, 2), v.transpose(1, 2)          # (B, KV, S, D)
+        if scales is not None:
+            scales = tuple(x.transpose(1, 2) for x in scales)
+    b, h, d = q.shape
+    kvh, cap = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, kvh, h // kvh, d)
+    scale = torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32)
+    out = torch.empty(b, kvh, h // kvh, d)
+    for lane in range(b):
+        n = min(int(valid[lane]), cap)
+        parts = []
+        for t0 in range(0, n, chunk):
+            sl = slice(t0, min(t0 + chunk, n))
+            s = torch.einsum("kgd,ksd->kgs", qg[lane],
+                             k[lane, :, sl].float()) * scale
+            if scales is not None:
+                s = s * scales[0][lane, :, None, sl]
+            m = s.amax(-1, keepdim=True)
+            p = torch.exp(s - m)
+            l = p.sum(-1, keepdim=True)
+            if scales is not None:
+                p = p * scales[1][lane, :, None, sl]
+            parts.append((m, l, torch.einsum("kgs,ksd->kgd", p,
+                                             v[lane, :, sl].float())))
+        m = torch.stack([x[0] for x in parts]).amax(0)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(parts[0][2])
+        for mi, li, ai in parts:                       # in split order
+            f = torch.exp(mi - m)
+            l = l + li * f
+            acc = acc + ai * f
+        out[lane] = acc / torch.clamp_min(l, 1e-30)
+    return out.reshape(b, h, d)
+
+
+@pytest.mark.parametrize("layout", ["bskd", "bksd"])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_split_kv_merge_matches_pallas_ring(layout, quantized, chunk):
+    """The emulated split-KV kernel against JAX's Pallas decode_attention
+    (interpret mode) on a 96-slot ring, valid lengths on the chunk's edges
+    and at the capacity; and against the port's plain version with
+    valid_len past the capacity (clamped)."""
+    b, h, kvh, d, s = 6, 8, 2, 32, 96
+    p = da.plan(b, kvh, h // kvh, d, 1 if quantized else 4, slots=s,
+                scaled=quantized, chunk=chunk)
+    valid = np.array(_ring_plan_edges(p)[:5] + [2 * p.chunk], np.int32)
+    ins = _inputs(layout, quantized, b=b, h=h, kvh=kvh, d=d, s=s, seed=7)
+    q, k, v = ins[:3]
+    sc = tuple(t(x) for x in ins[3:]) if quantized else None
+    got = split_kv_emulation(t(q), t(k), t(v), valid, chunk=p.chunk,
+                             layout=layout, scales=sc)
+    if quantized:
+        want = jops.decode_attention_q8(j(q), j(k), j(v), j(ins[3]),
+                                        j(ins[4]), j(valid), layout=layout,
+                                        block_s=16)
+    else:
+        want = jops.decode_attention(j(q), j(k), j(v), j(valid),
+                                     layout=layout, block_s=16)
+    assert_close(got, want, **SPLIT_TOL)
+    past = np.array(_ring_plan_edges(p)[4:] * 3, np.int32)
+    got = split_kv_emulation(t(q), t(k), t(v), past, chunk=p.chunk,
+                             layout=layout, scales=sc)
+    plain = tops.decode_attention_q8 if quantized else tops.decode_attention
+    args = (t(q), t(k), t(v)) + (sc or ()) + (t(past),)
+    assert_close(got, plain(*args, layout=layout), **SPLIT_TOL)
+
+
+@pytest.mark.parametrize("layout", ["bskd", "bksd"])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_split_kv_merge_matches_pallas_paged(layout, quantized):
+    """The emulated split-KV kernel against JAX's Pallas
+    decode_attention_paged (interpret mode): pages of 16 shuffled across
+    the pool, chunks of two pages, valid lengths on chunk and page edges
+    and at the capacity."""
+    rng = np.random.default_rng(8)
+    b, h, kvh, d, ps, w = 5, 8, 2, 32, 16, 6
+    pool = 1 + b * w
+    p = da.plan(b, kvh, h // kvh, d, 1 if quantized else 4, slots=ps,
+                page_size=ps, width=w, scaled=quantized)
+    assert p.chunk % ps == 0
+    valid = np.array([1, p.chunk, p.chunk + 1, p.chunk + ps + 3, w * ps],
+                     np.int32)
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    shape = (pool, ps, kvh, d) if layout == "bskd" else (pool, kvh, ps, d)
+    pt = rng.permutation(np.arange(1, pool)).reshape(b, w).astype(np.int32)
+    if quantized:
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        v = rng.integers(-127, 128, shape).astype(np.int8)
+        ks = rng.uniform(0.01, 0.05, shape[:3]).astype(np.float32)
+        vs = rng.uniform(0.01, 0.05, shape[:3]).astype(np.float32)
+        want = jops.decode_attention_paged_q8(j(q), j(k), j(v), j(ks), j(vs),
+                                              j(pt), j(valid), layout=layout)
+        sc = (t(ks), t(vs))
+    else:
+        k = rng.standard_normal(shape).astype(np.float32)
+        v = rng.standard_normal(shape).astype(np.float32)
+        want = jops.decode_attention_paged(j(q), j(k), j(v), j(pt), j(valid),
+                                           layout=layout)
+        sc = None
+    got = split_kv_emulation(t(q), t(k), t(v), valid, chunk=p.chunk,
+                             layout=layout, scales=sc, page_table=t(pt))
+    assert_close(got, want, **SPLIT_TOL)
 
 
 def test_backend_names_resolve_like_jax():
