@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Host cost of the PyTorch/CUDA port's kernel launches and of a NIN
-request, the redesigned B1, B3, B4, B8 and B9 beside their library
-calls, and the TinyLlama train step, for one tree of the port, on one
-CUDA card.
+request, the redesigned B1, B3, B4, B8, B9, B10 and B11 beside their
+library calls, and the TinyLlama train step, for one tree of the port, on
+one CUDA card.
 
     python3 benchmarks/torch_host_path.py [--src DIR] [--tag NAME]
                                           [--phases host_path,b3b4,...]
@@ -42,7 +42,15 @@ built as its own ``_build`` builds them.  The measurements are
          kernels at chunks of 32, 64 and 128 slots on 22
          synthetic layers at DECODE_SERVE_VALID and at 8 x 1000
 
-``--phases`` runs the named phases only (default: all six).  Prints
+  b10b11 B10 at 1 x 300 and 8 x 2048 x 40 x 64 (events ms, device µs,
+         distance from the fp64 plain version; on a two-pass tree also
+         every scan column block, device µs by pass) and B11 at the
+         Granite int8 artifact's four shapes (beside torch._int_mm), their
+         wrappers' host µs, and one 300-token RWKV-6 3B prefill's device
+         ms with B10's part (``rwkv_prefill_profile``; full width and
+         depth, weights from ``numpy_weights_chunked``)
+
+``--phases`` runs the named phases only (default: all seven).  Prints
 JSON lines, the card's name and power limit in each; exits 2 without a
 CUDA card.
 """
@@ -54,7 +62,9 @@ import sys
 import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PHASES = ("host_path", "b3b4", "b1", "b9", "train", "decode")
+PHASES = ("host_path", "b3b4", "b1", "b9", "train", "decode", "b10b11")
+B11_SHAPES = ((8, 1536, 1536), (300, 1536, 1536), (2048, 1536, 512),
+              (2048, 512, 1536))   # (M, K, N) of the Granite int8 artifact's
 # a decode step's 8 lanes of 5 to 300 slots (prompts of 5-300 plus new
 # tokens), for the chunk sweep
 DECODE_SERVE_VALID = (37, 300, 100, 5, 180, 120, 16, 250)
@@ -139,6 +149,74 @@ def decode_chunks(torch, cs, head):
                              n=2 * n)[0],
                          "max_abs_vs_plain": float(
                              (call(cases[0]) - want).abs().max())})
+
+
+def b10b11(torch, np, cs, head):
+    """B10 and B11 through their public wrappers, so any tree of the port
+    runs them: B10 at cs.WKV_TIMES (events ms, device µs, the out's
+    distance from the fp64 plain version, also with w = 0 entries at
+    1 x 300), B11 at B11_SHAPES (events ms, device µs, bit-equal to the
+    plain version, torch._int_mm + epilogue beside it), both wrappers'
+    host µs a launch, and one 300-token prefill of RWKV-6 3B at full width
+    and depth (device ms, B10's part)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 81)
+    for (b, t, h, n), w_zero in [(s_, False) for s_ in cs.WKV_TIMES] + [
+            (cs.WKV_TIMES[0], True)]:
+        x = cs.wkv_inputs(torch, gen, b, t, h, n, w_zero)
+        want = ref.rwkv6_chunked_ref(*(y.double() for y in x))[0]
+        got = kops.rwkv6_chunked(*x)[0].double() - want
+        plain = ref.rwkv6_chunked_ref(*x)[0].double() - want
+        del want
+        rec = {"phase": "b10b11", **head, "kernel": "rwkv6_chunked",
+               "shape": [b, t, h, n], "w_zero": w_zero,
+               "fp64_max_abs": float(got.abs().max()),
+               "fp64_rms": float(got.pow(2).mean().sqrt()),
+               "plain_fp64_max_abs": float(plain.abs().max()),
+               "plain_fp64_rms": float(plain.pow(2).mean().sqrt())}
+        del got, plain
+        if not w_zero:
+            rec["ms"] = cs.time_ms(torch, lambda: kops.rwkv6_chunked(*x))
+            rec["device_us"] = cs.device_us(
+                torch, lambda: kops.rwkv6_chunked(*x))[0]
+        cs.emit(rec)
+        del x
+    g = torch.Generator().manual_seed(cs.SEED + 112)
+    for m, k, n in B11_SHAPES:
+        a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+        sa, sb = torch.rand(m, generator=g) + 0.01, torch.rand(n, generator=g)
+        a, b, sa, sb = (y.cuda() for y in (a, b, sa, sb))
+        a_lib = a if m > 16 else torch.cat([a, a.new_zeros(32 - m, k)])
+        cs.emit({"phase": "b10b11", **head, "kernel": "int8_matmul",
+                 "shape": [m, k, n],
+                 "bit_equal": torch.equal(kops.int8_matmul(a, b, sa, sb),
+                                          ref.int8_matmul_ref(a, b, sa, sb)),
+                 "ms": cs.time_ms(torch, lambda: kops.int8_matmul(a, b, sa, sb)),
+                 "device_us": cs.device_us(
+                     torch, lambda: kops.int8_matmul(a, b, sa, sb))[0],
+                 "library_ms": cs.time_ms(torch, lambda: cs._int8_library(
+                     torch, a_lib, b, sa, sb)),
+                 "library_device_us": cs.device_us(
+                     torch, lambda: cs._int8_library(torch, a_lib, b, sa,
+                                                     sb))[0]})
+    for row in [r for r in cs.launch_path_cases(torch)
+                if r[0] in ("rwkv6_chunked", "int8_matmul")]:
+        cs.emit({"phase": "b10b11", **head, "wrapper": row[0],
+                 "shape": row[1], "calls": cs.LAUNCH_CALLS,
+                 "host_us": cs.host_us(torch, row[2])})
+    cfg = get_config(cs.RWKV_ARCH)
+    params = params_from_numpy(cs.numpy_weights_chunked(np, cfg, cs.SEED + 3),
+                               "cuda", cfg=cfg)
+    prompt = torch.from_numpy(np.random.default_rng(cs.SEED + 95).integers(
+        1, cfg.vocab_size, (1, cs.PREFILL_SEQ))).cuda()
+    cs.emit({"phase": "b10b11", **head, "rwkv6_prefill":
+             cs.rwkv_prefill_profile(torch, cfg, params, prompt)})
+    del params
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -228,6 +306,8 @@ def main(argv=None) -> int:
                      "phase": "decode", **head})
         del params
         torch.cuda.empty_cache()
+    if "b10b11" in phases:
+        b10b11(torch, np, cs, head)
     if "train" in phases:
         torch.cuda.empty_cache()
         tiny_np = cs.numpy_weights(np, get_config("tinyllama-1.1b"), cs.SEED)

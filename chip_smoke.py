@@ -95,9 +95,13 @@ its seconds:
   slice 4, RWKV-6 serving and the meta-selector:
   wkv_kernels     B10 against its plain version evaluated in fp64: B 1, 4,
                   8, T 1 to 2048, heads 40 x 64 and 8 x 32, decays in
-                  (0, 1) and w = 0; nothing written past T
-  wkv_times       B10 per launch at 1 x 300 and 8 x 2048 (40 x 64) against
-                  its bound and its plain version (no library call)
+                  (0, 1) and w = 0; nothing written past T; the kernel's
+                  and the fp32 plain version's max and rms error beside
+                  each other; every column block, a rerun, a lone lane
+                  and unaligned inputs bit-equal at T 15 to 33 and 300
+  wkv_times       B10 per launch at 1 x 300 and 8 x 2048 (40 x 64): events,
+                  device µs of both passes and of each, CTAs, against its
+                  bound and its plain version (no library call)
   serve_rwkv6     RWKV-6 Finch 3B at full width through ServingEngine,
                   batch 8, on the kernels and on ``ref``: tokens, B10 32 x
                   full prefills, 8 ticks under sync debug mode "error",
@@ -105,7 +109,8 @@ its seconds:
                   each layer's prefill output and state within 1e-4 on
                   the same input (end to end reported beside the model's
                   sensitivity to a 1e-7 input change); decode tokens/s,
-                  TTFT, a decode step's device time by part
+                  TTFT, a decode step's device time by part, and one
+                  300-token prefill's device ms with B10's part
   selector        TinyLlama-1.1B, Qwen3-0.6B and RWKV-6 3B (int8 artifact),
                   full width, cut to 8 layers, behind
                   MultiModelServer(max_resident=3) and the
@@ -127,8 +132,11 @@ its seconds:
                   shapes, all-127 int32 sums, ragged shapes, and the
                   artifact's QTensors (layer 0's wq, expert 0's we_gate and
                   we_down) against per-row int8 hidden states at M 8, 300,
-                  2048, launches counted; per launch at four of those shapes
-                  against the bound, the plain version and torch._int_mm
+                  2048, launches counted; byte-load routes (K, N off 16,
+                  bases off 16 bytes), M 8 split over K and not, all-127
+                  at K 133,144, reruns, the split workspace left at 0; per
+                  launch at four of those shapes against the bound, the
+                  plain version and torch._int_mm
   (cli also runs ``launch.serve`` and ``launch.train`` with ``--model`` /
   ``--arch`` rwkv6-3b and granite-moe-3b-a800m against ``ref``, and
   ``launch.serve`` with llama3-8b, qwen3-8b and chameleon-34b)
@@ -3000,8 +3008,9 @@ def phase_wkv_kernels(run, torch):
     reduced config's (8 of 32), decays in (0, 1), and at B 4 also with
     w = 0 entries.  ``out`` is the head of a NaN-filled buffer and the
     state NaN-filled: every row < T and every state entry must be
-    written, nothing past them.  The fp32 plain version's own distance
-    from the fp64 one is reported beside the kernel's."""
+    written, nothing past them.  The kernel's and the fp32 plain
+    version's distance from the fp64 one are reported side by side (max
+    and rms over every out element).  Then wkv_bit_checks."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_chunk as rw
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 80)
@@ -3009,6 +3018,7 @@ def phase_wkv_kernels(run, torch):
     s = {"checks": 0, "failed": 0, "max_abs_err": 0.0,
          "fp32_plain_max_abs_err": 0.0, "rtol": rtol, "atol": atol,
          "reference": "the plain version (wkv_chunked) in fp64"}
+    sq = {"kernel": [0.0, 0], "fp32_plain": [0.0, 0]}
     for h, n in WKV_HEADS:
         for b in WKV_BATCHES:
             for t in WKV_SEQS:
@@ -3031,6 +3041,11 @@ def phase_wkv_kernels(run, torch):
                         s["fp32_plain_max_abs_err"] = max(
                             s["fp32_plain_max_abs_err"],
                             float((w32.double() - w64).abs().max()))
+                        if what == "out":
+                            for key, y in (("kernel", got), ("fp32_plain", w32)):
+                                sq[key][0] += float(
+                                    (y.double() - w64).pow(2).sum())
+                                sq[key][1] += y.numel()
                         if not run.check("wkv_kernels", f"{case} {what} "
                                          f"(rtol {rtol}, atol {atol})",
                                          bad == 0, max_abs_err=err,
@@ -3042,17 +3057,50 @@ def phase_wkv_kernels(run, torch):
                                      bool(torch.isnan(buf[size:]).all())):
                         s["failed"] += 1
                     del x, buf, out, state, want, plain
+    s["rms_err_fp64"] = {k: math.sqrt(v[0] / v[1]) for k, v in sq.items()}
+    s["bit_checks"] = wkv_bit_checks(run, torch, gen)
     run.max_err["rwkv6_chunked"] = s["max_abs_err"]
     emit({"phase": "wkv_kernels", "result": s})
 
 
+def wkv_bit_checks(run, torch, gen):
+    """B10's arithmetic does not depend on the batch or the alignment: at
+    T at and around the chunk edges a rerun is bit-equal, a lane run
+    alone equals the same lane in a batch of 3, and inputs that do not
+    start on 16 bytes (the plain-load path) give the same bits."""
+    from repro_torch.kernels import ops as kops
+    checks = 0
+    for h, n in WKV_HEADS:
+        for t in (15, 16, 17, 33, 300):
+            x = wkv_inputs(torch, gen, 3, t, h, n, w_zero=t % 2 == 1)
+            o, st = kops.rwkv6_chunked(*x)
+            o2, st2 = kops.rwkv6_chunked(*x)
+            lone = kops.rwkv6_chunked(*(y[1:2] for y in x[:4]), x[4])
+            shifted = [torch.cat([y.new_zeros(1), y.flatten()])[1:].view(
+                y.shape) for y in x[:4]]
+            odd = kops.rwkv6_chunked(*shifted, x[4])
+            cases = {"rerun": (o2, st2), "unaligned inputs": odd}
+            torch.cuda.synchronize()
+            for what, (go, gs) in cases.items():
+                checks += 1
+                run.check("wkv_kernels", f"T={t} N={n}: {what} bit-equal",
+                          torch.equal(go, o) and torch.equal(gs, st))
+            checks += 1
+            run.check("wkv_kernels", f"T={t} N={n}: a lane alone equals the "
+                      "lane in a batch of 3", torch.equal(lone[0], o[1:2])
+                      and torch.equal(lone[1], st[1:2]))
+    return checks
+
+
 def phase_wkv_times(run, torch, card):
-    """B10 per launch (CUDA events, median of 7 x 20) at the serving
-    prefill's shape and at 8 x 2048, against its bound and its plain
-    version.  No single PyTorch call computes the WKV recurrence, so
-    there is no library time."""
+    """B10 per launch (CUDA events, median of 7 x 20; device µs of both
+    passes and of each under torch.profiler) at the serving prefill's
+    shape and at 8 x 2048, against its bound and its plain version.  No
+    single PyTorch call computes the WKV recurrence, so there is no
+    library time."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_chunk as rw
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 81)
     out = {}
     for b, t, h, n in WKV_TIMES:
@@ -3060,18 +3108,45 @@ def phase_wkv_times(run, torch, card):
         ms = time_ms(torch, lambda: kops.rwkv6_chunked(*x))
         plain_ms = time_ms(torch, lambda: ref.rwkv6_chunked_ref(*x), iters=2,
                            reps=3)
+        parts = device_us_by(torch, lambda: kops.rwkv6_chunked(*x),
+                             ("wkv_prepare", "wkv_scan", ""))
+        us = parts and parts.pop("")
+        p = rw.plan(b, t, h, n)
         b_s = wkv_bytes(b, t, h, n) / PEAK_HBM_BYTES
         o_s = wkv_flops(b, t, h, n) / PEAK_FP32_FLOPS
         rec = {"shape": [b, t, h, n], "ms": ms, "plain_ms": plain_ms,
+               "device_us": us, "device_us_by_pass": parts, "mb": p.mb,
+               "ctas": {"prepare": p.prep_grid[0] * h * b,
+                        "scan": p.grid[0] * h * b},
+               "workspace_bytes": p.workspace,
                "bytes": wkv_bytes(b, t, h, n), "flops": wkv_flops(b, t, h, n),
                "bound_ms": 1e3 * max(b_s, o_s),
                "bound_by": "bytes" if b_s >= o_s else "operations",
-               "library_ms": None, "ctas": b * h}
+               "library_ms": None}
         rec["ms_over_bound"] = ms / rec["bound_ms"]
+        rec["share_of_bound"] = us and rec["bound_ms"] * 1e3 / us
         out[f"{b}x{t}x{h}x{n}"] = rec
         del x
     emit({"phase": "wkv_times", "card": card["nvidia_smi"], "times": out})
     return out
+
+
+def rwkv_prefill_profile(torch, cfg, params, toks):
+    """One prompt's full prefill (``rwkv6.prefill`` on the kernels, under
+    inference mode): device ms by part, B10 (kernels named ``wkv_``)
+    beside the rest, traced as :func:`device_us` traces (a warm call
+    first, then the counted one)."""
+    from repro_torch.models import rwkv6 as rw6
+
+    def call():
+        with torch.inference_mode():
+            rw6.prefill(cfg, params, toks, SERVE_CACHE_LEN)
+    parts = device_us_by(torch, call, ("wkv_", ""), n=2, warm=1)
+    if parts is None:
+        return None
+    return {"prompt": int(toks.shape[1]), "layers": cfg.num_layers,
+            "device_ms": parts[""] / 1e3, "b10_ms": parts["wkv_"] / 1e3,
+            "other_ms": (parts[""] - parts["wkv_"]) / 1e3}
 
 
 def _kernel_time_by_part(prof, ticks, wall_us):
@@ -3333,12 +3408,15 @@ def phase_serve_rwkv6(run, torch, np, card):
     sched.tick()                                     # admits all 8
     profile = _profile_rwkv_ticks(torch, sched, 3)
     sched.run()
+    prompt = torch.from_numpy(np.random.default_rng(SEED + 95).integers(
+        1, cfg.vocab_size, (1, PREFILL_SEQ))).to(DEVICE)
+    prefill = rwkv_prefill_profile(torch, cfg, params, prompt)
     emit({"phase": "serve_rwkv6", "card": card["nvidia_smi"], "warm": True,
           "requests": SERVE_REQUESTS, "max_new": SERVE_MAX_NEW,
           "decode_tokens_per_s": stats.tok_per_s, "decode_s": stats.decode_s,
           "prefill_s": stats.prefill_s, "ref_prefill_s": recs["ref"]["prefill_s"],
           "cuda_prefill_s": recs["cuda"]["prefill_s"], "ttft_s": ttft,
-          "step_profile": profile})
+          "step_profile": profile, "prefill_profile": prefill})
     return params, {"rwkv6_chunked": counts["rwkv6_chunked"]}
 
 
@@ -3808,6 +3886,26 @@ def device_us(torch, fn, n=20, warm=20, tries=3):
     events, each matched to its device events by correlation id.  A
     trace in which some launch has no device event is taken again, up to
     ``tries`` times; a missing launch is never estimated."""
+    us, kernels = _device_kernels(torch, fn, n, warm, tries)
+    if us is None:
+        return None, []
+    return us, sorted({e.name[:60] for e in kernels})
+
+
+def device_us_by(torch, fn, keys, n=20, warm=20, tries=3):
+    """Device µs per call of ``fn`` split by kernel: for each key, the
+    kernels whose name contains it (as :func:`device_us` counts them);
+    None when a launch's device event is missing."""
+    us, kernels = _device_kernels(torch, fn, n, warm, tries)
+    if us is None:
+        return None
+    return {key: sum(e.time_range.elapsed_us() for e in kernels
+                     if key in e.name) / n for key in keys}
+
+
+def _device_kernels(torch, fn, n, warm, tries):
+    """(device µs per call, the device events of the counted launches),
+    or (None, []): the trace of :func:`device_us`."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from torch.profiler import schedule
     fn()
@@ -3837,7 +3935,7 @@ def device_us(torch, fn, n=20, warm=20, tries=3):
         if launched and all(e.id in by_id for e in launched):
             kernels = [d for e in runtime for d in by_id.get(e.id, [])]
             us = sum(e.time_range.elapsed_us() for e in kernels)
-            return us / n, sorted({e.name[:60] for e in kernels})
+            return us / n, kernels
     return None, []
 
 
@@ -3864,6 +3962,8 @@ def phase_int8_kernels(run, torch, np, store_root, card):
     from repro_torch.configs.base import ArchConfig
     from repro_torch.core.modelstore import ModelStore
     from repro_torch.core.quantize import quantize
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import int8_matmul as i8
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
     from repro_torch.models import common as cm
@@ -3895,6 +3995,7 @@ def phase_int8_kernels(run, torch, np, store_root, card):
                        "max_abs_err": err})
         run.check("int8_kernels", f"B11 M={m} K={k} N={n} bit-equal to the "
                   "plain version", ok, max_abs_err=err)
+    extra = int8_extra_checks(run, torch, gen)
     # the main path's operands: the store's int8 artifact
     rec = ModelStore(store_root).get(MOE_ARCH)
     cfg = ArchConfig(**rec.load_spec()["arch"])
@@ -3970,11 +4071,72 @@ def phase_int8_kernels(run, torch, np, store_root, card):
                 torch, a_lib, b, sa, sb))[0],
             "library_vs_kernel_max_abs": lib_err,
             "bound_ms": 1e3 * max(b_s, o_s),
-            "bound_by": "bytes" if b_s >= o_s else "operations"}
+            "bound_by": "bytes" if b_s >= o_s else "operations",
+            "plan": i8.plan(a.shape[0], b.shape[1], a.shape[1],
+                            _build.sm_count(0))._asdict(),
+            "vector_route": i8.vector_route(a, b)}
+        t = times[f"{m}x{a.shape[1]}x{b.shape[1]}"]
+        t["share_of_bound"] = t["device_us"][0] and \
+            t["bound_ms"] * 1e3 / t["device_us"][0]
     emit({"phase": "int8_kernels", "card": card["nvidia_smi"],
-          "synthetic": checks, "artifact": real, "launches": launches,
-          "times": times})
+          "synthetic": checks, "extra_checks": extra, "artifact": real,
+          "launches": launches, "times": times})
     return {"launches": launches, "times": times}
+
+
+def int8_extra_checks(run, torch, gen):
+    """B11's routes, each bit-equal to the plain version: byte loads where
+    K or N is not a multiple of 16 or a base is not 16-byte aligned (A,
+    B and both), M 8 split over K, all-127 operands at K 133,144 (the
+    largest K whose int32 sum is exact) through the plan's split, and a
+    rerun; the split workspace is left at 0."""
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels import ref
+    dev = torch.device(DEVICE)
+    checks = []
+
+    def operands(m, k, n, shift_a=0, shift_b=0):
+        a = torch.randint(-127, 128, (m * k + shift_a,), generator=gen,
+                          dtype=torch.int8).to(dev)[shift_a:].view(m, k)
+        b = torch.randint(-127, 128, (k * n + shift_b,), generator=gen,
+                          dtype=torch.int8).to(dev)[shift_b:].view(k, n)
+        sa = (torch.rand(m, generator=gen) + 0.01).to(dev)
+        sb = (torch.rand(n, generator=gen) + 0.01).to(dev)
+        return [a, b, sa, sb]
+
+    def check(what, got, want, **info):
+        ok = torch.equal(got, want)
+        checks.append({"check": what, "bit_equal": ok, **info})
+        run.check("int8_kernels", f"B11 {what}: bit-equal", ok, **info)
+    for m, k, n, sa_, sb_ in ((37, 130, 75, 0, 0), (64, 512, 256, 1, 0),
+                              (64, 512, 256, 0, 3), (300, 1536, 1536, 5, 7)):
+        args = operands(m, k, n, sa_, sb_)
+        route = i8.vector_route(args[0], args[1])
+        check(f"M={m} K={k} N={n}, bases +{sa_}/+{sb_} (vec {route})",
+              i8.launch(*args), ref.int8_matmul_ref(*args), route=route)
+    args = operands(8, 1536, 1536)
+    split = i8.launch(*args)
+    check("M=8 K=1536 N=1536 split over K "
+          f"({i8.plan(8, 1536, 1536, 132).splits} ways on 132 SMs)", split,
+          ref.int8_matmul_ref(*args))
+    check("M=8 rerun", i8.launch(*args), split)
+    for n in (24, 32):
+        k = 133_144
+        a = torch.full((5, k), 127, dtype=torch.int8, device=dev)
+        a[2] = -127
+        b = torch.full((k, n), 127, dtype=torch.int8, device=dev)
+        ones = torch.ones(5, device=dev), torch.ones(n, device=dev)
+        want = torch.full((5, n), float(127 * 127 * k), device=dev)
+        want[2] = -want[2]
+        check(f"all-127 at K={k} N={n}, "
+              f"{i8.plan(5, n, k, 132).splits} splits on 132 SMs",
+              i8.launch(a, b, *ones), want)
+    torch.cuda.synchronize()
+    left = [bool((w == 0).all()) for ws in i8._workspaces.values()
+            for w in ws]
+    run.check("int8_kernels", "B11 split workspaces left at 0", all(left),
+              tensors=len(left))
+    return checks
 
 
 def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
@@ -4072,8 +4234,13 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
         "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
         "library_ms": None,
         "library_call": "none: no single PyTorch call computes the WKV",
-        "ms_per": "one launch (one layer), RWKV-6 3B prefill, 1 x 300 x 40 "
-                  "x 64, fp32"})
+        **{k: t.get(k) for k in ("device_us", "device_us_by_pass",
+                                 "share_of_bound", "ctas", "mb")},
+        "long": {k: (wkv or {}).get("8x2048x40x64", {}).get(k) for k in (
+            "ms", "device_us", "device_us_by_pass", "bound_ms",
+            "share_of_bound", "ctas")},
+        "ms_per": "one launch (one layer; both passes), RWKV-6 3B prefill, "
+                  "1 x 300 x 40 x 64, fp32"})
     times = (int8 or {}).get("times", {})
     t = next((v for v in times.values() if v["headline"]), {})
     rows.append({
@@ -4087,6 +4254,9 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
         "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
         "library_ms": t.get("library_ms"),
         "library_call": "torch._int_mm (cuBLASLt) + the epilogue",
+        "device_us": (t.get("device_us") or [None])[0],
+        "library_device_us": t.get("library_device_us"),
+        "share_of_bound": t.get("share_of_bound"), "plan": t.get("plan"),
         "ms_per": "one launch, 300 x 1536 @ 1536 x 1536 (a prompt's wq), "
                   "int8 -> fp32",
         "other_shapes": {k: v for k, v in times.items()

@@ -1005,6 +1005,52 @@ def test_rwkv6_chunked_kernel_bf16(dev):
     close(state.double(), want_s, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("n", [32, 64])
+@pytest.mark.parametrize("t", [15, 16, 17, 33])
+def test_rwkv6_column_blocks_reruns_and_lanes_bit_equal(dev, t, n):
+    """B10's sums do not depend on the batch or the inputs' alignment: at
+    T around the chunk edges, both column blocks of a head, a rerun
+    (also into the caller's buffers), a lane run alone, and inputs that
+    do not start on 16 bytes (the plain-load path) give the same bits."""
+    from repro_torch.kernels import rwkv6_chunk as rw
+    x = _wkv_inputs(dev, 3, t, 8, n, w_zero=t % 2 == 1, seed=t * n)
+    o, st = kops.rwkv6_chunked(*x)
+    got = rw.rwkv6_chunked_into(*x, torch.empty_like(o), torch.empty_like(st))
+    assert torch.equal(got[0], o) and torch.equal(got[1], st)
+    o2, st2 = kops.rwkv6_chunked(*x)
+    lone = kops.rwkv6_chunked(*(y[1:2] for y in x[:4]), x[4])
+    shifted = [torch.cat([y.new_zeros(1), y.flatten()])[1:].view(y.shape)
+               for y in x[:4]]
+    odd = kops.rwkv6_chunked(*shifted, x[4])
+    torch.cuda.synchronize()
+    assert torch.equal(o2, o) and torch.equal(st2, st)
+    assert torch.equal(lone[0], o[1:2]) and torch.equal(lone[1], st[1:2])
+    assert torch.equal(odd[0], o) and torch.equal(odd[1], st)
+
+
+def test_rwkv6_chunked_kernel_at_8_by_2048(dev):
+    """The long batched shape (8 prompts of 2048, RWKV-6 3B's heads),
+    w = 0 entries included, against the fp64 plain version at the bar."""
+    x = _wkv_inputs(dev, 8, 2048, 40, 64, w_zero=True, seed=82)
+    out, state = kops.rwkv6_chunked(*x)
+    want_o, want_s = ref.rwkv6_chunked_ref(*(y.double() for y in x))
+    close(out.double(), want_o, rtol=1e-4, atol=1e-5)
+    close(state.double(), want_s, rtol=1e-4, atol=1e-5)
+
+
+def test_rwkv6_record_size_matches_the_wrapper(dev):
+    """The workspace's record, as the kernel lays it out, is the size the
+    wrapper allocates."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rwkv6_chunk as rw
+    _build.build()
+    fn = _build._library.dlk_rwkv6_record_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    assert [fn(n) for n in rw.HEAD_SIZES] == [rw.record_bytes(n)
+                                              for n in rw.HEAD_SIZES]
+
+
 def test_rwkv6_wrappers_refuse_what_the_kernel_does_not_take(dev):
     from repro_torch.models import rwkv6 as rw6
     r, k, v, w, u = _wkv_inputs(dev, 1, 8, 2, 48)
@@ -1082,6 +1128,70 @@ def test_int8_matmul_kernel_is_bit_equal(dev, m, k, n):
     assert torch.equal(kops.int8_matmul(full, full.t().contiguous(), ones,
                                         ones),
                        torch.full((8, 8), 512.0 * 127 * 127, device=dev))
+
+
+def _int8_operands(dev, m, k, n, seed, shift_a=0, shift_b=0):
+    """Random int8 operands whose bases sit ``shift`` bytes past an
+    aligned allocation, and scales."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randint(-127, 128, (m * k + shift_a,), generator=g,
+                      dtype=torch.int8).to(dev)[shift_a:].view(m, k)
+    b = torch.randint(-127, 128, (k * n + shift_b,), generator=g,
+                      dtype=torch.int8).to(dev)[shift_b:].view(k, n)
+    sa = (torch.rand(m, generator=g) + 0.01).to(dev)
+    sb = (torch.rand(n, generator=g) + 0.01).to(dev)
+    return [a, b, sa, sb]
+
+
+@pytest.mark.parametrize("m,k,n,shift_a,shift_b,route", [
+    (37, 130, 75, 0, 0, 0),       # K and N off 16: byte loads for both
+    (17, 1000, 3, 0, 0, 0),
+    (64, 512, 256, 1, 0, 2),      # A's base off 16 bytes
+    (64, 512, 256, 0, 3, 1),      # B's base off 16 bytes
+    (300, 1536, 1536, 0, 0, 3),
+])
+def test_int8_routes_bit_equal(dev, m, k, n, shift_a, shift_b, route):
+    from repro_torch.kernels import int8_matmul as i8
+    args = _int8_operands(dev, m, k, n, m + k + n, shift_a, shift_b)
+    assert i8.vector_route(args[0], args[1]) == route
+    got = kops.int8_matmul(*args)
+    again = kops.int8_matmul(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.int8_matmul_ref(*args))
+    assert torch.equal(again, got)
+
+
+def test_int8_split_k_at_a_decode_batch(dev):
+    """M 8 against Granite's 1536 x 1536: the plan splits K; the split
+    result equals the plain version bit for bit, reruns are bit-equal,
+    and the workspace is left at 0."""
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels._build import sm_count
+    args = _int8_operands(dev, 8, 1536, 1536, 81)
+    assert i8.plan(8, 1536, 1536, sm_count(dev.index or 0)).splits > 1
+    got = kops.int8_matmul(*args)
+    for other in (kops.int8_matmul(*args), ref.int8_matmul_ref(*args)):
+        assert torch.equal(got, other)
+    torch.cuda.synchronize()
+    assert all(bool((w == 0).all()) for ws in i8._workspaces.values()
+               for w in ws)
+
+
+@pytest.mark.parametrize("n", [24, 32])
+def test_int8_all_127_at_the_largest_exact_k(dev, n):
+    """127 * 127 * 133,144 is the largest int32 sum of int8 products that
+    does not wrap: exact through the plan's split over K, and equal to
+    the plain version's unsplit sum."""
+    k = 133_144
+    a = torch.full((5, k), 127, dtype=torch.int8, device=dev)
+    a[2] = -127
+    b = torch.full((k, n), 127, dtype=torch.int8, device=dev)
+    ones = torch.ones(5, device=dev), torch.ones(n, device=dev)
+    want = torch.full((5, n), float(127 * 127 * k), device=dev)
+    want[2] = -want[2]
+    assert torch.equal(kops.int8_matmul(a, b, *ones), want)
+    assert torch.equal(kops.int8_matmul(a, b, *ones),
+                       ref.int8_matmul_ref(a, b, *ones))
 
 
 def test_int8_wrapper_refuses_what_the_kernel_does_not_take(dev):

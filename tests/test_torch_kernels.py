@@ -20,8 +20,10 @@ from hypothesis import given, settings, strategies as st
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import _build
+from repro_torch.kernels import int8_matmul as ti8
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rwkv6_chunk as trwc
 
 from conftest import assert_close
 
@@ -397,6 +399,122 @@ def test_int8_matmul_exact_integers(m, k, n, seed):
     got = tops.int8_matmul(t(aq), t(bq), torch.ones(m), torch.ones(n))
     want = aq.astype(np.int64) @ bq.astype(np.int64)
     np.testing.assert_array_equal(got.numpy().astype(np.int64), want)
+
+
+@pytest.mark.parametrize("m,k,n,splits", [(8, 512, 256, 3), (37, 130, 75, 2),
+                                          (8, 1536, 96, 6), (1, 1, 1, 4)])
+def test_int8_split_k_emulation_matches_pallas(m, k, n, splits):
+    """B11's split sum (int32 partials over whole 64-deep stages, added,
+    then scaled once) against the Pallas kernel in interpret mode, and
+    bit-equal to the unsplit plain version."""
+    args = int8_operands(m, k, n, seed=m * k + n)
+    want = jops.int8_matmul(*map(jnp.asarray, args), interpret=True)
+    got = ti8.split_k_emulation(*map(t, args), splits)
+    assert_close(got, want, rtol=1e-5, atol=0)
+    assert torch.equal(got, tops.int8_matmul(*map(t, args)))
+
+
+def test_int8_split_k_emulation_wraps_as_int32():
+    """All-127 operands at K 133,144 (the largest exact K) split 7 ways:
+    the exact integer; one k more wraps the same split or not."""
+    k = 133_144
+    a = torch.full((3, k), 127, dtype=torch.int8)
+    b = torch.full((k, 16), 127, dtype=torch.int8)
+    ones3, ones16 = torch.ones(3), torch.ones(16)
+    got = ti8.split_k_emulation(a, b, ones3, ones16, 7)
+    assert torch.equal(got, torch.full((3, 16), float(127 * 127 * k)))
+    a1 = torch.full((3, k + 1), 127, dtype=torch.int8)
+    b1 = torch.full((k + 1, 16), 127, dtype=torch.int8)
+    assert torch.equal(ti8.split_k_emulation(a1, b1, ones3, ones16, 7),
+                       tops.int8_matmul(a1, b1, ones3, ones16))
+
+
+@pytest.mark.parametrize("m,n,k,tile,splits,grid", [
+    (8, 1536, 1536, 0, 6, (24, 1, 6)),        # a decode batch: split K
+    (300, 1536, 1536, 1, 1, (24, 5, 1)),      # a prompt: 120 tiles
+    (2048, 512, 1536, 1, 1, (8, 32, 1)),
+    (2048, 1536, 512, 1, 1, (24, 32, 1)),
+    (16, 64, 64, 0, 1, (1, 1, 1)),            # one stage: nothing to split
+    (17, 3, 1000, 1, 16, (1, 1, 16)),         # 16 stages, one a split
+])
+def test_int8_plan(m, n, k, tile, splits, grid):
+    p = ti8.plan(m, n, k, 132)
+    assert (p.tile, p.splits, p.grid) == (tile, splits, grid)
+    assert (p.bm, p.bn) == ti8.TILES[tile]
+    ktiles = -(-k // ti8.BK)
+    assert (p.splits - 1) * p.per < ktiles <= p.splits * p.per  # none empty
+    assert p.tiles == grid[0] * grid[1]
+    assert p.tiles * p.splits >= 66 or p.splits == ktiles or ktiles == 1
+
+
+def test_int8_plan_forced_splits_and_alignment_route():
+    """The split count follows the SM count (24 tiles at M 8), rounded so
+    that no split is empty, and never passes K's stages; then the
+    16-byte routes by K, N and the bases' alignment."""
+    assert ti8.plan(8, 1536, 1536, 96).splits == 4
+    assert ti8.plan(8, 1536, 1536, 120).splits == 5          # 5 x 5 >= 24
+    assert ti8.plan(8, 1536, 1536, 160).splits == 6          # 6 x 4 covers 24
+    assert ti8.plan(8, 1536, 1536, 48).splits == 1           # half the card
+    assert ti8.plan(8, 1536, 100, 132).splits == 2           # 2 stages
+    buf = torch.zeros(4096, dtype=torch.int8)
+    a, b = buf[:64 * 32].view(64, 32), buf[2048:2048 + 32 * 48].view(32, 48)
+    assert ti8.vector_route(a, b) == 3
+    assert ti8.vector_route(buf[1:1 + 64 * 32].view(64, 32), b) == 2
+    assert ti8.vector_route(a, buf[2049:2049 + 32 * 48].view(32, 48)) == 1
+    a130 = buf[:4 * 130].view(4, 130)
+    assert ti8.vector_route(a130, buf[:130 * 3].view(130, 3)) == 0
+
+
+@pytest.mark.parametrize("b,t,h,n,mb", [
+    (1, 300, 40, 64, 32),     # the RWKV-6 3B prefill: 80 scan CTAs
+    (8, 2048, 40, 64, 32),    # 8 prompts: 640 scan CTAs
+    (1, 5, 8, 32, 16),        # the reduced config
+    (4, 33, 40, 64, 32),
+    (2, 16, 8, 32, 16),
+])
+def test_wkv_plan(b, t, h, n, mb):
+    p = trwc.plan(b, t, h, n)
+    nc = -(-t // 16)
+    assert (p.mb, p.threads) == (mb, 8 * mb)
+    assert p.grid == (n // mb, h, b) and p.prep_grid == (nc, h, b)
+    assert p.record == trwc.record_bytes(n) and p.record % 16 == 0
+    assert p.workspace == b * h * nc * p.record
+
+
+def test_wkv_plan_forced_blocks_and_records():
+    """The column block is the kernel's fixed N / 2 at both head sizes,
+    whatever B and T; other head sizes raise; the records' sizes."""
+    for n in trwc.HEAD_SIZES:
+        for b, t in ((1, 1), (1, 300), (8, 2048)):
+            p = trwc.plan(b, t, 40, n)
+            assert p.mb == n // 2 and p.grid[0] == 2
+    with pytest.raises(ValueError, match="head size"):
+        trwc.plan(1, 16, 40, 16)
+    with pytest.raises(ValueError, match="head size"):
+        trwc.plan(1, 16, 40, 48)
+    # sizeof(Rec<64>) and sizeof(Rec<32>) counted by hand: 2 x 16 x N fp32
+    # decayed r and k, N fp32 decays, 16 x N fp64 att . v
+    assert trwc.record_bytes(64) == 4096 + 4096 + 256 + 8192 == 16640
+    assert trwc.record_bytes(32) == 2048 + 2048 + 128 + 4096 == 8320
+
+
+def test_wkv_records_kept_up_to_the_cap():
+    """Up to KEEP_BYTES the records' buffer is kept per (device, stream)
+    and reused, grown when a call needs more; a larger call gets a buffer
+    of its own that is not kept."""
+    dev, stream = torch.device("cpu"), -12345
+    try:
+        small = trwc._records(dev, stream, 1000)
+        assert trwc._records(dev, stream, 800) is small
+        grown = trwc._records(dev, stream, 5000)
+        assert grown.numel() == 5000 and grown is not small
+        assert trwc._records(dev, stream, 5000) is grown
+        big = trwc._records(dev, stream, trwc.KEEP_BYTES + 1)
+        assert big.numel() == trwc.KEEP_BYTES + 1
+        assert trwc._kept[(dev.index, stream)] is grown
+    finally:
+        trwc._kept.pop((dev.index, stream), None)
+
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,7 @@ from repro_torch.convert import params_to_numpy
 from repro_torch.core.modelstore import ModelStore as TStore
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rwkv6_chunk as trw_chunk
 from repro_torch.models import rwkv6 as trw
 from repro_torch.runtime.roofline import HWSpec, RooflineAccountant
 from repro_torch.runtime.scheduler import ContinuousBatchingScheduler as TSched
@@ -155,6 +156,76 @@ def test_chunked_is_the_recurrence_and_named_backends_agree():
     out, _ = trw.wkv_named(rg, k, v, w, u, backend="cuda")
     out.sum().backward()
     assert rg.grad is not None and torch.isfinite(rg.grad).all()
+
+
+# B10's arithmetic on the card, in plain torch: held to the fp64 plain
+# version at the card's bar (WKV_TOL: rtol 1e-4, atol 1e-5, with w = 0
+# entries too) and to the Pallas kernel in interpret mode at the scaled
+# bars above.  T runs through every residue mod 16 (the ragged last chunk).
+WKV_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _emulation_against_fp64_and_pallas(b, tlen, h, n, w_zero, seed):
+    r, k, v, w, u, _ = wkv_inputs(b, tlen, h, n, w_zero=w_zero, seed=seed)
+    tin = [t(x) for x in (r, k, v, w, u)]
+    got_o, got_s = trw_chunk.column_emulation(*tin)
+    want_o, want_s = tref.rwkv6_chunked_ref(*(x.double() for x in tin))
+    np.testing.assert_allclose(got_o.double().numpy(), want_o.numpy(),
+                               **WKV_TOL)
+    np.testing.assert_allclose(got_s.double().numpy(), want_s.numpy(),
+                               **WKV_TOL)
+    jo, js = jops.rwkv6_chunked(*(jnp.asarray(x) for x in (r, k, v, w, u)),
+                                interpret=True)
+    tol = 1e-4 if w_zero else 1e-5
+    assert_scaled(got_o, jo, tol, "emulation out vs Pallas")
+    assert_scaled(got_s, js, tol, "emulation state vs Pallas")
+
+
+@pytest.mark.parametrize("residue", range(16))
+def test_column_emulation_every_residue_mod_16(residue):
+    """T = 16 + residue: a whole chunk, then a ragged one of every
+    length; N 32 in the kernel's two column blocks, w = 0 entries on odd
+    residues."""
+    _emulation_against_fp64_and_pallas(2, 16 + residue, 2, 32,
+                                       w_zero=residue % 2 == 1,
+                                       seed=100 + residue)
+
+
+@pytest.mark.parametrize("tlen,n,w_zero", [(1, 32, False), (5, 64, True),
+                                           (48, 64, True), (40, 64, False)])
+def test_column_emulation_short_and_n64(tlen, n, w_zero):
+    _emulation_against_fp64_and_pallas(1, tlen, 3, n, w_zero=w_zero,
+                                       seed=7 * tlen + n)
+
+
+@pytest.mark.parametrize("n", [32, 64])
+def test_column_emulation_does_not_depend_on_the_block(n):
+    """The kernel's sums are fixed by N alone: its split into two column
+    blocks gives the bits of a whole head in one block, and a lane run
+    alone gives the bits it has inside a batch."""
+    r, k, v, w, u, _ = wkv_inputs(3, 37, 2, n, w_zero=True, seed=n)
+    tin = [t(x) for x in (r, k, v, w, u)]
+    runs = [trw_chunk.column_emulation(*tin),
+            trw_chunk.column_emulation(*tin, mb=n)]
+    for o, s in runs[1:]:
+        assert torch.equal(o, runs[0][0]) and torch.equal(s, runs[0][1])
+    lone = trw_chunk.column_emulation(*(x[1:2] for x in tin[:4]), tin[4])
+    assert torch.equal(lone[0], runs[0][0][1:2])
+    assert torch.equal(lone[1], runs[0][1][1:2])
+
+
+def test_column_emulation_bf16_inputs():
+    """bf16 r, k, v, w: fp32 arithmetic, out rounded once to bf16."""
+    r, k, v, w, u, _ = wkv_inputs(1, 21, 2, 32, w_zero=False, seed=5)
+    tin = [t(x).bfloat16() for x in (r, k, v, w)] + [t(u)]
+    got_o, got_s = trw_chunk.column_emulation(*tin)
+    want_o, want_s = tref.rwkv6_chunked_ref(
+        *(x.double() for x in tin[:4]), tin[4].double())
+    assert got_o.dtype == torch.bfloat16 and got_s.dtype == torch.float32
+    np.testing.assert_allclose(got_o.double().numpy(), want_o.numpy(),
+                               rtol=4e-3, atol=1e-3)
+    np.testing.assert_allclose(got_s.double().numpy(), want_s.numpy(),
+                               **WKV_TOL)
 
 
 # ---------------------------------------------------------------------------
