@@ -35,6 +35,11 @@ its seconds:
                   splits, events, device µs, bound, plain version and
                   F.conv2d per conv; split convs also unsplit and split
                   for one CTA per SM
+  fft_conv        NIN at batch 8 with every conv on the ``fft`` route
+                  (core/fftconv.py, torch.fft) and B3-B5 for the rest
+                  against ``ref`` (rtol 1e-3, atol 1e-4), no B2 launch;
+                  forward ms on the fft route, the kernels and ``ref``;
+                  fft_conv2d against B2 at each of NIN's 9 convs
   launch_path     host µs per launch (10,000 calls, no synchronise) of
                   every wrapper at NIN's batch-1 and a decode step's
                   shapes, beside one PyTorch call each; B3's, B4's and
@@ -137,9 +142,27 @@ its seconds:
                   at K 133,144, reruns, the split workspace left at 0; per
                   launch at four of those shapes against the bound, the
                   plain version and torch._int_mm
+  slice 12, RecurrentGemma-9B serving:
+  serve_hybrid    RecurrentGemma-9B at full width and depth (38 layers: 26
+                  RG-LRU blocks, 12 local-attention layers of 16/1 heads
+                  of 256, window 2048; 41.8 GB fp32) through
+                  ServingEngine, batch 8, cache 2048, on the kernels and
+                  on ``ref`` in ring fp32 and paged int8: serve_requests'
+                  16 requests and one of 2100 tokens (prefill past the
+                  window, a wrapped ring); tokens (streams part only at
+                  near-ties), B8 12 x full prefills and B6/B7 12 x
+                  decode steps, 8 ticks under sync debug mode "error";
+                  three prompts layer by layer on the same input (local
+                  attention cuda vs ref, recurrent blocks vs fp64, the
+                  rolled K/V window) within 1e-4; the doubling scan at T
+                  2100 x 4096 against an fp64 recurrence; decode
+                  tokens/s, TTFT, a decode step by part per cache form,
+                  B6/B7 at the live lanes and B8 at 1 x 300 and 1 x
+                  2100, beside SDPA
   (cli also runs ``launch.serve`` and ``launch.train`` with ``--model`` /
-  ``--arch`` rwkv6-3b and granite-moe-3b-a800m against ``ref``, and
-  ``launch.serve`` with llama3-8b, qwen3-8b and chameleon-34b)
+  ``--arch`` rwkv6-3b, granite-moe-3b-a800m and recurrentgemma-9b
+  against ``ref``, and ``launch.serve`` with llama3-8b, qwen3-8b and
+  chameleon-34b)
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check or
@@ -148,6 +171,7 @@ CUDA, or a directory without the repo.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import pathlib
@@ -1946,19 +1970,22 @@ def decode_library_record(torch, cases):
             "library_vs_kernel_max_abs": float((library(0) - got).abs().max())}
 
 
-def _time_decode_kernel(torch, cfg, sched, q8, paged):
+def _time_decode_kernel(torch, cfg, sched, q8, paged, long=True):
     """B6 or B7 at the main path's shapes and data (the live scheduler's
-    layer views and the lanes' valid lengths, every layer in turn), then
-    at 8 lanes x DECODE_LONG_VALID of 1024 slots on DECODE_TIME_LAYERS
-    synthetic layers: decode_launch_record and SDPA beside it
-    (decode_library_record) at both."""
-    cache, L = sched.state["cache"], cfg.num_layers
+    layer views and the lanes' valid lengths, every layer with a cache in
+    turn), then, with ``long``, at 8 lanes x DECODE_LONG_VALID of 1024
+    slots on DECODE_TIME_LAYERS synthetic layers: decode_launch_record and
+    SDPA beside it (decode_library_record) at both."""
+    cache = sched.state["cache"]
     b, h, d = sched.max_slots, cfg.num_heads, cfg.resolved_head_dim
     kvh = cfg.num_kv_heads
     gen = torch.Generator().manual_seed(SEED + 60)
     q = torch.randn(b, h, d, generator=gen).to(DEVICE)
-    valid = torch.from_numpy(sched._host_valid.astype("int32") + 1).to(DEVICE)
     pre = "k_pages" if paged else "k"
+    L = cache[pre].shape[0]                         # the layers with a cache
+    capacity = sched._capacity if paged else cache[pre].shape[3]
+    valid = torch.from_numpy((sched._host_valid + 1).clip(max=capacity)
+                             .astype("int32")).to(DEVICE)
     cases = []
     for l in range(L):
         case = {"q": q, "valid": valid,
@@ -1972,6 +1999,8 @@ def _time_decode_kernel(torch, cfg, sched, q8, paged):
     rec = {**decode_launch_record(torch, cases, h, d),
            **decode_library_record(torch, cases),
            "batch": b, "heads": h, "kv_heads": kvh, "head_dim": d}
+    if not long:
+        return rec
     long_cases = [decode_case(torch, gen, DEVICE, b=b, kvh=kvh, g=h // kvh,
                               dtype="int8" if q8 else "float32",
                               layout="bksd", paged=paged, d=d,
@@ -2129,6 +2158,73 @@ def phase_b2_times(run, torch, graph, card):
           "batch": TIMING_BATCH, "total": t,
           "bound_ms": 1e3 * t["bound_s"]})
     return t
+
+
+def phase_fft_conv(run, torch, np, graph, card):
+    """NIN-CIFAR10 at batch 8 with every conv on the ``fft`` route
+    (``core/fftconv.py``: torch.fft; the JAX package has no Pallas kernel
+    for it either) and the pools, ReLUs and softmax on B3, B4 and B5,
+    against ``ref`` at the CNN bars (rtol 1e-3, atol 1e-4), with no B2
+    launch on that route.  Forward ms (CUDA events) on the fft route, on
+    the kernels alone (B2 for the convs) and on ``ref``; per conv,
+    fft_conv2d's events ms and device µs beside B2's."""
+    from repro_torch.core.fftconv import fft_conv2d
+    from repro_torch.kernels import ops as kops
+    set_fp32_exact(torch)
+    params = {layer: {k: torch.from_numpy(v).to(DEVICE) for k, v in g.items()}
+              for layer, g in numpy_params(np, graph, SEED + 7).items()}
+    x = torch.from_numpy(np.random.default_rng(SEED + 8).standard_normal(
+        (TIMING_BATCH, *graph.input_shape)).astype(np.float32)).to(DEVICE)
+    routes = {"fft": {"conv": "fft", "default": "cuda"}, "cuda": "cuda",
+              "ref": "ref"}
+    with torch.inference_mode():
+        kops.reset_launches()
+        got = graph.apply(params, x, backend=routes["fft"])
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kops.launches().items() if v}
+        want = graph.apply(params, x, backend="ref")
+        err, bad = compare(torch, got, want, 1e-3, 1e-4)
+        run.check("fft_conv", "NIN at batch 8 on the fft conv route vs ref "
+                  "(rtol 1e-3, atol 1e-4)", bad == 0, max_abs_err=err,
+                  mismatches=bad)
+        run.check("fft_conv", "the fft route launches B3, B4 and B5, no B2",
+                  set(launched) == {"pool2d", "elementwise", "softmax"},
+                  launches=launched)
+        forward_ms = {name: time_ms(torch, lambda b=b: graph.apply(
+            params, x, backend=b), iters=10) for name, b in routes.items()}
+        convs = []
+        for kernel, d in path_calls(graph, TIMING_BATCH):
+            if kernel != "conv2d":
+                continue
+            xi = torch.randn(d["shape"], device=DEVICE)
+            w = 0.05 * torch.randn(d["out_channels"], d["shape"][1],
+                                   d["kernel"], d["kernel"], device=DEVICE)
+            b = torch.randn(d["out_channels"], device=DEVICE)
+            kw = dict(stride=d["stride"], pad=d["pad"])
+
+            def fft():
+                return fft_conv2d(xi, w, b, **kw)
+
+            def b2():
+                return kops.conv2d(xi, w, b, **kw)
+            e, n_bad = compare(torch, fft(), b2(), 1e-3, 1e-4)
+            convs.append({
+                "conv": f"{d['shape'][1]}->{d['out_channels']} "
+                        f"{d['kernel']}x{d['kernel']} on "
+                        f"{d['shape'][2]}x{d['shape'][3]}",
+                "fft_ms": time_ms(torch, fft),
+                "fft_device_us": device_us(torch, fft)[0],
+                "b2_ms": time_ms(torch, b2),
+                "b2_device_us": device_us(torch, b2)[0],
+                "fft_vs_b2_max_abs": e})
+            run.check("fft_conv", f"fft_conv2d vs B2 at {convs[-1]['conv']} "
+                      "(rtol 1e-3, atol 1e-4)", n_bad == 0, max_abs_err=e)
+    emit({"phase": "fft_conv", "card": card["nvidia_smi"],
+          "batch": TIMING_BATCH, "max_abs_err_vs_ref": err,
+          "launches": launched, "forward_ms": forward_ms, "convs": convs,
+          "fft_conv_ms_sum": sum(c["fft_ms"] for c in convs),
+          "b2_conv_ms_sum": sum(c["b2_ms"] for c in convs)})
+    return forward_ms
 
 
 # ---------------------------------------------------------------------------
@@ -2524,9 +2620,9 @@ def phase_cli(run, torch, np):
     tinyllama-1.1b`` on an empty store bootstraps a model and serves it
     (B8 in prefill, B6 in decode), and its tokens equal a ``ref`` engine's
     on the bootstrapped weights; ``launch.train`` (reduced TinyLlama) runs
-    on B9, its losses equal a ``ref`` run's; then the same for RWKV-6 and
-    Granite-MoE, and ``launch.serve`` alone for Llama3-8B, Qwen3-8B and
-    Chameleon-34B (CLI_SERVE_ONLY)."""
+    on B9, its losses equal a ``ref`` run's; then the same for RWKV-6,
+    Granite-MoE and RecurrentGemma-9B, and ``launch.serve`` alone for
+    Llama3-8B, Qwen3-8B and Chameleon-34B (CLI_SERVE_ONLY)."""
     from repro_torch.checkpoint.ckpt import load_published
     from repro_torch.core.modelstore import ModelStore
     from repro_torch.kernels import ops as kops
@@ -2597,11 +2693,26 @@ def phase_cli(run, torch, np):
         lambda L, steps: {"flash_attention_fwd": 2 * L * steps,
                           "flash_attention_dq": L * steps,
                           "flash_attention_dkv": L * steps})
+    rec["hybrid"] = _cli_arch(
+        run, torch, np, HYBRID_ARCH, SEED + 89,
+        {"flash_attention", "decode_attention"},
+        lambda L, steps: {"flash_attention_fwd": 2 * L * steps,
+                          "flash_attention_dq": L * steps,
+                          "flash_attention_dkv": L * steps})
     for arch in CLI_SERVE_ONLY:
         rec[arch] = _cli_arch(run, torch, np, arch, SEED + 88,
                               {"flash_attention", "decode_attention"}, None)
     emit(rec)
     return rec["serve_launches"], rec["train_launches"]
+
+
+def kernel_layers(cfg):
+    """The layers that launch a model kernel once per call: the hybrid's
+    local-attention layers, every layer of the other families."""
+    if cfg.family == "hybrid":
+        from repro_torch.models import rglru
+        return rglru._counts(cfg)[1]
+    return cfg.num_layers
 
 
 def _cli_arch(run, torch, np, arch, seed, serve_kernels, train_want):
@@ -2613,8 +2724,11 @@ def _cli_arch(run, torch, np, arch, seed, serve_kernels, train_want):
     losses equal a ``ref`` run's.  RWKV-6 (2 layers, 8 heads of N 32): B10
     in prefill, no kernel in training (the WKV is differentiated through
     the plain scan).  Granite-MoE (2 layers, 8/2 heads of 32, 4 experts
-    top-2): B8 and B6 in serving, B9 in training.  With ``train_want``
-    None only the serve command line runs."""
+    top-2): B8 and B6 in serving, B9 in training.  RecurrentGemma (3
+    layers of which one is local attention, 8/1 heads of 32, window 32):
+    B8 and B6 in its attention layer, B9 in training; its counts are
+    multiples of the attention layers (:func:`kernel_layers`).  With
+    ``train_want`` None only the serve command line runs."""
     from repro_torch.checkpoint.ckpt import load_published
     from repro_torch.core.modelstore import ModelStore
     from repro_torch.kernels import ops as kops
@@ -2630,10 +2744,11 @@ def _cli_arch(run, torch, np, arch, seed, serve_kernels, train_want):
         counts = kops.launches()                     # read just after
         rec["serve_launches"] = {k: v for k, v in counts.items() if v}
         cfg, cpu_params, _ = load_published(ModelStore(store), arch)
+        n_layers = kernel_layers(cfg)
         run.check("cli", f"launch.serve --model {arch} on an empty store: "
-                  f"{sorted(serve_kernels)} {cfg.num_layers} x n times, "
+                  f"{sorted(serve_kernels)} {n_layers} x n times, "
                   "nothing else", set(rec["serve_launches"]) == serve_kernels
-                  and all(v % cfg.num_layers == 0
+                  and all(v % n_layers == 0
                           for v in rec["serve_launches"].values()),
                   launches=rec["serve_launches"])
         params = tree_map(lambda p: p.to(DEVICE), cpu_params)
@@ -2661,7 +2776,7 @@ def _cli_arch(run, torch, np, arch, seed, serve_kernels, train_want):
         torch.cuda.synchronize()
         rec["train_launches"] = {k: v for k, v in kops.launches().items()
                                  if v}                # read just after
-    want = train_want(cfg.num_layers, CLI_TRAIN_STEPS)
+    want = train_want(n_layers, CLI_TRAIN_STEPS)
     run.check("cli", f"launch.train --arch {arch}: launches {want}",
               rec["train_launches"] == want, launches=rec["train_launches"])
     (_, want), _ = _quiet(lambda: train.train(
@@ -2676,15 +2791,23 @@ def _cli_arch(run, torch, np, arch, seed, serve_kernels, train_want):
     return rec
 
 
-def flash_bound(kernel, b, s, h, kvh, d, elem=4, unit="fp32"):
+def visible_pairs(s, window=0):
+    """(query, key) pairs one causal head sees over s tokens: each query
+    sees itself and the keys before it, at most ``window`` of them."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_bound(kernel, b, s, h, kvh, d, elem=4, unit="fp32", window=0):
     """(seconds from bytes, seconds from operations) of one call at these
-    shapes, causal with no window: each input read once and each output
+    shapes, causal (within ``window`` keys): each input read once and each output
     written once; per visible (query, key) pair 2*D flops per product,
     2 products in the forward, 3 in dq (q.k, dO.v, ds.k), 4 in dk/dv
     (q.k, dO.v, p^T dO, ds^T q), at the fp32 peak, or with unit "3xtf32"
     three times as many at the TF32 tensor-core peak (the kernels' 3xTF32
     products)."""
-    pairs = b * h * s * (s + 1) // 2
+    pairs = b * h * visible_pairs(s, window)
     q_bytes, kv_bytes, row_bytes = b * s * h * d * elem, b * s * kvh * d * elem, b * h * s * 4
     if kernel in ("flash_attention", "flash_attention_fwd"):
         nbytes = 2 * q_bytes + 2 * kv_bytes
@@ -2802,11 +2925,12 @@ def train_step_record(torch, tiny_np):
     return rec
 
 
-def _b8_prefill_times(torch, randn, h, kvh, d, sq=PREFILL_SEQ):
+def _b8_prefill_times(torch, randn, h, kvh, d, sq=PREFILL_SEQ, window=0):
     """B8 at the serving prefill's shape (one 300-token prompt, fp32,
-    causal): events ms and device µs against the bound, the plain version
-    and SDPA's forward on the same inputs (K/V heads repeated outside the
-    timing)."""
+    causal, or local within ``window`` keys): events ms and device µs
+    against the bound, the plain version and SDPA's forward on the same
+    inputs (K/V heads repeated outside the timing; a window past the
+    prompt's start as a boolean mask)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
@@ -2815,15 +2939,22 @@ def _b8_prefill_times(torch, randn, h, kvh, d, sq=PREFILL_SEQ):
     kt = k.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
 
+    mask = None
+    if window and window < sq:
+        i = torch.arange(sq, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
     def fn():
-        return kops.flash_attention(q, k, v)
+        return kops.flash_attention(q, k, v, window=window)
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    b_s, o_s = flash_bound("flash_attention", 1, sq, h, kvh, d, unit="3xtf32")
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              is_causal=mask is None)
+    b_s, o_s = flash_bound("flash_attention", 1, sq, h, kvh, d, unit="3xtf32",
+                           window=window)
     return {"ms": time_ms(torch, fn), "device_us": device_us(torch, fn)[0],
             "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(
-                q, k, v)),
+                q, k, v, window=window)),
             "library_ms": time_ms(torch, sdpa),
             "library_device_us": device_us(torch, sdpa)[0],
             "library_vs_kernel_max_abs": float(
@@ -2831,9 +2962,10 @@ def _b8_prefill_times(torch, randn, h, kvh, d, sq=PREFILL_SEQ):
             "bound_ms": 1e3 * max(b_s, o_s),
             "bound_by": "bytes" if b_s >= o_s else "operations",
             "bound_ffma_ms": 1e3 * flash_bound("flash_attention", 1, sq, h,
-                                               kvh, d)[1],
+                                               kvh, d, window=window)[1],
             "shape": {"batch": 1, "seq": sq, "heads": h, "kv_heads": kvh,
-                      "head_dim": d, "causal": True, "dtype": "float32"}}
+                      "head_dim": d, "causal": True, "window": window,
+                      "dtype": "float32"}}
 
 
 def phase_train_times(run, torch, np, tiny_np, card):
@@ -3540,16 +3672,16 @@ def _is_gemm(name):
     return any(key in name for key in ("gemm", "Gemm", "gemv"))
 
 
-def _profile_moe_ticks(torch, sched, ticks):
+def _profile_ranged_ticks(torch, sched, ticks, module, ranges):
     """Device time per decode step by part over ``ticks`` ticks with every
-    lane live (torch.profiler), the MoE pieces inside ``record_function``
-    ranges: attention (B6/B7), the expert einsums, the router with
-    dispatch and combine, the other matmuls and the rest; the idle share
-    and kernels per step."""
+    lane live (torch.profiler), the functions of ``module`` named in
+    ``ranges`` ({name: (range, part)}) run inside ``record_function``
+    ranges: the kernels launched in a range go to its part, the others to
+    attention (B6/B7), the other matmuls or the rest; the idle share and
+    kernels per step."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.models import moe as tmoe
-    saved = {n: getattr(tmoe, n) for n in ("_route", "_dispatch", "_combine",
-                                           "_expert_ffn")}
+    saved = {n: getattr(module, n) for n in ranges}
+    part_of = dict(ranges.values())
 
     def ranged(label, fn):
         def inner(*args, **kw):
@@ -3557,8 +3689,7 @@ def _profile_moe_ticks(torch, sched, ticks):
                 return fn(*args, **kw)
         return inner
     for n, fn in saved.items():
-        setattr(tmoe, n, ranged("moe_experts" if n == "_expert_ffn"
-                                else "moe_route", fn))
+        setattr(module, n, ranged(ranges[n][0], fn))
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -3570,7 +3701,7 @@ def _profile_moe_ticks(torch, sched, ticks):
             wall_us = 1e6 * (time.perf_counter() - t0)
     finally:
         for n, fn in saved.items():
-            setattr(tmoe, n, fn)
+            setattr(module, n, fn)
     events = prof.events()
 
     def under(e):
@@ -3579,7 +3710,7 @@ def _profile_moe_ticks(torch, sched, ticks):
             yield from under(c)
     parts, total, kernels = {}, 0.0, 0
     for e in events:
-        if not _is_device(e) or e.name in MOE_PARTS:
+        if not _is_device(e) or e.name in part_of:
             continue
         kernels += 1
         total += e.device_time
@@ -3587,18 +3718,30 @@ def _profile_moe_ticks(torch, sched, ticks):
             OTHER_MM if _is_gemm(e.name) else OTHER
         parts[part] = parts.get(part, 0.0) + e.device_time
     for e in events:                 # kernels launched inside the ranges
-        if e.name in MOE_PARTS and not _is_device(e):
+        if e.name in part_of and not _is_device(e):
             for k in under(e):
                 part = OTHER_MM if _is_gemm(k.name) else OTHER
                 parts[part] = parts.get(part, 0.0) - k.duration
-                parts[MOE_PARTS[e.name]] = \
-                    parts.get(MOE_PARTS[e.name], 0.0) + k.duration
+                parts[part_of[e.name]] = \
+                    parts.get(part_of[e.name], 0.0) + k.duration
     return {"ticks": ticks, "wall_ms_per_step": wall_us / ticks / 1e3,
             "device_ms_per_step": total / ticks / 1e3,
             "device_idle_share": 1 - total / wall_us,
             "device_kernels_per_step": kernels / ticks,
             "device_ms_by_part": {k: v / ticks / 1e3
                                   for k, v in parts.items()}}
+
+
+def _profile_moe_ticks(torch, sched, ticks):
+    """A decode step by part (:func:`_profile_ranged_ticks`), the MoE
+    pieces in ranges: the expert einsums, and the router with dispatch
+    and combine."""
+    from repro_torch.models import moe as tmoe
+    route = ("moe_route", MOE_PARTS["moe_route"])
+    return _profile_ranged_ticks(
+        torch, sched, ticks, tmoe,
+        {"_route": route, "_dispatch": route, "_combine": route,
+         "_expert_ffn": ("moe_experts", MOE_PARTS["moe_experts"])})
 
 
 def _moe_prefill_layerwise(torch, cfg, params, toks):
@@ -4139,8 +4282,457 @@ def int8_extra_checks(run, torch, gen):
     return checks
 
 
+# ---------------------------------------------------------------------------
+# slice 12: RecurrentGemma-9B (Griffin: RG-LRU blocks + local MQA)
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "recurrentgemma-9b"
+HYBRID_TOL = 1e-4       # a layer's prefill output and state on the same input
+HYBRID_CACHE_LEN = 2048  # the ring is the whole local window
+HYBRID_LONG = 2100      # a prompt that prefills past the window (the roll)
+HYBRID_REC_PART = "recurrent blocks (RG-LRU, gates, conv, their matmuls)"
+
+
+def device_weights_chunked(np, torch, cfg, seed):
+    """:func:`numpy_weights_chunked`'s numbers, straight onto the card:
+    every leaf is allocated there, each of its chunks is drawn on the
+    host from its own generator (``SeedSequence(seed, spawn_key=(i,
+    j))``) by a pool of threads and copied in, so the host holds a chunk
+    per thread, not the model."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.models import param_template
+    from repro_torch.models.common import map_template
+    drawn = []
+
+    def leaf(p):
+        if p.init in ("zeros", "ones"):
+            return (torch.zeros if p.init == "zeros" else torch.ones)(
+                p.shape, device=DEVICE)
+        x = torch.empty(p.shape, device=DEVICE)
+        drawn.append((x.view(-1), np.float32(p.std)))
+        return x
+    tree = map_template(leaf, param_template(cfg))
+
+    def fill(job):
+        i, j = job
+        flat, std = drawn[i]
+        n = min(WEIGHT_CHUNK, flat.numel() - j * WEIGHT_CHUNK)
+        part = np.empty(n, np.float32)
+        rng = np.random.default_rng(np.random.SeedSequence(seed,
+                                                           spawn_key=(i, j)))
+        rng.standard_normal(out=part, dtype=np.float32)
+        part *= std
+        flat[j * WEIGHT_CHUNK:j * WEIGHT_CHUNK + n].copy_(
+            torch.from_numpy(part))
+    jobs = [(i, j) for i, (x, _) in enumerate(drawn)
+            for j in range(-(-x.numel() // WEIGHT_CHUNK))]
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        list(pool.map(fill, jobs))
+    return tree
+
+
+def hybrid_requests(np, cfg, seed, n=None):
+    """serve_requests' greedy requests (prompts 5..300, two sharing a
+    64-token prefix) and, third in the queue, one of HYBRID_LONG tokens
+    that prefills past the window."""
+    from repro_torch.runtime.scheduler import Request
+    reqs = serve_requests(np, cfg, seed, n=n)
+    long = np.random.default_rng(seed + 1).integers(1, cfg.vocab_size,
+                                                    HYBRID_LONG).tolist()
+    reqs.insert(2, Request(uid=len(reqs), prompt=long,
+                           max_new_tokens=reqs[0].max_new_tokens))
+    return reqs
+
+
+def _rec_block_fp64(cfg, lp, x):
+    """The recurrent block evaluated in fp64 (weights and input cast up;
+    the recurrence as a sequential loop): (output, conv state, h)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import rglru as rg
+    p = {k: v.double() for k, v in lp.items()}
+    x = x.double()
+    xn = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + cfg.norm_eps) \
+        * (1.0 + p["ln1"])
+    a = F.gelu(xn @ p["w_a"], approximate="tanh")
+    bconv, conv = rg.causal_conv(p, xn @ p["w_b"])
+    r = torch.sigmoid(bconv @ p["gate_a_w"] + p["gate_a_b"])
+    gate = torch.sigmoid(bconv @ p["gate_x_w"] + p["gate_x_b"])
+    decay = torch.exp(rg.LRU_C * r * F.logsigmoid(p["lam"]))
+    gated = torch.sqrt(torch.clamp(1.0 - decay.square(), 1e-12, 1.0)) \
+        * (gate * bconv)
+    h = torch.zeros_like(gated[:, 0])
+    hs = []
+    for t in range(gated.shape[1]):
+        h = decay[:, t] * h + gated[:, t]
+        hs.append(h)
+    return (a * torch.stack(hs, 1)) @ p["w_out"], conv, h
+
+
+def _hybrid_prefill_layerwise(torch, cfg, params, toks):
+    """One prompt's prefill layer by layer on the ``ref`` trajectory, each
+    layer from the same input: a local-attention layer on the kernels (B8)
+    and on ``ref`` (its attention output and the whole layer's); a
+    recurrent block, which runs no kernel, on the card in fp32 against an
+    fp64 evaluation (its output, conv state and h).  The K/V window of the
+    first attention layer from ``rglru.prefill`` on the kernels, against
+    the keys and values of the prompt's last window put where the ring
+    holds them (slot t % wlen).  Per part: (max abs error, count outside
+    HYBRID_TOL)."""
+    from repro_torch.models import rglru as rg
+    from repro_torch.models import transformer as tfm
+    out = {}
+
+    def add(part, got, want):
+        err, bad = compare(torch, got, want, HYBRID_TOL, HYBRID_TOL)
+        e0, b0 = out.get(part, (0.0, 0))
+        out[part] = (max(e0, err), b0 + bad)
+    s = toks.shape[1]
+    wlen = min(HYBRID_CACHE_LEN, cfg.local_window)
+    first_kv = None
+    with torch.inference_mode():
+        x = params["embed"][toks]
+        for kind, i, li in rg._layers(cfg):
+            mp = rg._slice(params["mlp"], li)
+            if kind == "rec":
+                lp = rg._slice(params["rec"], i)
+                a, conv, h = rg.rec_block(cfg, lp, x)
+                a64, conv64, h64 = _rec_block_fp64(cfg, lp, x)
+                add("rec_out vs fp64", a, a64)
+                add("conv state vs fp64", conv, conv64)
+                add("h vs fp64", h, h64)
+                x = x + a
+            else:
+                lp = rg._slice(params["attn"], i)
+                a_c, (k, v) = tfm.attn(cfg, lp, x, window=cfg.local_window)
+                a_r = tfm.attn(cfg, lp, x, window=cfg.local_window,
+                               backend="ref")[0]
+                add("attn_out cuda vs ref", a_c, a_r)
+                y_c = x + a_c + tfm.mlp(cfg, mp, x + a_c)
+                if first_kv is None:
+                    first_kv = (k, v)
+                x = x + a_r
+            y = x + tfm.mlp(cfg, mp, x)
+            if kind == "attn":
+                add("layer_out cuda vs ref", y_c, y)
+            x = y
+        _, cache = rg.prefill(cfg, params, toks, HYBRID_CACHE_LEN,
+                              cache_dtype=torch.float32)
+        keep = min(s, wlen)
+        slots = torch.arange(s - keep, s, device=toks.device) % wlen
+        for name, kv in zip(("k", "v"), first_kv):
+            add("K/V window (the roll)", cache[name][0, 0][:, slots],
+                kv[0, s - keep:].transpose(0, 1))
+    return {k: {"max_abs_err": e, "mismatches": b} for k, (e, b) in out.items()}
+
+
+def _hybrid_scan_fp64(torch, cfg, params, toks):
+    """The doubling scan (``rglru.linear_scan``) on the first recurrent
+    layer's decays and gated inputs for this prompt (T x lru_width),
+    against a sequential fp64 recurrence on the same values: max and rms
+    error, and the largest |h|."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import rglru as rg
+    with torch.inference_mode():
+        lp = rg._slice(params["rec"], 0)
+        xn = cm.rms_norm(params["embed"][toks], lp["ln1"], cfg.norm_eps)
+        bconv, _ = rg.causal_conv(lp, xn @ lp["w_b"])
+        log_a, gate = rg._log_a(lp, bconv)
+        a = torch.exp(log_a)
+        b = rg._gated(a, gate, bconv)
+        got = rg.linear_scan(a, b)
+        h = torch.zeros_like(b[:, 0], dtype=torch.float64)
+        want = []
+        for t in range(b.shape[1]):
+            h = a[:, t].double() * h + b[:, t].double()
+            want.append(h)
+        err = got.double() - torch.stack(want, 1)
+    return {"T": int(b.shape[1]), "width": int(b.shape[2]),
+            "max_abs_err": float(err.abs().max()),
+            "rms_err": float(err.square().mean().sqrt()),
+            "max_abs_h": float(got.abs().max()),
+            "min_decay": float(a.min())}
+
+
+def _hybrid_prefill_end_to_end(torch, cfg, params, toks):
+    """The full prefill's logits and every state leaf, cuda against ref,
+    as relative distances, beside two ``ref`` prefills whose embeddings
+    differ by a relative 1e-7 (the model's own sensitivity at full
+    depth, which a kernel cannot undercut)."""
+    from repro_torch.models import rglru as rg
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 114)
+    noisy = {**params, "embed": params["embed"] * (1 + 1e-7 * torch.randn(
+        params["embed"].shape[1], generator=gen, device=DEVICE))}
+    runs = {}
+    with torch.inference_mode():
+        for name, p, backend in (("cuda", params, None),
+                                 ("ref", params, "ref"),
+                                 ("noisy", noisy, "ref")):
+            lg, cache = rg.prefill(cfg, p, toks, HYBRID_CACHE_LEN,
+                                   cache_dtype=torch.float32,
+                                   backend=backend)
+            runs[name] = {"logits": lg[0, -1], **cache}
+    del noisy
+    return {f"{key}_rel_{a}_vs_ref": rel(runs[a][key], runs["ref"][key])
+            for key in runs["ref"] for a in ("cuda", "noisy")}
+
+
+def hybrid_prefill_profile(torch, cfg, params, toks):
+    """One prompt's full prefill (``rglru.prefill`` on the kernels, under
+    inference mode): device ms by part, B8 (kernels named ``flash_fwd``)
+    and the cuBLAS products beside the rest, traced as :func:`device_us`
+    traces (a warm call first, then the counted ones)."""
+    from repro_torch.models import rglru as rg
+
+    def call():
+        with torch.inference_mode():
+            rg.prefill(cfg, params, toks, HYBRID_CACHE_LEN,
+                       cache_dtype=torch.float32)
+    parts = device_us_by(torch, call, ("flash_fwd", "gemm", "Gemm", ""),
+                         n=2, warm=1)
+    if parts is None:
+        return None
+    mm = parts["gemm"] + parts["Gemm"]
+    return {"prompt": int(toks.shape[1]), "device_ms": parts[""] / 1e3,
+            "b8_ms": parts["flash_fwd"] / 1e3, "matmul_ms": mm / 1e3,
+            "other_ms": (parts[""] - parts["flash_fwd"] - mm) / 1e3}
+
+
+def _hybrid_steady(torch, np, cfg, params, name):
+    """One cache form with 8 live lanes, the long request among them (its
+    ring wrapped): a decode step's device time by part and the idle share
+    over 4 ticks, and B6 or B7 per launch at the live lanes against the
+    bound, the plain version and SDPA (_time_decode_kernel)."""
+    from repro_torch.models import rglru as rg
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, params, max_batch=8, cache_len=HYBRID_CACHE_LEN,
+                        device=DEVICE, **MOE_CONFIGS[name])
+    sched = eng.scheduler(max_new_cap=SERVE_MAX_NEW)
+    for r in hybrid_requests(np, cfg, SEED + 113, n=7):
+        sched.submit(r)
+    sched.tick()                                     # admits all 8
+    for _ in range(4):
+        sched.tick()
+    profile = _profile_ranged_ticks(
+        torch, sched, 4, rg, {"rec_block_step": ("rec_block",
+                                                 HYBRID_REC_PART)})
+    kernel = _time_decode_kernel(torch, cfg, sched, "int8" in name,
+                                 "paged" in name, long=False)
+    sched.run()
+    return {"config": name, "step_profile": profile, "kernel": kernel}
+
+
+def phase_serve_hybrid(run, torch, np, card):
+    """RecurrentGemma-9B at full width and depth (38 layers: 26 RG-LRU
+    blocks and 12 local-attention layers, d 4096, 16/1 heads of 256,
+    window 2048, vocab 256000, 10.44 B parameters, 41.8 GB in fp32)
+    through ServingEngine at batch 8, cache 2048 (the ring is the whole
+    window): the 16 greedy requests of serve_requests and one of 2100
+    tokens that prefills past the window and decodes on a wrapped ring,
+    on the kernels and on ``ref``, in ring fp32 and paged int8; tokens
+    equal ``ref`` (streams part only at near-ties, fp32 logit gap <=
+    MOE_GAP); B8 12 x full prefills and B6/B7 12 x decode steps, none on
+    ``ref``; 8 ticks under sync debug mode "error"; paged lanes own their
+    window (full allocation, no prefix sharing).  Three prompts (the
+    2100-token one among them) layer by layer on the same input within
+    HYBRID_TOL (_hybrid_prefill_layerwise), the doubling scan at T 2100 x
+    4096 against a sequential fp64 recurrence, and the end-to-end prefill
+    beside the model's own sensitivity.  A warm run's decode tokens/s and
+    TTFT; per cache form a decode step by part and B6/B7 at the live
+    lanes; B6 at 8 lanes of 32, 512 and 2048 valid slots; B8 at the 1 x
+    300 and 1 x 2100 prefills beside SDPA; the device ms of a 300- and a
+    2100-token prefill by part."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dattn
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import rglru as rg
+    from repro_torch.serving.engine import ServingEngine
+    set_fp32_exact(torch)
+    cfg = get_config(HYBRID_ARCH)
+    n_attn = kernel_layers(cfg)
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = device_weights_chunked(np, torch, cfg, SEED + 6)
+    torch.cuda.synchronize()
+    emit({"phase": "serve_hybrid", "model": cfg.name,
+          "params": cfg.param_count(), "layers": rg.layer_kinds(cfg),
+          "weights_s": time.perf_counter() - t0,
+          "device_memory_allocated_before": before,
+          "device_memory_allocated": torch.cuda.memory_allocated()})
+    kops.reset_launches()                            # the main path starts
+    for name, opts in MOE_CONFIGS.items():
+        outs = {}
+        for backend in (None, "ref"):
+            window = sync_window(torch) if backend is None else None
+            eng = ServingEngine(cfg, params, max_batch=8,
+                                cache_len=HYBRID_CACHE_LEN,
+                                attn_backend=backend, faults=window,
+                                device=DEVICE, **opts)
+            reqs = hybrid_requests(np, cfg, SEED + 110)
+            before = kops.launches()
+            t1 = time.perf_counter()
+            try:
+                stats = eng.generate_batch(reqs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            after = kops.launches()
+            sched = eng.scheduler()
+            tag = f"{name}/{backend or 'cuda'}"
+            launched = {k: after[k] - before[k] for k in after
+                        if after[k] != before[k]}
+            prefills = full_prefills(sched, len(reqs))
+            dec = "decode_attention_paged_q8" if "paged" in name \
+                else "decode_attention"
+            want = {"flash_attention": n_attn * prefills,
+                    dec: n_attn * sched.decode_steps} if backend is None \
+                else {}
+            run.check("serve_hybrid", f"{tag}: B8 {n_attn} x full prefills, "
+                      f"B6/B7 {n_attn} x decode steps, nothing else",
+                      launched == want, launches=launched,
+                      prefills=prefills, steps=sched.decode_steps)
+            run.check("serve_hybrid", f"{tag}: host_syncs == retired "
+                      "requests", sched.host_syncs == len(reqs),
+                      host_syncs=sched.host_syncs)
+            run.check("serve_hybrid", f"{tag}: every request generated "
+                      f"{SERVE_MAX_NEW} tokens", all(
+                          len(r.output) == SERVE_MAX_NEW and r.done
+                          and all(0 <= x < cfg.vocab_size for x in r.output)
+                          for r in reqs))
+            rec = {"phase": "serve_hybrid", "config": tag, "wall_s": wall,
+                   "launches": launched, "decode_steps": sched.decode_steps,
+                   "full_prefills": prefills, "tokens": stats.tokens_out,
+                   "prefill_s": stats.prefill_s, "decode_s": stats.decode_s,
+                   "decode_tokens_per_s": stats.tok_per_s}
+            if backend is None:
+                rec["sync_window"] = {"start_tick": window.start,
+                                      "ok": window.done}
+                run.check("serve_hybrid", f"{tag}: 8 ticks under sync debug "
+                          "mode 'error' with no retirement", window.done,
+                          start=window.start)
+            if sched._paged:
+                run.check("serve_hybrid", f"{tag}: full allocation, no "
+                          "prefix sharing", sched._alloc_mode == "full"
+                          and not sched.prefix_sharing
+                          and sched.prefix_hits == 0)
+                sched.audit_pages()
+            emit(rec)
+            outs[backend or "cuda"] = [r.output for r in reqs]
+            del eng, sched
+        ok, equal, gaps = _tokens_or_near_ties(torch, cfg, params, reqs,
+                                               outs["cuda"], outs["ref"])
+        run.check("serve_hybrid", f"{name}: greedy tokens on cuda equal ref, "
+                  f"streams parting only at near-ties (gap <= {MOE_GAP})",
+                  ok, requests_equal=equal, gaps=gaps)
+        emit({"phase": "serve_hybrid", "config": name,
+              "tokens_equal_ref": outs["cuda"] == outs["ref"],
+              "requests_equal": f"{equal}/{len(reqs)}",
+              "long_request_equal": outs["cuda"][2] == outs["ref"][2],
+              "divergence_logit_gaps": gaps})
+        torch.cuda.empty_cache()
+    counts = kops.launches()                         # read just after
+    path = {"flash_attention": counts["flash_attention"],
+            "decode_attention": counts["decode_attention"],
+            "decode_attention_paged": counts["decode_attention_paged_q8"]}
+    emit({"phase": "serve_hybrid", "main_path_launches": path})
+    # three prompts layer by layer on the same input, the long one first
+    reqs = hybrid_requests(np, cfg, SEED + 110)
+    layerwise = []
+    for r in (reqs[2], reqs[0], reqs[3]):
+        toks = torch.tensor([r.prompt], device=DEVICE)
+        res = _hybrid_prefill_layerwise(torch, cfg, params, toks)
+        layerwise.append({"prompt": len(r.prompt), **res})
+        for part, v in res.items():
+            run.check("serve_hybrid", f"prefill of {len(r.prompt)} tokens, "
+                      f"every layer on the same input: {part} (rtol/atol "
+                      f"{HYBRID_TOL})", v["mismatches"] == 0, **v)
+    emit({"phase": "serve_hybrid", "prefill_layerwise": layerwise})
+    long_toks = torch.tensor([reqs[2].prompt], device=DEVICE)
+    scan = _hybrid_scan_fp64(torch, cfg, params, long_toks)
+    run.check("serve_hybrid", f"the doubling scan at T {scan['T']} x "
+              f"{scan['width']} vs a sequential fp64 recurrence (atol "
+              f"{HYBRID_TOL} x max(1, max |h|))", scan["max_abs_err"]
+              <= HYBRID_TOL * max(1.0, scan["max_abs_h"]), **scan)
+    e2e = _hybrid_prefill_end_to_end(torch, cfg, params, long_toks)
+    emit({"phase": "serve_hybrid", "scan_fp64": scan,
+          "prefill_end_to_end": {"prompt": HYBRID_LONG, **e2e}})
+    # a warm run: decode tokens/s and TTFT from the scheduler's counters
+    eng = ServingEngine(cfg, params, max_batch=8, cache_len=HYBRID_CACHE_LEN,
+                        device=DEVICE)
+    eng.generate_batch(serve_requests(np, cfg, SEED + 111, n=8, hi=50))
+    sched = eng.scheduler()
+    sched.metrics.reset()
+    stats = eng.generate_batch(hybrid_requests(np, cfg, SEED + 112))
+    ttft = sched.metrics.histogram("req.ttft_s").snapshot()
+    del eng, sched
+    steady = {name: _hybrid_steady(torch, np, cfg, params, name)
+              for name in MOE_CONFIGS}
+    prefill = [hybrid_prefill_profile(torch, cfg, params, torch.tensor(
+        [r.prompt[:n]], device=DEVICE)) for r, n in
+        ((reqs[2], PREFILL_SEQ), (reqs[2], HYBRID_LONG))]
+    gen = torch.Generator().manual_seed(SEED + 115)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(DEVICE)
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    b8 = {f"1x{sq}": _b8_prefill_times(torch, randn, h, kvh, d, sq=sq,
+                                       window=cfg.local_window)
+          for sq in (PREFILL_SEQ, HYBRID_LONG)}
+    for shape, t in b8.items():
+        run.check("serve_hybrid", f"B8 at the {shape} prefill: SDPA "
+                  "computes the kernel's function (atol 1e-4)",
+                  t["library_vs_kernel_max_abs"] <= 1e-4,
+                  err=t["library_vs_kernel_max_abs"])
+    # B6 at 8 lanes of one valid length on 12 synthetic layers: how its
+    # time grows with the splits a lane fills (the last CTA merges them)
+    by_valid = {}
+    for v in (32, 512, HYBRID_CACHE_LEN):
+        cases = [decode_case(torch, gen, DEVICE, b=8, kvh=kvh, g=h // kvh,
+                             dtype="float32", layout="bksd", paged=False,
+                             s=HYBRID_CACHE_LEN, d=d, valid=[v] * 8)
+                 for _ in range(n_attn)]
+        rec = decode_launch_record(torch, cases, h, d, plain=False)
+        by_valid[v] = {k: rec[k] for k in ("device_us", "bound_ms",
+                                           "share_of_bound",
+                                           "max_abs_err_fp64")}
+        by_valid[v]["splits_used"] = dattn.splits_used(dattn.plan(
+            8, kvh, h // kvh, d, 4, slots=HYBRID_CACHE_LEN), v)
+        del cases
+    for name, st in steady.items():
+        run.check("serve_hybrid", f"{name} at the live lanes: SDPA computes "
+                  "the kernel's function (atol 1e-4)",
+                  st["kernel"]["library_vs_kernel_max_abs"] <= 1e-4,
+                  err=st["kernel"]["library_vs_kernel_max_abs"])
+    emit({"phase": "serve_hybrid", "card": card["nvidia_smi"], "warm": True,
+          "requests": SERVE_REQUESTS + 1, "max_new": SERVE_MAX_NEW,
+          "decode_tokens_per_s": stats.tok_per_s, "decode_s": stats.decode_s,
+          "prefill_s": stats.prefill_s, "ttft_s": ttft, "steady": steady,
+          "b8_prefill": b8, "b6_by_valid_len": by_valid,
+          "prefill_profile": prefill})
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": path, "b8_prefill": b8,
+            "decode": {name: st["kernel"] for name, st in steady.items()}}
+
+
+def _hybrid_decode_row(t):
+    """The RecurrentGemma-9B fields of a B6/B7 row from one cache form's
+    _time_decode_kernel record."""
+    t = t or {}
+    return {k: t.get(k) for k in (
+        "ms", "device_us", "bound_ms", "bound_by", "share_of_bound",
+        "plain_ms", "library_ms", "library_device_us", "max_abs_err_fp64",
+        "rms_err_fp64", "valid_len", "heads", "kv_heads", "head_dim")}
+
+
 def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
-                train_launches, rwkv_launches, int8, host, max_err):
+                train_launches, rwkv_launches, int8, host, max_err,
+                hybrid=None):
     """The ``{"kernels": [...]}`` entries: slice 1's kernels timed over one
     NIN forward at batch 8 (B2 from b2_times, with device µs; B1, which
     NIN no longer runs, over LeNet's two dense layers at batch 8), their
@@ -4151,8 +4743,12 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
     RWKV-6 prefill's shape, its launches from the RWKV-6 serve path; B11
     per launch at a prompt's wq product (300 x 1536 x 1536) of the
     Granite-MoE int8 artifact, its launches from the artifact path, the
-    other three shapes beside it.  Each row also carries the wrapper's
-    host µs per launch from launch_path."""
+    other three shapes beside it.  B6, B7 and B8 also count the launches
+    of the RecurrentGemma-9B serve path and carry its times (``hybrid``:
+    B6/B7 at its live lanes, D 256, G 16; B8 at its 1 x 300 and 1 x 2100
+    prefills, window 2048).  Each row also carries the wrapper's host µs
+    per launch from launch_path."""
+    hyb_launches = (hybrid or {}).get("launches") or {}
     rows = []
     nin, lenet = (cnn_launches or {}).get("nin-cifar10") or {}, \
         (cnn_launches or {}).get("lenet-mnist") or {}
@@ -4182,10 +4778,13 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
     for name, (source, replaces) in DECODE_SOURCES.items():
         t = (dec or {}).get("paged-int8" if "paged" in name else "ring-fp32",
                             {})
+        config = "paged-int8" if "paged" in name else "ring-fp32"
+        by_path = {"serve (TinyLlama)": (serve_launches or {}).get(name, 0),
+                   "serve_hybrid": hyb_launches.get(name, 0)}
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": (serve_launches or {}).get(name, 0),
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max_err.get(name),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
@@ -4198,17 +4797,21 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
                 "valid_len", "ms", "device_us", "bound_ms", "share_of_bound",
                 "library_ms", "library_device_us", "max_abs_err_fp64",
                 "rms_err_fp64")},
+            "hybrid": _hybrid_decode_row(
+                ((hybrid or {}).get("decode") or {}).get(config)),
             "ms_per": "one launch (one layer of a decode step), TinyLlama, "
                       "batch 8, " + ("paged int8" if "paged" in name
                                      else "ring fp32")})
     for name, (source, replaces) in FLASH_SOURCES.items():
         t = (flash or {}).get(name, {})
         b8 = name == "flash_attention"
+        by_path = {"serve (TinyLlama)": (serve_launches or {}).get(name, 0),
+                   "serve_hybrid": hyb_launches.get(name, 0)} if b8 \
+            else {"train": (train_launches or {}).get(name, 0)}
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": ((serve_launches if b8 else train_launches)
-                         or {}).get(name, 0),
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "launches_on": "serve (prefill)" if b8 else "train",
             "max_abs_err": max_err.get(name),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
@@ -4221,6 +4824,8 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
             "bound_unit": t.get("bound_unit"),
             "bound_ffma_ms": t.get("bound_ffma_ms"),
             **({"prefill": t["prefill"]} if "prefill" in t else {}),
+            **({"hybrid_prefill": (hybrid or {}).get("b8_prefill")}
+               if b8 else {}),
             "ms_per": "one launch (one layer), TinyLlama heads, batch 4 x "
                       "2048, fp32, causal"})
     t = (wkv or {}).get("1x300x40x64", {})
@@ -4322,6 +4927,8 @@ def main() -> int:
             timed("profile", phase_profile, torch, np, engine, card)
         b2 = timed("b2_times", phase_b2_times, run, torch,
                    graphs["nin-cifar10"], card)
+        timed("fft_conv", phase_fft_conv, run, torch, np,
+              graphs["nin-cifar10"], card)
     del engine
     host = timed("launch_path", phase_launch_path, run, torch, card)
     # slice 2: TinyLlama / Qwen3 through ServingEngine and MultiModelServer
@@ -4379,9 +4986,14 @@ def main() -> int:
                  store_root) is not None:
             int8 = timed("int8_kernels", phase_int8_kernels, run, torch, np,
                          store_root, card)
+    # slice 12: RecurrentGemma-9B on B8 and B6/B7, once Granite is freed
+    # (and whatever earlier phases left in reference cycles)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid = timed("serve_hybrid", phase_serve_hybrid, run, torch, np, card)
     kernels = kernel_rows(totals, b2, dec, flash, wkv, cnn_launches,
                           serve_launches, train_launches, rwkv_launches,
-                          int8, host, run.max_err)
+                          int8, host, run.max_err, hybrid)
     for k in kernels:
         run.check("summary", f"{k['name']} launched on the main path",
                   k["launches"] > 0)

@@ -5,9 +5,9 @@ nothing of the JAX package.  The fields are the JAX package's, one for
 one, so a spec that either package publishes (``dataclasses.asdict`` of
 the config) loads in the other.  Registered here: the two CNN configs of
 the paper's inference path, the two dense transformers of the serving
-path, RWKV-6 Finch 3B and the two MoE decoders (Granite-MoE 3B-A800M,
-Qwen3-MoE 235B-A22B).  ``reduced()`` derives the CPU test variant
-from the same config.
+path, RWKV-6 Finch 3B, the two MoE decoders (Granite-MoE 3B-A800M,
+Qwen3-MoE 235B-A22B) and the Griffin hybrid RecurrentGemma-9B.
+``reduced()`` derives the CPU test variant from the same config.
 """
 from __future__ import annotations
 
@@ -76,6 +76,22 @@ class ArchConfig:
         return param_count(self, active_only=True)
 
 
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 
 
@@ -102,8 +118,8 @@ def _ensure_loaded():
     # import every config module so its @register runs
     from repro_torch.configs import (  # noqa: F401
         chameleon_34b, granite_moe_3b_a800m, lenet_mnist, llama3_8b,
-        nin_cifar10, qwen3_0_6b, qwen3_8b, qwen3_moe_235b_a22b, rwkv6_3b,
-        tinyllama_1_1b)
+        nin_cifar10, qwen3_0_6b, qwen3_8b, qwen3_moe_235b_a22b,
+        recurrentgemma_9b, rwkv6_3b, tinyllama_1_1b)
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:

@@ -14,8 +14,10 @@ The port of the graph half of ``repro.core.ops``.  Each op registers an
   * ``references``  — names of earlier layers the op consumes (residual
                       adds; breaks the chain-only liveness assumption),
   * ``backends``    — named implementations, looked up per op at apply
-                      time: ``ref`` (plain PyTorch) and ``cuda`` (the
-                      hand-written kernels of ``repro_torch.kernels``),
+                      time: ``ref`` (plain PyTorch), ``cuda`` (the
+                      hand-written kernels of ``repro_torch.kernels``)
+                      and, for ``conv``, ``fft`` (``core/fftconv.py``);
+                      ``REGISTRY.register_backend`` adds more,
   * ``caffe_type`` + ``to_caffe``/``from_caffe`` — the importer schema.
 
 Backend functions have the uniform signature ``fn(x, params, attrs, ctx)``
@@ -101,6 +103,12 @@ class OpRegistry:
         self._ops[spec.kind] = spec
         return spec
 
+    def register_backend(self, kind: str, name: str, fn: Callable) -> None:
+        """Add (or replace) the implementation ``name`` of op ``kind``:
+        the registry's named extension point (``fn(x, params, attrs,
+        ctx)``, as every backend)."""
+        self.op(kind).backends[name] = fn
+
     def op(self, kind: str) -> OpSpec:
         try:
             return self._ops[kind]
@@ -185,6 +193,11 @@ def _conv_ref_b(x, p, a, ctx):
 
 def _conv_cuda_b(x, p, a, ctx):
     return kops.conv2d(x, p["w"], p["b"], stride=a["stride"], pad=a["pad"])
+
+
+def _conv_fft_b(x, p, a, ctx):
+    from repro_torch.core.fftconv import fft_conv2d
+    return fft_conv2d(x, p["w"], p["b"], stride=a["stride"], pad=a["pad"])
 
 
 def _pool_ref_b(x, p, a, ctx):
@@ -301,7 +314,7 @@ REGISTRY.register(OpSpec(
         * a["kernel"] ** 2,
     weight_bytes=lambda a, e:
         a["out_channels"] * a["in_channels"] * a["kernel"] ** 2 * e,
-    backends={"ref": _conv_ref_b, "cuda": _conv_cuda_b},
+    backends={"ref": _conv_ref_b, "cuda": _conv_cuda_b, "fft": _conv_fft_b},
     caffe_type="Convolution",
     to_caffe=_conv_to_caffe, from_caffe=_conv_from_caffe,
     from_block=lambda v: dict(zip(

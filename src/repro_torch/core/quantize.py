@@ -1,8 +1,9 @@
 """Reduced-precision weights: symmetric per-channel int8 over parameter trees.
 
-The port of the parts of ``repro.core.quantize`` that the model store
-and the int8 KV cache use.  The arithmetic is the JAX package's, step for step, so the int8
-payloads and scales of a published artifact are equal in both packages:
+The port of ``repro.core.quantize``: what the model store and the int8
+KV cache use, and the reconstruction error.  The arithmetic is the JAX
+package's, step for step, so the int8 payloads and scales of a published
+artifact are equal in both packages:
 ``scale = max(absmax / 127, SCALE_EPS)`` in fp32, ``q = clip(round(x /
 scale), -127, 127)`` with round-half-to-even (``torch.round`` and
 ``jnp.round`` agree).
@@ -26,6 +27,10 @@ class QTensor:
     q: torch.Tensor          # int8, same shape as original
     scale: torch.Tensor      # f32, shape = (shape[axis],)
     axis: int
+
+    @property
+    def shape(self):
+        return self.q.shape
 
     def _bcast(self, t):
         return t.reshape([-1 if i == self.axis else 1
@@ -66,6 +71,13 @@ def dequantize_block(q: torch.Tensor, scale: torch.Tensor, axis: int = -1,
     ``axis`` and multiply."""
     axis = axis % q.ndim
     return (q.float() * scale.unsqueeze(axis)).to(dtype)
+
+
+def quantization_error(x: torch.Tensor, qt: QTensor) -> float:
+    """Relative L2 reconstruction error."""
+    num = torch.linalg.vector_norm((x - qt.dequantize()).reshape(-1))
+    den = torch.clamp_min(torch.linalg.vector_norm(x.reshape(-1)), 1e-12)
+    return float(num / den)
 
 
 def _is_quantizable(x) -> bool:

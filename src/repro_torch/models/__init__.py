@@ -3,21 +3,20 @@
 The port of ``repro.models``.  Ported families: the dense transformer
 (``dense`` and ``vlm``: training through ``loss_fn`` and serving), RWKV-6
 (``ssm``: serving, and training through ``loss_fn`` on its plain chunked
-WKV), the mixture-of-experts decoder (``moe``: serving and training) and
-the paper's CNNs (``cnn``).
-The others raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+WKV), the mixture-of-experts decoder (``moe``: serving and training), the
+Griffin hybrid (``hybrid``: serving and training) and the paper's CNNs
+(``cnn``).  The encoder-decoder (``audio``) raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.models import common
 
 # family -> the ROADMAP item (queue A) that ports it
-_NOT_PORTED = {"hybrid": "A12 (models/rglru.py)",
-               "audio": "A12 (models/encdec.py)"}
+_NOT_PORTED = {"audio": "A12 (models/encdec.py)"}
 
 
 def get_module(cfg: ArchConfig):
@@ -31,6 +30,9 @@ def get_module(cfg: ArchConfig):
     if fam == "ssm":
         from repro_torch.models import rwkv6
         return rwkv6
+    if fam == "hybrid":
+        from repro_torch.models import rglru
+        return rglru
     if fam == "cnn":
         from repro_torch.models import cnn
         return cnn
@@ -59,3 +61,19 @@ def param_count(cfg: ArchConfig, active_only: bool = False) -> int:
                          cfg.num_experts, cfg.experts_per_token)
         n = n - L * E * 3 * d * f + L * k * 3 * d * f
     return n
+
+
+def effective_window(cfg: ArchConfig, shape: ShapeSpec) -> int:
+    """Window used for a given input shape (0 = full attention)."""
+    if shape.name == "long_500k" and cfg.sliding_window:
+        return cfg.sliding_window
+    return 0
+
+
+def cache_len(cfg: ArchConfig, shape: ShapeSpec) -> int:
+    """Decode cache slots for ``shape``: the hybrid's local window caps
+    its rings; otherwise the window, or the whole sequence."""
+    w = effective_window(cfg, shape)
+    if cfg.family == "hybrid":
+        return min(shape.seq_len, cfg.local_window)
+    return min(shape.seq_len, w) if w else shape.seq_len

@@ -21,9 +21,28 @@ def graph_for(cfg: ArchConfig) -> Graph:
     return Graph.from_spec(spec)
 
 
+def param_template(cfg: ArchConfig):
+    """CNN parameters come from ``Graph.init_params`` (their shapes follow
+    from the graph), so there is no template, as in the JAX package."""
+    raise NotImplementedError(
+        "CNN models initialize via Graph.init_params "
+        "(see repro_torch.core.graph)")
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator):
     return graph_for(cfg).init_params(generator)
 
 
 def forward(cfg: ArchConfig, params, images, **kw):
     return graph_for(cfg).apply(params, images, **kw)
+
+
+def loss_fn(cfg: ArchConfig, params, batch, **kw):
+    """The mean negative log-likelihood of ``batch["labels"]`` under the
+    graph's softmax output, clipped to [1e-9, 1] before the log:
+    (nll, {"loss": nll})."""
+    probs = forward(cfg, params, batch["images"], **kw)
+    logp = torch.log(torch.clamp(probs, 1e-9, 1.0))
+    labels = batch["labels"].long()
+    nll = -torch.gather(logp, -1, labels[:, None]).mean()
+    return nll, {"loss": nll}

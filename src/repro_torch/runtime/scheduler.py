@@ -725,12 +725,16 @@ class ContinuousBatchingScheduler:
         # mid-decode and corrupt its own prefix.  Families whose window
         # wraps by design (rglru's local attention) or that have no KV
         # ring at all (rwkv6) set RING_WRAP_SAFE and skip the guard.
+        # Their prefill also takes a prompt longer than the ring (rglru
+        # keeps its last window of keys, rolled into place; rwkv6 has no
+        # ring), so the prompt-length guards below do not apply to them
+        # either: the JAX package keeps those, and refuses such prompts.
         wrap_safe = getattr(self.mod, "RING_WRAP_SAFE", False)
         if self._paged:
             # pool-capacity guard (the old cache_len bound is obsolete:
             # a lane's logical window wraps at pages_per_lane * page_size
             # like the ring did, but pages must EXIST in the pool)
-            if plen > self._capacity:
+            if not wrap_safe and plen > self._capacity:
                 raise ValueError(
                     f"request {request.uid}: prompt length "
                     f"{len(request.prompt)} (padded to {plen}) exceeds "
@@ -750,7 +754,7 @@ class ContinuousBatchingScheduler:
                     f"request {request.uid}: needs {need} pages but the "
                     f"pool holds only {self.num_pages - 1} allocatable "
                     f"(num_pages={self.num_pages} incl. garbage page)")
-        elif plen > self.cache_len:
+        elif not wrap_safe and plen > self.cache_len:
             raise ValueError(
                 f"request {request.uid}: prompt length "
                 f"{len(request.prompt)} (padded to {plen} by the prefill "

@@ -45,7 +45,7 @@ def one_torch_thread():
 def test_config_list_is_the_jax_list_minus_unported_families():
     unported = {n for n in jlist_configs()
                 if jget_config(n).family in models._NOT_PORTED}
-    assert unported == {"recurrentgemma-9b", "whisper-medium"}
+    assert unported == {"whisper-medium"}
     assert list_configs() == sorted(set(jlist_configs()) - unported)
 
 
