@@ -50,8 +50,10 @@ its seconds:
   decode_kernels  B6 and B7 against their plain versions: TinyLlama,
                   Qwen3, Granite-MoE and RecurrentGemma (16/1 heads of
                   256) heads, B 1 and 8, S 1024, fp32/bf16/int8, both
-                  layouts, fragmented page tables; nothing read past
-                  valid_len; the split-KV kernel's chunk edges, the
+                  layouts, fragmented page tables; Whisper's 'bskd'
+                  shapes (16/16 heads of 64: a 448-slot ring and pages,
+                  the 1500-frame cross cache); nothing read past
+                  valid_len (both layouts); the split-KV kernel's chunk edges, the
                   capacity and past it (reruns bit-equal), a lane alone
                   bit-equal to the lane in a batch of 8, NaN for
                   valid_len 0 and for a page id outside the pool
@@ -75,7 +77,8 @@ its seconds:
                   versions: TinyLlama and Qwen3 heads (head_dim 64, 128)
                   and their reduced configs' (head_dim 32), B 1 and 4, S 1
                   to 2048, window 0 and 256, fp32 and bf16; head_dim 256
-                  (RecurrentGemma, window 2048) and Sq != Sk (Whisper's
+                  (RecurrentGemma, window 2048), Whisper's 1500 x 1500
+                  encoder and Sq != Sk (Whisper's
                   300 x 1500 cross attention, causal and not; rows no key
                   can see); every kernel runs each case twice, bit-equal;
                   causality
@@ -159,9 +162,25 @@ its seconds:
                   tokens/s, TTFT, a decode step by part per cache form,
                   B6/B7 at the live lanes and B8 at 1 x 300 and 1 x
                   2100, beside SDPA
+  slice 13, Whisper-medium serving:
+  serve_audio     Whisper-medium at full width and depth (24 encoder + 24
+                  decoder layers, d 1024, 16/16 heads of 64, 1500 frames;
+                  3.03 GB fp32) through ServingEngine, batch 8, cache 448,
+                  on the kernels and on ``ref`` in ring fp32 and paged
+                  int8: serve_requests' 16 requests, 48 new tokens;
+                  tokens (streams part only at near-ties), B8 72 x full
+                  prefills, B6 (cross) 24 x decode steps and B6/B7 (self,
+                  'bskd') 24 x decode steps, nothing else; 8 ticks under
+                  sync debug mode "error"; a 300-token prompt with random
+                  frames layer by layer (every encoder layer, each decoder
+                  layer's self- and cross-attention and the whole layer)
+                  within 1e-4 of ``ref``; decode tokens/s, TTFT, a decode
+                  step by part per cache form, B6/B7 at the live lanes,
+                  B6 at 8 x 1500 'bskd' (cross), B8 at 1 x 1500 (encoder),
+                  1 x 300 x 1500 (cross) and 1 x 300, beside SDPA
   (cli also runs ``launch.serve`` and ``launch.train`` with ``--model`` /
-  ``--arch`` rwkv6-3b, granite-moe-3b-a800m and recurrentgemma-9b
-  against ``ref``, and ``launch.serve`` with llama3-8b, qwen3-8b and
+  ``--arch`` rwkv6-3b, granite-moe-3b-a800m, recurrentgemma-9b and
+  whisper-medium against ``ref``, and ``launch.serve`` with llama3-8b, qwen3-8b and
   chameleon-34b)
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line, and
@@ -171,6 +190,7 @@ CUDA, or a directory without the repo.
 """
 from __future__ import annotations
 
+import bisect
 import gc
 import json
 import math
@@ -1132,6 +1152,15 @@ DECODE_TOL = (1e-4, 1e-5)                           # rtol, atol
 # (KV, G, D): TinyLlama, Qwen3, Granite-MoE, the reduced Granite and
 # RecurrentGemma-9B's local attention (one KV head for 16 query heads of 256)
 DECODE_HEADS = ((4, 8, 64), (8, 2, 64), (8, 3, 64), (2, 4, 32), (1, 16, 256))
+# Whisper-medium's decode attention, 'bskd', 16/16 heads of 64, 8 lanes:
+# (slots, valid lengths, paged, cache dtypes) for the decoder's
+# self-attention ring of 448 slots (ring and 16-slot pages) and the
+# cross-attention over 1500 encoder frames (every lane's valid length the
+# encoder's)
+WHISPER_SELF = [1, 448, 65, 300, 64, 129, 447, 2]
+WHISPER_DECODE = ((448, WHISPER_SELF, False, ("float32", "bfloat16", "int8")),
+                  (448, WHISPER_SELF, True, ("float32", "int8")),
+                  (1500, [1500] * 8, False, ("float32", "bfloat16")))
 SERVE_REQUESTS = 16
 SERVE_MAX_NEW = 48
 SERVE_CACHE_LEN = 1024
@@ -1259,20 +1288,43 @@ def phase_decode_kernels(run, torch):
                         if not run.check("decode_kernels", what, bad == 0,
                                          max_abs_err=err, mismatches=bad):
                             s["failed"] += 1
+    for s, valid, paged, dtypes in WHISPER_DECODE:
+        fam = "decode_attention_paged" if paged else "decode_attention"
+        for dtype in dtypes:
+            case = decode_case(torch, gen, dev, b=8, kvh=16, g=1,
+                               dtype=dtype, layout="bskd", paged=paged,
+                               valid=valid, s=s, d=64)
+            got = decode_call(kops, ref, case, "bskd")
+            want = decode_call(kops, ref, case, "bskd", plain=True)
+            torch.cuda.synchronize()
+            err, bad = compare(torch, got, want, rtol, atol)
+            run.max_err[fam] = max(run.max_err.get(fam, 0.0), err)
+            summary.setdefault("whisper_bskd", []).append(
+                {"family": fam, "dtype": dtype, "slots": s,
+                 "max_abs_err": err, "mismatches": bad})
+            run.check("decode_kernels", f"{fam} {dtype} bskd at Whisper's "
+                      f"{s} slots, B=8 KV=16 G=1 D=64 (rtol {rtol}, atol "
+                      f"{atol})", bad == 0, max_abs_err=err, mismatches=bad)
     # nothing past a lane's prefix is read: NaN there changes nothing
     for paged in (False, True):
         for dtype in ("float32", "int8"):
-            case = decode_case(torch, gen, dev, b=8, kvh=4, g=8, dtype=dtype,
-                               layout="bksd", paged=paged)
-            clean = decode_call(kops, ref, case, "bksd")
-            poison(torch, case)
-            dirty = decode_call(kops, ref, case, "bksd")
-            torch.cuda.synchronize()
-            ok = bool(torch.isfinite(dirty).all()) and torch.equal(clean, dirty)
-            run.check("decode_kernels", f"nothing read past valid_len "
-                      f"paged={paged} {dtype}", ok)
-            summary.setdefault("nan_past_valid_len", []).append(
-                {"paged": paged, "dtype": dtype, "ok": ok})
+            for layout, heads, s in (("bksd", (4, 8), 1024),
+                                     ("bskd", (16, 1), 448)):
+                case = decode_case(torch, gen, dev, b=8, kvh=heads[0],
+                                   g=heads[1], dtype=dtype, layout=layout,
+                                   paged=paged, s=s,
+                                   valid=None if s == 1024 else WHISPER_SELF)
+                clean = decode_call(kops, ref, case, layout)
+                poison(torch, case, layout)
+                dirty = decode_call(kops, ref, case, layout)
+                torch.cuda.synchronize()
+                ok = bool(torch.isfinite(dirty).all()) and \
+                    torch.equal(clean, dirty)
+                run.check("decode_kernels", f"nothing read past valid_len "
+                          f"paged={paged} {dtype} {layout}", ok)
+                summary.setdefault("nan_past_valid_len", []).append(
+                    {"paged": paged, "dtype": dtype, "layout": layout,
+                     "ok": ok})
     summary["split_kv"] = split_kv_checks(run, torch, gen, dev)
     for key, s in summary.items():
         emit({"phase": "decode_kernels", "check": key, "result": s})
@@ -1339,14 +1391,16 @@ def split_kv_checks(run, torch, gen, dev):
     return rows
 
 
-def poison(torch, case):
+def poison(torch, case, layout="bksd"):
     """NaN (or a wild scale) in every stored slot past each lane's prefix."""
     k, v, sc = case["k"], case["v"], case["scales"]
     nan_k = k.dtype != torch.int8
     targets = [k, v] if nan_k else list(sc)
+    if layout == "bskd":                # slots second: view them as bksd
+        targets = [t.transpose(1, 2) for t in targets]
     for i, n in enumerate(case["valid"].tolist()):
         if "pt" in case:
-            ps = k.shape[2]
+            ps = targets[0].shape[2]
             row = case["pt"][i].tolist()
             shared = {int(p) for j, r in enumerate(case["pt"].tolist())
                       if j != i for p in r[:-(-case["valid"][j].item() // ps)]}
@@ -1606,7 +1660,7 @@ def phase_serve(run, torch, np, card):
 
 
 def parted_lane_logits(torch, kops, cfg, params, opts, make_requests, got,
-                       want):
+                       want, cache_len=SERVE_CACHE_LEN):
     """C4: the first request whose stream on the kernels parts from
     ``ref``'s, replayed through a batch-8 ServingEngine on each backend,
     its lane's logits read at the decode step that chose the first
@@ -1625,7 +1679,7 @@ def parted_lane_logits(torch, kops, cfg, params, opts, make_requests, got,
     saved = kops.launches()
     for backend, name in ((None, "cuda"), ("ref", "ref")):
         eng = ServingEngine(cfg, params, max_batch=8,
-                            cache_len=SERVE_CACHE_LEN, attn_backend=backend,
+                            cache_len=cache_len, attn_backend=backend,
                             device=DEVICE, **opts)
         reqs = make_requests()
         sched = eng.scheduler(max_new_cap=max(r.max_new_tokens for r in reqs))
@@ -1675,7 +1729,12 @@ def divergence_gaps(torch, cfg, params, reqs, got, want):
                 continue
             j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
             toks = torch.tensor([r.prompt + a[:j]], device=DEVICE)
-            out = mod.forward(cfg, params, toks, backend="ref")
+            if cfg.family == "audio":       # the scheduler's zero frames
+                frames = torch.zeros((1, cfg.encoder_seq, cfg.d_model),
+                                     device=DEVICE)
+                out = mod.forward(cfg, params, toks, frames, backend="ref")
+            else:
+                out = mod.forward(cfg, params, toks, backend="ref")
             lg = (out[0] if isinstance(out, tuple) else out)[0, -1]
             gaps.append(float((lg[a[j]] - lg[b[j]]).abs()))
     return gaps
@@ -1898,7 +1957,7 @@ def decode_fp64(torch, case, layout="bksd"):
     return out.reshape(b, h, d)
 
 
-def decode_launch_record(torch, cases, h, d, plain=True):
+def decode_launch_record(torch, cases, h, d, plain=True, layout="bksd"):
     """B6 or B7 per launch over ``cases`` (one a layer, cycled as a decode
     step cycles its layers, so the K/V come from device memory): events ms
     and device µs, the bound from the first case's bytes and its share of
@@ -1909,14 +1968,14 @@ def decode_launch_record(torch, cases, h, d, plain=True):
     from repro_torch.kernels import ref
     n = len(cases)
     nxt = iter(range(1 << 62))
-    got = decode_call(kops, ref, cases[0], "bksd")
-    exact = decode_fp64(torch, cases[0])
+    got = decode_call(kops, ref, cases[0], layout)
+    exact = decode_fp64(torch, cases[0], layout)
     err = got.double() - exact
-    ms = time_ms(torch, lambda: [decode_call(kops, ref, c, "bksd")
+    ms = time_ms(torch, lambda: [decode_call(kops, ref, c, layout)
                                  for c in cases], iters=5) / n
     dev_us = device_us(torch, lambda: decode_call(
-        kops, ref, cases[next(nxt) % n], "bksd"), n=2 * n)[0]
-    b_s, o_s = decode_bound(cases[0], "bksd", h, d)
+        kops, ref, cases[next(nxt) % n], layout), n=2 * n)[0]
+    b_s, o_s = decode_bound(cases[0], layout, h, d)
     rec = {"ms": ms, "device_us": dev_us,
            "bytes_s": b_s, "ops_s": o_s, "bound_ms": 1e3 * max(b_s, o_s),
            "bound_by": "bytes" if b_s >= o_s else "operations",
@@ -1925,20 +1984,21 @@ def decode_launch_record(torch, cases, h, d, plain=True):
            "rms_err_fp64": float(err.pow(2).mean().sqrt()),
            "valid_len": cases[0]["valid"].tolist()}
     if plain:
-        want = decode_call(kops, ref, cases[0], "bksd", plain=True)
+        want = decode_call(kops, ref, cases[0], layout, plain=True)
         perr = want.double() - exact
         rec["plain_ms"] = time_ms(
-            torch, lambda: [decode_call(kops, ref, c, "bksd", plain=True)
+            torch, lambda: [decode_call(kops, ref, c, layout, plain=True)
                             for c in cases], iters=2, reps=3) / n
         rec["plain_max_abs_err_fp64"] = float(perr.abs().max())
         rec["plain_rms_err_fp64"] = float(perr.pow(2).mean().sqrt())
     return rec
 
 
-def decode_library_record(torch, cases):
+def decode_library_record(torch, cases, layout="bksd"):
     """SDPA on the dequantized (and gathered) K/V of ``cases`` with a
     boolean valid mask, per launch: events ms, device µs and its largest
-    distance from the kernel on the first case."""
+    distance from the kernel on the first case ('bskd' K/V are given to
+    SDPA as (B, KV, S, D), transposed outside the timing)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
@@ -1949,8 +2009,10 @@ def decode_library_record(torch, cases):
             k = k * case["scales"][0][..., None]
             v = v * case["scales"][1][..., None]
         if "pt" in case:
-            k = ref.paged_gather(k, case["pt"], layout="bksd")
-            v = ref.paged_gather(v, case["pt"], layout="bksd")
+            k = ref.paged_gather(k, case["pt"], layout=layout)
+            v = ref.paged_gather(v, case["pt"], layout=layout)
+        if layout == "bskd":
+            k, v = k.transpose(1, 2), v.transpose(1, 2)
         kv.append((k.contiguous(), v.contiguous()))
     valid, q = cases[0]["valid"], cases[0]["q"]
     mask = (torch.arange(kv[0][0].shape[2], device=q.device)[None, :]
@@ -1962,7 +2024,7 @@ def decode_library_record(torch, cases):
     def library(i):
         return F.scaled_dot_product_attention(q4, *kv[i], attn_mask=mask,
                                               enable_gqa=True)[:, :, 0]
-    got = decode_call(kops, ref, cases[0], "bksd")
+    got = decode_call(kops, ref, cases[0], layout)
     return {"library_ms": time_ms(torch, lambda: [library(i) for i in range(n)],
                                   iters=5) / n,
             "library_device_us": device_us(
@@ -1970,7 +2032,8 @@ def decode_library_record(torch, cases):
             "library_vs_kernel_max_abs": float((library(0) - got).abs().max())}
 
 
-def _time_decode_kernel(torch, cfg, sched, q8, paged, long=True):
+def _time_decode_kernel(torch, cfg, sched, q8, paged, long=True,
+                        layout="bksd"):
     """B6 or B7 at the main path's shapes and data (the live scheduler's
     layer views and the lanes' valid lengths, every layer with a cache in
     turn), then, with ``long``, at 8 lanes x DECODE_LONG_VALID of 1024
@@ -1983,7 +2046,8 @@ def _time_decode_kernel(torch, cfg, sched, q8, paged, long=True):
     q = torch.randn(b, h, d, generator=gen).to(DEVICE)
     pre = "k_pages" if paged else "k"
     L = cache[pre].shape[0]                         # the layers with a cache
-    capacity = sched._capacity if paged else cache[pre].shape[3]
+    capacity = sched._capacity if paged else \
+        cache[pre].shape[3 if layout == "bksd" else 2]
     valid = torch.from_numpy((sched._host_valid + 1).clip(max=capacity)
                              .astype("int32")).to(DEVICE)
     cases = []
@@ -1996,9 +2060,10 @@ def _time_decode_kernel(torch, cfg, sched, q8, paged, long=True):
         if paged:
             case["pt"] = cache["page_table"]
         cases.append(case)
-    rec = {**decode_launch_record(torch, cases, h, d),
-           **decode_library_record(torch, cases),
-           "batch": b, "heads": h, "kv_heads": kvh, "head_dim": d}
+    rec = {**decode_launch_record(torch, cases, h, d, layout=layout),
+           **decode_library_record(torch, cases, layout),
+           "batch": b, "heads": h, "kv_heads": kvh, "head_dim": d,
+           "layout": layout}
     if not long:
         return rec
     long_cases = [decode_case(torch, gen, DEVICE, b=b, kvh=kvh, g=h // kvh,
@@ -2250,14 +2315,16 @@ FLASH_HEADS = {"tinyllama": (32, 4, 64), "qwen3": (16, 8, 128),
 FLASH_SEQS = (1, 5, 64, 127, 300, 1024, 2048)
 # (name, B, Sq, Sk, H, KV, D, causal, window): RecurrentGemma-9B's local
 # attention (16/1 heads of 256, window 2048; head_dim 256 takes 32-row
-# tiles); Whisper-medium's cross-attention prefill (16/16 heads of 64, a
-# 300-token prompt against 1500 frames), non-causal and causal; and query
+# tiles); Whisper-medium's encoder (1500 frames, non-causal) and its
+# cross-attention prefill (16/16 heads of 64, a 300-token prompt against
+# 1500 frames), non-causal and causal; and query
 # rows that no key can see (Sq > Sk + window - 1), where the kernels give
 # the Pallas kernels' mean of v
 FLASH_EXTRA = (
     ("recurrentgemma", 1, 2500, 2500, 16, 1, 256, True, 2048),
     ("recurrentgemma", 2, 300, 300, 16, 1, 256, True, 2048),
     ("recurrentgemma", 1, 5, 5, 16, 1, 256, True, 2048),
+    ("whisper-encoder", 1, 1500, 1500, 16, 16, 64, False, 0),
     ("whisper-cross", 1, 300, 1500, 16, 16, 64, False, 0),
     ("whisper-cross", 2, 300, 1500, 16, 16, 64, True, 0),
     ("blind-rows", 2, 300, 100, 16, 1, 256, True, 64),
@@ -2621,8 +2688,9 @@ def phase_cli(run, torch, np):
     (B8 in prefill, B6 in decode), and its tokens equal a ``ref`` engine's
     on the bootstrapped weights; ``launch.train`` (reduced TinyLlama) runs
     on B9, its losses equal a ``ref`` run's; then the same for RWKV-6,
-    Granite-MoE and RecurrentGemma-9B, and ``launch.serve`` alone for
-    Llama3-8B, Qwen3-8B and Chameleon-34B (CLI_SERVE_ONLY)."""
+    Granite-MoE, RecurrentGemma-9B and Whisper-medium, and
+    ``launch.serve`` alone for Llama3-8B, Qwen3-8B and Chameleon-34B
+    (CLI_SERVE_ONLY)."""
     from repro_torch.checkpoint.ckpt import load_published
     from repro_torch.core.modelstore import ModelStore
     from repro_torch.kernels import ops as kops
@@ -2699,6 +2767,15 @@ def phase_cli(run, torch, np):
         lambda L, steps: {"flash_attention_fwd": 2 * L * steps,
                           "flash_attention_dq": L * steps,
                           "flash_attention_dkv": L * steps})
+    # Whisper (2 encoder + 2 decoder layers): B9 in each encoder layer
+    # and in each decoder layer's self- and cross-attention, the decoder
+    # layers' forward twice under remat
+    rec["audio"] = _cli_arch(
+        run, torch, np, AUDIO_ARCH, SEED + 91,
+        {"flash_attention", "decode_attention"},
+        lambda L, steps: {"flash_attention_fwd": (L + 2 * 2 * L) * steps,
+                          "flash_attention_dq": (L + 2 * L) * steps,
+                          "flash_attention_dkv": (L + 2 * L) * steps})
     for arch in CLI_SERVE_ONLY:
         rec[arch] = _cli_arch(run, torch, np, arch, SEED + 88,
                               {"flash_attention", "decode_attention"}, None)
@@ -2727,7 +2804,9 @@ def _cli_arch(run, torch, np, arch, seed, serve_kernels, train_want):
     top-2): B8 and B6 in serving, B9 in training.  RecurrentGemma (3
     layers of which one is local attention, 8/1 heads of 32, window 32):
     B8 and B6 in its attention layer, B9 in training; its counts are
-    multiples of the attention layers (:func:`kernel_layers`).  With
+    multiples of the attention layers (:func:`kernel_layers`).
+    Whisper-medium (2 + 2 layers, 8/8 heads of 32, 64 zero frames): B8
+    and B6 (self and cross) in serving, B9 in training.  With
     ``train_want`` None only the serve command line runs."""
     from repro_torch.checkpoint.ckpt import load_published
     from repro_torch.core.modelstore import ModelStore
@@ -2799,16 +2878,20 @@ def visible_pairs(s, window=0):
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def flash_bound(kernel, b, s, h, kvh, d, elem=4, unit="fp32", window=0):
+def flash_bound(kernel, b, s, h, kvh, d, elem=4, unit="fp32", window=0,
+                sk=None, causal=True):
     """(seconds from bytes, seconds from operations) of one call at these
-    shapes, causal (within ``window`` keys): each input read once and each output
+    shapes, causal (within ``window`` keys), or with ``causal`` False
+    every one of ``sk`` keys (default s) for each of s queries: each
+    input read once and each output
     written once; per visible (query, key) pair 2*D flops per product,
     2 products in the forward, 3 in dq (q.k, dO.v, ds.k), 4 in dk/dv
     (q.k, dO.v, p^T dO, ds^T q), at the fp32 peak, or with unit "3xtf32"
     three times as many at the TF32 tensor-core peak (the kernels' 3xTF32
     products)."""
-    pairs = b * h * visible_pairs(s, window)
-    q_bytes, kv_bytes, row_bytes = b * s * h * d * elem, b * s * kvh * d * elem, b * h * s * 4
+    sk = s if sk is None else sk
+    pairs = b * h * (visible_pairs(s, window) if causal else s * sk)
+    q_bytes, kv_bytes, row_bytes = b * s * h * d * elem, b * sk * kvh * d * elem, b * h * s * 4
     if kernel in ("flash_attention", "flash_attention_fwd"):
         nbytes = 2 * q_bytes + 2 * kv_bytes
         nbytes += row_bytes if kernel == "flash_attention_fwd" else 0
@@ -2925,16 +3008,19 @@ def train_step_record(torch, tiny_np):
     return rec
 
 
-def _b8_prefill_times(torch, randn, h, kvh, d, sq=PREFILL_SEQ, window=0):
+def _b8_prefill_times(torch, randn, h, kvh, d, sq=PREFILL_SEQ, window=0,
+                      sk=None, causal=True):
     """B8 at the serving prefill's shape (one 300-token prompt, fp32,
-    causal, or local within ``window`` keys): events ms and device µs
+    causal, or local within ``window`` keys; or, with ``causal`` False,
+    ``sq`` queries against all of ``sk`` keys): events ms and device µs
     against the bound, the plain version and SDPA's forward on the same
     inputs (K/V heads repeated outside the timing; a window past the
     prompt's start as a boolean mask)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
-    q, k, v = randn(1, sq, h, d), randn(1, sq, kvh, d), randn(1, sq, kvh, d)
+    sk = sq if sk is None else sk
+    q, k, v = randn(1, sq, h, d), randn(1, sk, kvh, d), randn(1, sk, kvh, d)
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
@@ -2945,16 +3031,17 @@ def _b8_prefill_times(torch, randn, h, kvh, d, sq=PREFILL_SEQ, window=0):
         mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
 
     def fn():
-        return kops.flash_attention(q, k, v, window=window)
+        return kops.flash_attention(q, k, v, causal=causal, window=window)
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                              is_causal=mask is None)
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None)
+    bound = dict(window=window, sk=sk, causal=causal)
     b_s, o_s = flash_bound("flash_attention", 1, sq, h, kvh, d, unit="3xtf32",
-                           window=window)
+                           **bound)
     return {"ms": time_ms(torch, fn), "device_us": device_us(torch, fn)[0],
             "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(
-                q, k, v, window=window)),
+                q, k, v, causal=causal, window=window)),
             "library_ms": time_ms(torch, sdpa),
             "library_device_us": device_us(torch, sdpa)[0],
             "library_vs_kernel_max_abs": float(
@@ -2962,10 +3049,10 @@ def _b8_prefill_times(torch, randn, h, kvh, d, sq=PREFILL_SEQ, window=0):
             "bound_ms": 1e3 * max(b_s, o_s),
             "bound_by": "bytes" if b_s >= o_s else "operations",
             "bound_ffma_ms": 1e3 * flash_bound("flash_attention", 1, sq, h,
-                                               kvh, d, window=window)[1],
-            "shape": {"batch": 1, "seq": sq, "heads": h, "kv_heads": kvh,
-                      "head_dim": d, "causal": True, "window": window,
-                      "dtype": "float32"}}
+                                               kvh, d, **bound)[1],
+            "shape": {"batch": 1, "seq": sq, "keys": sk, "heads": h,
+                      "kv_heads": kvh, "head_dim": d, "causal": causal,
+                      "window": window, "dtype": "float32"}}
 
 
 def phase_train_times(run, torch, np, tiny_np, card):
@@ -3703,27 +3790,36 @@ def _profile_ranged_ticks(torch, sched, ticks, module, ranges):
         for n, fn in saved.items():
             setattr(module, n, fn)
     events = prof.events()
-
-    def under(e):
-        yield from e.kernels
-        for c in e.cpu_children:
-            yield from under(c)
+    # kernels launched inside a range: the runtime launch calls that start
+    # within its span on its thread, matched to their device events by
+    # correlation id (a kernel launched through ctypes has no aten op
+    # above it that would list it under the range)
+    spans = {}
+    for e in events:
+        if e.name in part_of and not _is_device(e):
+            spans.setdefault(e.thread, []).append(
+                (e.time_range.start, e.time_range.end, part_of[e.name]))
+    for v in spans.values():
+        v.sort()
+    in_range = {}
+    for e in events:
+        if _is_device(e) or not e.name.startswith("cu") \
+                or "Launch" not in e.name or e.thread not in spans:
+            continue
+        rows = spans[e.thread]
+        i = bisect.bisect_right(rows, (e.time_range.start, math.inf)) - 1
+        if i >= 0 and e.time_range.start <= rows[i][1]:
+            in_range[e.id] = rows[i][2]
     parts, total, kernels = {}, 0.0, 0
     for e in events:
         if not _is_device(e) or e.name in part_of:
             continue
         kernels += 1
         total += e.device_time
-        part = "attention (B6/B7)" if "decode_attn" in e.name else \
-            OTHER_MM if _is_gemm(e.name) else OTHER
+        part = in_range.get(e.id) or (
+            "attention (B6/B7)" if "decode_attn" in e.name else
+            OTHER_MM if _is_gemm(e.name) else OTHER)
         parts[part] = parts.get(part, 0.0) + e.device_time
-    for e in events:                 # kernels launched inside the ranges
-        if e.name in part_of and not _is_device(e):
-            for k in under(e):
-                part = OTHER_MM if _is_gemm(k.name) else OTHER
-                parts[part] = parts.get(part, 0.0) - k.duration
-                parts[part_of[e.name]] = \
-                    parts.get(part_of[e.name], 0.0) + k.duration
     return {"ticks": ticks, "wall_ms_per_step": wall_us / ticks / 1e3,
             "device_ms_per_step": total / ticks / 1e3,
             "device_idle_share": 1 - total / wall_us,
@@ -4720,9 +4816,309 @@ def phase_serve_hybrid(run, torch, np, card):
             "decode": {name: st["kernel"] for name, st in steady.items()}}
 
 
-def _hybrid_decode_row(t):
-    """The RecurrentGemma-9B fields of a B6/B7 row from one cache form's
-    _time_decode_kernel record."""
+AUDIO_ARCH = "whisper-medium"
+AUDIO_TOL = 1e-4         # a layer's output on the same input, cuda vs ref
+AUDIO_CACHE_LEN = 448    # Whisper's published decoder context
+AUDIO_PROMPT = 300       # the layer-by-layer prompt, with random frames
+AUDIO_CROSS_PART = "cross-attention decode (B6, bskd, 1500 frames)"
+
+
+def audio_want(cfg, prefills, steps, paged):
+    """The launches of Whisper's main path: B8 for every encoder layer and
+    for each decoder layer's self- and cross-attention per full prefill;
+    per decode step B6 for each layer's cross-attention and B6 (ring fp32)
+    or B7 (paged int8) for its self-attention."""
+    L, E = cfg.num_layers, cfg.encoder_layers
+    want = {"flash_attention": (E + 2 * L) * prefills,
+            "decode_attention": L * steps}
+    dec = "decode_attention_paged_q8" if paged else "decode_attention"
+    want[dec] = want.get(dec, 0) + L * steps
+    return want
+
+
+def _audio_layerwise(torch, cfg, params, toks, frames):
+    """One prompt with random frames, layer by layer on the ``ref``
+    trajectory, each layer from the same input: every encoder layer (B8
+    at 1500 x 1500, non-causal) and, per decoder layer, its causal
+    self-attention (B8), its cross-attention (B8, the prompt against the
+    1500 encoder outputs) and the whole layer with its MLP (which runs no
+    kernel), cuda against ref.  Per part: (max abs error, count outside
+    AUDIO_TOL)."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import encdec as ed
+    out = {}
+
+    def add(part, got, want):
+        err, bad = compare(torch, got, want, AUDIO_TOL, AUDIO_TOL)
+        e0, b0 = out.get(part, (0.0, 0))
+        out[part] = (max(e0, err), b0 + bad)
+    with torch.inference_mode():
+        x = frames + ed.sinusoid(frames.shape[1], cfg.d_model, frames.device)
+        for lp in ed._layers(params["enc"]):
+            y = ed.enc_layer(cfg, lp, x, "ref")
+            add("encoder layer", ed.enc_layer(cfg, lp, x), y)
+            x = y
+        enc_out = cm.layer_norm(x, params["enc_final_ln_w"],
+                                params["enc_final_ln_b"])
+        x = params["embed"][toks]
+        for lp in ed._layers(params["dec"]):
+            a_r = ed._self_attn(cfg, lp, x, backend="ref")[0]
+            add("decoder self-attention", ed._self_attn(cfg, lp, x)[0], a_r)
+            ax_r = ed._cross_attn(cfg, lp, x + a_r, enc_out, "ref")[0]
+            add("cross-attention",
+                ed._cross_attn(cfg, lp, x + a_r, enc_out)[0], ax_r)
+            y = ed._dec_layer(cfg, lp, x, enc_out, backend="ref")[0]
+            add("decoder layer (with its MLP)",
+                ed._dec_layer(cfg, lp, x, enc_out)[0], y)
+            x = y
+    return {k: {"max_abs_err": e, "mismatches": b} for k, (e, b) in out.items()}
+
+
+def audio_prefill_profile(torch, cfg, params, toks):
+    """One admission's prefill (``encdec.prefill`` on the kernels, zero
+    frames, under inference mode): device ms by part, B8 and the cuBLAS
+    products beside the rest (:func:`device_us_by`)."""
+    from repro_torch.models import encdec as ed
+
+    def call():
+        with torch.inference_mode():
+            ed.prefill(cfg, params, toks, AUDIO_CACHE_LEN,
+                       cache_dtype=torch.float32)
+    parts = device_us_by(torch, call, ("flash_fwd", "gemm", "Gemm", ""),
+                         n=2, warm=1)
+    if parts is None:
+        return None
+    mm = parts["gemm"] + parts["Gemm"]
+    return {"prompt": int(toks.shape[1]), "device_ms": parts[""] / 1e3,
+            "b8_ms": parts["flash_fwd"] / 1e3, "matmul_ms": mm / 1e3,
+            "other_ms": (parts[""] - parts["flash_fwd"] - mm) / 1e3}
+
+
+def _time_cross_decode(torch, cfg, sched):
+    """B6 on the cross-attention's 'bskd' caches of the live lanes (8 x
+    1500 frames, every lane's valid length the encoder's, each decoder
+    layer's xk/xv in turn) against the bound, the plain version, fp64 and
+    SDPA (decode_launch_record, decode_library_record)."""
+    cache = sched.state["cache"]
+    b, h, d = sched.max_slots, cfg.num_heads, cfg.resolved_head_dim
+    gen = torch.Generator().manual_seed(SEED + 124)
+    q = torch.randn(b, h, d, generator=gen).to(DEVICE)
+    valid = torch.full((b,), cfg.encoder_seq, dtype=torch.int32,
+                       device=DEVICE)
+    cases = [{"q": q, "k": cache["xk"][l], "v": cache["xv"][l],
+              "scales": None, "valid": valid}
+             for l in range(cache["xk"].shape[0])]
+    return {**decode_launch_record(torch, cases, h, d, layout="bskd"),
+            **decode_library_record(torch, cases, "bskd"),
+            "batch": b, "heads": h, "kv_heads": cfg.num_kv_heads,
+            "head_dim": d, "slots": cfg.encoder_seq, "layout": "bskd"}
+
+
+def _audio_steady(torch, np, cfg, params, name):
+    """One cache form with 8 live lanes: a decode step's device time by
+    part (the cross-attention's B6 apart from the self-attention's B6/B7)
+    and the idle share over 4 ticks; the self-attention's B6 or B7 at the
+    live lanes and, ring fp32, the cross-attention's B6 at 8 x 1500,
+    beside the bound, the plain version and SDPA."""
+    from repro_torch.models import encdec as ed
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, params, max_batch=8, cache_len=AUDIO_CACHE_LEN,
+                        device=DEVICE, **MOE_CONFIGS[name])
+    sched = eng.scheduler(max_new_cap=SERVE_MAX_NEW)
+    for r in serve_requests(np, cfg, SEED + 123, n=8):
+        sched.submit(r)
+    sched.tick()                                     # admits all 8
+    for _ in range(4):
+        sched.tick()
+    profile = _profile_ranged_ticks(
+        torch, sched, 4, ed, {"cross_decode_attention": ("cross_attn",
+                                                         AUDIO_CROSS_PART)})
+    rec = {"config": name, "step_profile": profile,
+           "kernel": _time_decode_kernel(torch, cfg, sched, "int8" in name,
+                                         "paged" in name, long=False,
+                                         layout="bskd")}
+    if "paged" not in name:
+        rec["cross"] = _time_cross_decode(torch, cfg, sched)
+    sched.run()
+    return rec
+
+
+def phase_serve_audio(run, torch, np, card):
+    """Whisper-medium at full width and depth (24 encoder + 24 decoder
+    layers, d 1024, 16/16 heads of 64, 1500 frames, vocab 51865; 758.5 M
+    parameters, 3.03 GB fp32) through ServingEngine at batch 8, cache 448
+    (Whisper's decoder context): serve_requests' 16 greedy requests (5 to
+    300 tokens, zero frames as the scheduler passes none), 48 new tokens,
+    on the kernels and on ``ref``, in ring fp32 and paged int8; tokens
+    equal ``ref`` (streams part only at near-ties, fp32 logit gap <=
+    MOE_GAP, the parted lane's logits logged); exactly audio_want's
+    launches, none on ``ref``; one host sync per request; 8 ticks under
+    sync debug mode "error"; paged lanes allocate incrementally with no
+    prefix sharing.  A 300-token prompt with random frames layer by layer
+    on the same input within AUDIO_TOL (_audio_layerwise).  A warm run's
+    decode tokens/s and TTFT; per cache form a decode step by part and
+    B6/B7 at the live lanes; B6 at 8 x 1500 'bskd' (cross); B8 at the 1 x
+    1500 encoder, the 1 x 300 x 1500 cross and the 1 x 300 decoder
+    shapes beside SDPA; one admission's prefill by part."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving.engine import ServingEngine
+    set_fp32_exact(torch)
+    cfg = get_config(AUDIO_ARCH)
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = device_weights_chunked(np, torch, cfg, SEED + 7)
+    torch.cuda.synchronize()
+    emit({"phase": "serve_audio", "model": cfg.name,
+          "params": cfg.param_count(), "weights_s": time.perf_counter() - t0,
+          "device_memory_allocated_before": before,
+          "device_memory_allocated": torch.cuda.memory_allocated()})
+
+    def make_requests():
+        return serve_requests(np, cfg, SEED + 120)
+    kops.reset_launches()                            # the main path starts
+    for name, opts in MOE_CONFIGS.items():
+        outs = {}
+        for backend in (None, "ref"):
+            window = sync_window(torch) if backend is None else None
+            eng = ServingEngine(cfg, params, max_batch=8,
+                                cache_len=AUDIO_CACHE_LEN,
+                                attn_backend=backend, faults=window,
+                                device=DEVICE, **opts)
+            reqs = make_requests()
+            before = kops.launches()
+            t1 = time.perf_counter()
+            try:
+                stats = eng.generate_batch(reqs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            after = kops.launches()
+            sched = eng.scheduler()
+            tag = f"{name}/{backend or 'cuda'}"
+            launched = {k: after[k] - before[k] for k in after
+                        if after[k] != before[k]}
+            prefills = full_prefills(sched, len(reqs))
+            want = audio_want(cfg, prefills, sched.decode_steps,
+                              sched._paged) if backend is None else {}
+            run.check("serve_audio", f"{tag}: B8 (24 + 2 x 24) x full "
+                      "prefills, B6 (cross) and B6/B7 (self) 24 x decode "
+                      "steps each, nothing else", launched == want,
+                      launches=launched, want=want, prefills=prefills,
+                      steps=sched.decode_steps)
+            run.check("serve_audio", f"{tag}: host_syncs == retired "
+                      "requests", sched.host_syncs == len(reqs),
+                      host_syncs=sched.host_syncs)
+            run.check("serve_audio", f"{tag}: every request generated "
+                      f"{SERVE_MAX_NEW} tokens", all(
+                          len(r.output) == SERVE_MAX_NEW and r.done
+                          and all(0 <= x < cfg.vocab_size for x in r.output)
+                          for r in reqs))
+            rec = {"phase": "serve_audio", "config": tag, "wall_s": wall,
+                   "launches": launched, "decode_steps": sched.decode_steps,
+                   "full_prefills": prefills, "tokens": stats.tokens_out,
+                   "prefill_s": stats.prefill_s, "decode_s": stats.decode_s,
+                   "decode_tokens_per_s": stats.tok_per_s}
+            if backend is None:
+                rec["sync_window"] = {"start_tick": window.start,
+                                      "ok": window.done}
+                run.check("serve_audio", f"{tag}: 8 ticks under sync debug "
+                          "mode 'error' with no retirement", window.done,
+                          start=window.start)
+            if sched._paged:
+                run.check("serve_audio", f"{tag}: incremental allocation, "
+                          "no prefix sharing", sched._alloc_mode ==
+                          "incremental" and not sched.prefix_sharing
+                          and sched.prefix_hits == 0)
+                sched.audit_pages()
+            emit(rec)
+            outs[backend or "cuda"] = [r.output for r in reqs]
+            del eng, sched
+        ok, equal, gaps = _tokens_or_near_ties(torch, cfg, params, reqs,
+                                               outs["cuda"], outs["ref"])
+        run.check("serve_audio", f"{name}: greedy tokens on cuda equal ref, "
+                  f"streams parting only at near-ties (gap <= {MOE_GAP})",
+                  ok, requests_equal=equal, gaps=gaps)
+        rec = {"phase": "serve_audio", "config": name,
+               "tokens_equal_ref": outs["cuda"] == outs["ref"],
+               "requests_equal": f"{equal}/{len(reqs)}",
+               "divergence_logit_gaps": gaps}
+        if outs["cuda"] != outs["ref"]:
+            rec["parted_lane_logits"] = parted_lane_logits(
+                torch, kops, cfg, params, opts, make_requests, outs["cuda"],
+                outs["ref"], cache_len=AUDIO_CACHE_LEN)
+        emit(rec)
+        torch.cuda.empty_cache()
+    counts = kops.launches()                         # read just after
+    path = {"flash_attention": counts["flash_attention"],
+            "decode_attention": counts["decode_attention"],
+            "decode_attention_paged": counts["decode_attention_paged_q8"]}
+    emit({"phase": "serve_audio", "main_path_launches": path})
+    # a 300-token prompt with random frames, layer by layer
+    gen = torch.Generator().manual_seed(SEED + 121)
+    frames = torch.randn(1, cfg.encoder_seq, cfg.d_model,
+                         generator=gen).to(DEVICE)
+    toks = torch.tensor([np.random.default_rng(SEED + 122).integers(
+        1, cfg.vocab_size, AUDIO_PROMPT).tolist()], device=DEVICE)
+    layerwise = _audio_layerwise(torch, cfg, params, toks, frames)
+    for part, v in layerwise.items():
+        run.check("serve_audio", f"prompt of {AUDIO_PROMPT} tokens, random "
+                  f"frames, every layer on the same input: {part} "
+                  f"(rtol/atol {AUDIO_TOL})", v["mismatches"] == 0, **v)
+    emit({"phase": "serve_audio", "prefill_layerwise": layerwise})
+    # a warm run (the runs above warmed the kernels and cuBLAS): decode
+    # tokens/s and TTFT from the scheduler's counters
+    eng = ServingEngine(cfg, params, max_batch=8, cache_len=AUDIO_CACHE_LEN,
+                        device=DEVICE)
+    sched = eng.scheduler(max_new_cap=SERVE_MAX_NEW)
+    stats = eng.generate_batch(serve_requests(np, cfg, SEED + 126))
+    ttft = sched.metrics.histogram("req.ttft_s").snapshot()
+    roofline = {k: v for k, v in sched.roofline_stats().items()
+                if k in ("bytes_per_token", "mbu", "mfu",
+                         "roofline_tok_per_s")}
+    del eng, sched
+    steady = {name: _audio_steady(torch, np, cfg, params, name)
+              for name in MOE_CONFIGS}
+    prefill = audio_prefill_profile(torch, cfg, params, toks)
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(DEVICE)
+    b8 = {"encoder 1x1500": _b8_prefill_times(
+              torch, randn, h, kvh, d, sq=cfg.encoder_seq, causal=False),
+          "cross 1x300x1500": _b8_prefill_times(
+              torch, randn, h, kvh, d, sq=PREFILL_SEQ, sk=cfg.encoder_seq,
+              causal=False),
+          "decoder 1x300": _b8_prefill_times(torch, randn, h, kvh, d)}
+    for shape, t in b8.items():
+        run.check("serve_audio", f"B8 at the {shape} shape: SDPA computes "
+                  "the kernel's function (atol 1e-4)",
+                  t["library_vs_kernel_max_abs"] <= 1e-4,
+                  err=t["library_vs_kernel_max_abs"])
+    for name, st in steady.items():
+        for what, k in (("self-attention", st["kernel"]),
+                        ("cross-attention", st.get("cross"))):
+            if k is not None:
+                run.check("serve_audio", f"{name} {what} at the live lanes: "
+                          "SDPA computes the kernel's function (atol 1e-4)",
+                          k["library_vs_kernel_max_abs"] <= 1e-4,
+                          err=k["library_vs_kernel_max_abs"])
+    emit({"phase": "serve_audio", "card": card["nvidia_smi"], "warm": True,
+          "requests": SERVE_REQUESTS, "max_new": SERVE_MAX_NEW,
+          "decode_tokens_per_s": stats.tok_per_s, "decode_s": stats.decode_s,
+          "prefill_s": stats.prefill_s, "ttft_s": ttft, "roofline": roofline,
+          "steady": steady, "b8": b8, "prefill_profile": prefill})
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": path, "b8": b8,
+            "decode": {name: st["kernel"] for name, st in steady.items()},
+            "cross": steady["ring-fp32"]["cross"]}
+
+
+def _decode_row(t):
+    """The fields of a B6/B7 row from a _time_decode_kernel (or
+    _time_cross_decode) record of the hybrid's or Whisper's serve path."""
     t = t or {}
     return {k: t.get(k) for k in (
         "ms", "device_us", "bound_ms", "bound_by", "share_of_bound",
@@ -4732,7 +5128,7 @@ def _hybrid_decode_row(t):
 
 def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
                 train_launches, rwkv_launches, int8, host, max_err,
-                hybrid=None):
+                hybrid=None, audio=None):
     """The ``{"kernels": [...]}`` entries: slice 1's kernels timed over one
     NIN forward at batch 8 (B2 from b2_times, with device µs; B1, which
     NIN no longer runs, over LeNet's two dense layers at batch 8), their
@@ -4746,9 +5142,13 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
     other three shapes beside it.  B6, B7 and B8 also count the launches
     of the RecurrentGemma-9B serve path and carry its times (``hybrid``:
     B6/B7 at its live lanes, D 256, G 16; B8 at its 1 x 300 and 1 x 2100
-    prefills, window 2048).  Each row also carries the wrapper's host µs
-    per launch from launch_path."""
+    prefills, window 2048); and those of the Whisper-medium serve path
+    (``audio``: B6/B7 at its live lanes, 'bskd', D 64, G 1, the cross
+    attention's B6 at 8 x 1500; B8 at its 1 x 1500 encoder, 1 x 300 x 1500
+    cross and 1 x 300 decoder shapes).  Each row also carries the
+    wrapper's host µs per launch from launch_path."""
     hyb_launches = (hybrid or {}).get("launches") or {}
+    aud_launches = (audio or {}).get("launches") or {}
     rows = []
     nin, lenet = (cnn_launches or {}).get("nin-cifar10") or {}, \
         (cnn_launches or {}).get("lenet-mnist") or {}
@@ -4780,7 +5180,9 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
                             {})
         config = "paged-int8" if "paged" in name else "ring-fp32"
         by_path = {"serve (TinyLlama)": (serve_launches or {}).get(name, 0),
-                   "serve_hybrid": hyb_launches.get(name, 0)}
+                   "serve_hybrid": hyb_launches.get(name, 0),
+                   "serve_audio": aud_launches.get(name, 0)}
+        audio_dec = ((audio or {}).get("decode") or {}).get(config)
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -4797,8 +5199,11 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
                 "valid_len", "ms", "device_us", "bound_ms", "share_of_bound",
                 "library_ms", "library_device_us", "max_abs_err_fp64",
                 "rms_err_fp64")},
-            "hybrid": _hybrid_decode_row(
+            "hybrid": _decode_row(
                 ((hybrid or {}).get("decode") or {}).get(config)),
+            "audio_self": _decode_row(audio_dec),
+            **({"audio_cross": _decode_row((audio or {}).get("cross"))}
+               if "paged" not in name else {}),
             "ms_per": "one launch (one layer of a decode step), TinyLlama, "
                       "batch 8, " + ("paged int8" if "paged" in name
                                      else "ring fp32")})
@@ -4806,7 +5211,8 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
         t = (flash or {}).get(name, {})
         b8 = name == "flash_attention"
         by_path = {"serve (TinyLlama)": (serve_launches or {}).get(name, 0),
-                   "serve_hybrid": hyb_launches.get(name, 0)} if b8 \
+                   "serve_hybrid": hyb_launches.get(name, 0),
+                   "serve_audio": aud_launches.get(name, 0)} if b8 \
             else {"train": (train_launches or {}).get(name, 0)}
         rows.append({
             "name": name, "route": "cuda", "source": source,
@@ -4824,8 +5230,8 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
             "bound_unit": t.get("bound_unit"),
             "bound_ffma_ms": t.get("bound_ffma_ms"),
             **({"prefill": t["prefill"]} if "prefill" in t else {}),
-            **({"hybrid_prefill": (hybrid or {}).get("b8_prefill")}
-               if b8 else {}),
+            **({"hybrid_prefill": (hybrid or {}).get("b8_prefill"),
+                "audio_prefill": (audio or {}).get("b8")} if b8 else {}),
             "ms_per": "one launch (one layer), TinyLlama heads, batch 4 x "
                       "2048, fp32, causal"})
     t = (wkv or {}).get("1x300x40x64", {})
@@ -4991,9 +5397,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     hybrid = timed("serve_hybrid", phase_serve_hybrid, run, torch, np, card)
+    # slice 13: Whisper-medium on B8 and B6/B7, once the hybrid is freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    audio = timed("serve_audio", phase_serve_audio, run, torch, np, card)
     kernels = kernel_rows(totals, b2, dec, flash, wkv, cnn_launches,
                           serve_launches, train_launches, rwkv_launches,
-                          int8, host, run.max_err, hybrid)
+                          int8, host, run.max_err, hybrid, audio)
     for k in kernels:
         run.check("summary", f"{k['name']} launched on the main path",
                   k["launches"] > 0)

@@ -6,7 +6,8 @@ one, so a spec that either package publishes (``dataclasses.asdict`` of
 the config) loads in the other.  Registered here: the two CNN configs of
 the paper's inference path, the two dense transformers of the serving
 path, RWKV-6 Finch 3B, the two MoE decoders (Granite-MoE 3B-A800M,
-Qwen3-MoE 235B-A22B) and the Griffin hybrid RecurrentGemma-9B.
+Qwen3-MoE 235B-A22B), the Griffin hybrid RecurrentGemma-9B and the
+encoder-decoder Whisper-medium.
 ``reduced()`` derives the CPU test variant from the same config.
 """
 from __future__ import annotations
@@ -119,7 +120,7 @@ def _ensure_loaded():
     from repro_torch.configs import (  # noqa: F401
         chameleon_34b, granite_moe_3b_a800m, lenet_mnist, llama3_8b,
         nin_cifar10, qwen3_0_6b, qwen3_8b, qwen3_moe_235b_a22b,
-        recurrentgemma_9b, rwkv6_3b, tinyllama_1_1b)
+        recurrentgemma_9b, rwkv6_3b, tinyllama_1_1b, whisper_medium)
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:

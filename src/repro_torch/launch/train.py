@@ -77,6 +77,10 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
     t0 = time.perf_counter()
     for step in range(steps):
         b = to_device(data.batch(step), dev)
+        if cfg.family == "audio":
+            # the stubbed audio frontend: zero frame embeddings
+            b["frames"] = torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                      dtype=torch.float32, device=dev)
         params, opt_state, metrics = step_fn(params, opt_state, b)
         loss = float(metrics["loss"])
         losses.append(loss)

@@ -1,12 +1,12 @@
 """Model registry: family -> module, plus uniform entry points.
 
-The port of ``repro.models``.  Ported families: the dense transformer
-(``dense`` and ``vlm``: training through ``loss_fn`` and serving), RWKV-6
-(``ssm``: serving, and training through ``loss_fn`` on its plain chunked
-WKV), the mixture-of-experts decoder (``moe``: serving and training), the
-Griffin hybrid (``hybrid``: serving and training) and the paper's CNNs
-(``cnn``).  The encoder-decoder (``audio``) raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+The port of ``repro.models``.  Every family of the JAX package: the
+dense transformer (``dense`` and ``vlm``: training through ``loss_fn`` and
+serving), RWKV-6 (``ssm``: serving, and training through ``loss_fn`` on
+its plain chunked WKV), the mixture-of-experts decoder (``moe``: serving
+and training), the Griffin hybrid (``hybrid``: serving and training), the
+Whisper-style encoder-decoder (``audio``: serving and training; its
+``loss_fn`` batch carries ``frames``) and the paper's CNNs (``cnn``).
 """
 from __future__ import annotations
 
@@ -14,9 +14,6 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.models import common
-
-# family -> the ROADMAP item (queue A) that ports it
-_NOT_PORTED = {"audio": "A12 (models/encdec.py)"}
 
 
 def get_module(cfg: ArchConfig):
@@ -33,12 +30,12 @@ def get_module(cfg: ArchConfig):
     if fam == "hybrid":
         from repro_torch.models import rglru
         return rglru
+    if fam == "audio":
+        from repro_torch.models import encdec
+        return encdec
     if fam == "cnn":
         from repro_torch.models import cnn
         return cnn
-    if fam in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {fam!r} is not ported yet: ROADMAP {_NOT_PORTED[fam]}")
     raise KeyError(f"unknown family {fam!r}")
 
 

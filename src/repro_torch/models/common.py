@@ -6,9 +6,10 @@ Parameters are nested dicts of tensors whose structure is described once
 by a template tree of ``P`` leaves, as in the JAX package, so the store
 format and ``convert.params_from_numpy`` stay one-to-one with it.
 
-Two parity hazards live here.  ``rms_norm`` scales by ``(1 + weight)``
+Three parity hazards live here.  ``rms_norm`` scales by ``(1 + weight)``
 (the norm weights start at zero), which ``torch.nn.RMSNorm`` does not.
 RoPE rotates split halves (llama's rotate-half), not interleaved pairs.
+``gelu`` is the tanh form, ``jax.nn.gelu``'s default, not torch's erf.
 
 Where the JAX code rebuilds an array (``.at[...].set``), the cache
 writes here update the cache tensors in place and return them.
@@ -100,10 +101,30 @@ def rms_norm(x, weight, eps=1e-6):
     return (x * (1.0 + weight.float())).to(dtype)
 
 
+def layer_norm(x, weight, bias, eps=1e-5):
+    """LayerNorm over the last axis in fp32 (biased variance), cast back
+    to ``x``'s dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dtype)
+
+
 def swiglu(x, w_gate, w_up, w_down):
     g = x @ w_gate
     u = x @ w_up
     return (torch.nn.functional.silu(g) * u) @ w_down
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh form (torch's default is erf)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out):
+    return gelu(x @ w_in + b_in) @ w_out + b_out
 
 
 # ---------------------------------------------------------------------------

@@ -174,16 +174,11 @@ def causal_conv_step(lp, x, state):
     return y, xp[:, 1:]
 
 
-def _gelu(x):
-    # jax.nn.gelu's default is the tanh form; torch's default is erf
-    return F.gelu(x, approximate="tanh")
-
-
 def rec_block(cfg: ArchConfig, lp, x, conv_state=None, h_state=None):
     """The Griffin recurrent block. x: (B, T, d).  Returns (output, conv
     state, h state)."""
     xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a = _gelu(xn @ lp["w_a"])
+    a = cm.gelu(xn @ lp["w_a"])
     bconv, conv_state = causal_conv(lp, xn @ lp["w_b"], conv_state)
     b, h_state = rg_lru(lp, bconv, h_state)
     return (a * b) @ lp["w_out"], conv_state, h_state
@@ -192,7 +187,7 @@ def rec_block(cfg: ArchConfig, lp, x, conv_state=None, h_state=None):
 def rec_block_step(cfg: ArchConfig, lp, x, conv_state, h_state):
     """x: (B, d) one token."""
     xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a = _gelu(xn @ lp["w_a"])
+    a = cm.gelu(xn @ lp["w_a"])
     bconv, conv_state = causal_conv_step(lp, xn @ lp["w_b"], conv_state)
     b, h_state = rg_lru_step(lp, bconv, h_state)
     return (a * b) @ lp["w_out"], conv_state, h_state

@@ -11,8 +11,10 @@ accounting adds no host sync.
 Per-leaf classification, as in the JAX package: ring slot buffers (``k``,
 ``v`` and the int8 scales) cost ``per_slot_bytes x valid_len`` to read
 plus one slot written per token; paged pools (``*_pages``) the same per
-slot at page granularity, with the table row a fixed read; anything else
-is recurrence state, read and written every token.  The arithmetic lives
+slot at page granularity, with the table row a fixed read; the
+encoder-decoder's cross-attention caches (``xk``/``xv``) are a fixed
+read per token, plus ``4 H D L S_enc`` cross-attention flops; anything
+else is recurrence state, read and written every token.  The arithmetic lives
 on the ``decode_attention`` op's cost hooks (``core/ops``).
 """
 from __future__ import annotations
@@ -89,6 +91,7 @@ class HWSpec:
 # leaves the classifier treats as ring KV slots / their int8 scales
 _RING_KV = ("k", "v")
 _RING_SCALE = ("k_scale", "v_scale")
+_CROSS_KV = ("xk", "xv")
 
 
 def _nbytes(t) -> int:
@@ -123,6 +126,7 @@ class RooflineAccountant:
         attn: Dict[Tuple[int, int], int] = {}   # (cap, block) -> layers
         self._fixed_bytes = 0.0     # read-only per token per lane
         self._state_bytes = 0.0     # recurrence: read+write per token
+        self._cross_flops = 0
         for name, arr in dict(cache).items():
             nbytes = _nbytes(arr)
             if paged and name.endswith("_pages"):
@@ -146,6 +150,12 @@ class RooflineAccountant:
                 slots = arr.numel() // (layers * batch * kv)
                 key = (int(slots), max(1, block))
                 groups[key] = groups.get(key, 0) + nbytes // (batch * slots)
+            elif name in _CROSS_KV:
+                self._fixed_bytes += nbytes / max(1, batch)
+                if name == "xk":
+                    layers = int(arr.shape[0])
+                    enc = arr.numel() // (layers * batch * kv * d)
+                    self._cross_flops += 4 * heads * d * layers * int(enc)
             else:
                 self._state_bytes += 2.0 * nbytes / max(1, batch)
         self._groups: List[Tuple[int, int, int]] = \
@@ -178,8 +188,9 @@ class RooflineAccountant:
 
     def token_flops(self, valid_len: int) -> float:
         """Flops for one lane's token: ragged attention (the op's cost
-        hook) plus 2 flops per active weight."""
-        flops = self.linear_flops_per_token
+        hook), cross-attention where the family has it, and 2 flops per
+        active weight."""
+        flops = self._cross_flops + self.linear_flops_per_token
         for layers, cap, blk in self._attn:
             flops += self._spec.op_flops(
                 {"num_heads": self._heads, "head_dim": self._head_dim,

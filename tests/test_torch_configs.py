@@ -2,9 +2,8 @@
 configs that serve through the transformer: Llama3-8B, Qwen3-8B and
 Chameleon-34B (family ``vlm``, the same decoder).
 
-The port lists every JAX config but those of the families it has not
-ported yet (``models._NOT_PORTED``); each config equals its JAX twin field
-by field, before and after ``reduced``; each reduced model gives the JAX
+The port lists every JAX config (since the audio family came, no family
+is left unported); each config equals its JAX twin field by field, before and after ``reduced``; each reduced model gives the JAX
 package's logits from the same numpy weights (rtol 1e-4 / atol 1e-5: both
 sides compute in fp32 and differ in summation order only); and the serve
 and train command lines bootstrap and run each reduced model on the CPU.
@@ -17,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import models as jmodels
 from repro.configs.base import get_config as jget_config
 from repro.configs.base import list_configs as jlist_configs
 from repro.configs.base import reduced as jreduced
@@ -43,10 +43,13 @@ def one_torch_thread():
 
 
 def test_config_list_is_the_jax_list_minus_unported_families():
-    unported = {n for n in jlist_configs()
-                if jget_config(n).family in models._NOT_PORTED}
-    assert unported == {"whisper-medium"}
-    assert list_configs() == sorted(set(jlist_configs()) - unported)
+    unported = set(jlist_configs()) - set(list_configs())
+    assert unported == set()
+    assert list_configs() == sorted(jlist_configs())
+    for name in list_configs():
+        assert models.get_module(get_config(name)).__name__ == \
+            jmodels.get_module(jget_config(name)).__name__.replace(
+                "repro.", "repro_torch.", 1)
 
 
 @pytest.mark.parametrize("name", NEW)

@@ -1262,3 +1262,119 @@ def test_moe_train_cli_matches_ref(dev, tmp_path):
     _, want = train.train("granite-moe-3b-a800m", steps=2, batch=2, seq=64,
                           device=dev, backend="ref")
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder (Whisper): 'bskd' decode at its shapes, the reduced
+# model served and trained on the kernels against ``ref``
+# ---------------------------------------------------------------------------
+
+# (slots, valid lengths, paged, dtype): the decoder's self-attention ring
+# of 448 slots (Whisper's decoder context) as a ring and as 16-slot pages,
+# and the cross-attention over 1500 encoder frames, every lane's valid
+# length the encoder's
+WHISPER_DECODE = [(448, [1, 448, 65, 300, 64, 129, 447, 2], False, dt)
+                  for dt in (torch.float32, torch.bfloat16, torch.int8)] + \
+    [(448, [1, 448, 65, 300, 64, 129, 447, 2], True, dt)
+     for dt in (torch.float32, torch.int8)] + \
+    [(1500, [1500] * 8, False, dt) for dt in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("s,valid,paged,dtype", WHISPER_DECODE)
+def test_encdec_bskd_decode_at_whisper_shapes(dev, s, valid, paged, dtype):
+    """B6/B7 on layer views of (L, B, S, 16, 64) 'bskd' caches (or (L, P,
+    16, 16, 64) pools), 8 lanes, against the plain versions."""
+    b, kvh, d, ps, L = 8, 16, 64, 16, 3
+    q = randn(dev, b, kvh, d)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    w = s // ps
+    outer = 1 + b * w if paged else b
+    shape = (L, outer, ps, kvh, d) if paged else (L, outer, s, kvh, d)
+    k, v = _cache(dev, shape, dtype, 1)[1], _cache(dev, shape, dtype, 2)[1]
+    sc = None
+    if dtype == torch.int8:
+        sc = (_scales(dev, shape[:4], 3)[1], _scales(dev, shape[:4], 4)[1])
+    if paged:
+        pt = np.random.default_rng(2).permutation(np.arange(1, outer)) \
+            .reshape(b, w).astype(np.int32)
+        for i, n in enumerate(valid):
+            pt[i, -(-n // ps):] = 0
+        pt = torch.from_numpy(pt).to(dev)
+        if sc is None:
+            got = kops.decode_attention_paged(q, k, v, pt, vl, layout="bskd")
+            want = ref.decode_attention_paged_ref(q, k, v, pt, vl,
+                                                  layout="bskd")
+        else:
+            got = kops.decode_attention_paged_q8(q, k, v, *sc, pt, vl,
+                                                 layout="bskd")
+            want = ref.decode_attention_paged_q8_ref(q, k, v, *sc, pt, vl,
+                                                     layout="bskd")
+    elif sc is None:
+        got = kops.decode_attention(q, k, v, vl, layout="bskd")
+        want = ref.decode_attention_ref(q, k, v, vl, layout="bskd")
+    else:
+        got = kops.decode_attention_q8(q, k, v, *sc, vl, layout="bskd")
+        want = ref.decode_attention_q8_ref(q, k, v, *sc, vl, layout="bskd")
+    close(got, want, **DECODE_TOL)
+
+
+def test_encdec_served_on_the_kernels_equals_ref(dev):
+    """Reduced Whisper (2 + 2 layers, 8/8 heads of 32, 64 frames) through
+    ServingEngine in the ring fp32 and paged int8 forms: greedy tokens on
+    the kernels equal ``ref``'s; B8 launches (encoder + decoder self +
+    cross layers) x prefills, B6 (cross) num_layers x decode steps and
+    the self-attention's B6/B7 num_layers x decode steps, none on
+    ``ref``; 8 ticks run under sync debug mode "error"."""
+    from repro_torch import models
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = reduced(get_config("whisper-medium"))
+    params = models.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                device=dev)
+    L, E = cfg.num_layers, cfg.encoder_layers
+    for opts, dec in (({}, "decode_attention"),
+                      ({"kv_layout": "paged", "page_size": 16,
+                        "kv_dtype": "int8"}, "decode_attention_paged_q8")):
+        outs = {}
+        for backend in (None, "ref"):
+            reqs = [Request(uid=i, prompt=list(range(3, 3 + n)),
+                            max_new_tokens=12)
+                    for i, n in enumerate((5, 17, 1, 40))]
+            eng = ServingEngine(cfg, params, max_batch=4, cache_len=64,
+                                attn_backend=backend, device=dev, **opts)
+            kops.reset_launches()
+            sched = eng.scheduler()
+            for r in reqs:
+                sched.submit(r)
+            sched.tick()                       # admits all four
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(8):
+                    sched.tick()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            sched.run()
+            got = {k: v for k, v in kops.launches().items() if v}
+            steps = sched.decode_steps
+            want = {"flash_attention": (E + 2 * L) * len(reqs),
+                    "decode_attention": L * steps}
+            want[dec] = want.get(dec, 0) + L * steps
+            assert got == (want if backend is None else {}), (backend, opts)
+            outs[backend] = [r.output for r in reqs]
+        assert outs[None] == outs["ref"], opts
+
+
+def test_encdec_train_cli_matches_ref(dev, tmp_path):
+    """launch.train --arch whisper-medium (reduced, zero frames): losses
+    on the card (B9 in the encoder, the decoder's self and cross
+    attention) equal a ``ref`` run's."""
+    from repro_torch.launch import train
+    kops.reset_launches()
+    got = train.main(["--arch", "whisper-medium", "--steps", "2",
+                      "--batch", "2", "--seq", "64", "--publish",
+                      str(tmp_path)])
+    # two steps x (2 encoder + 2 x 2 decoder attentions)
+    assert kops.launches()["flash_attention_dq"] == 2 * (2 + 2 * 2)
+    _, want = train.train("whisper-medium", steps=2, batch=2, seq=64,
+                          device=dev, backend="ref")
+    np.testing.assert_allclose(got, want, rtol=1e-4)

@@ -217,12 +217,12 @@ def test_rec_block_matches_jax_with_tanh_gelu(model, with_state):
     to = trg.rec_block_step(cfg, tlp, t(x[:, 0]), t(conv), t(h))
     for a, b in zip(to, jo):
         close(a, b, "rec_block_step")
-    erf = trg._gelu
+    tanh = trg.cm.gelu
     try:
-        trg._gelu = torch.nn.functional.gelu
+        trg.cm.gelu = torch.nn.functional.gelu
         wrong = trg.rec_block(cfg, tlp, t(x), *tst)[0]
     finally:
-        trg._gelu = erf
+        trg.cm.gelu = tanh
     with pytest.raises(AssertionError):
         close(wrong, jrg.rec_block(jcfg, jlp, jnp.asarray(x), *jst)[0])
 
