@@ -125,12 +125,13 @@ its seconds:
                   meta-selector fitted on the card: 6 rounds, every pick
                   its label, B10 in the RWKV rounds; switch_s per round
   slice 5, Granite-MoE serving and B11:
-  serve_moe       Granite-MoE 3B-A800M at full width and depth (32 layers,
-                  d 1536, 24/8 heads of 64, 40 experts top-8, 13.2 GB fp32)
-                  through ServingEngine, batch 8, on the kernels and on
-                  ``ref`` in ring fp32 and paged int8: tokens (streams part
-                  only at near-ties), B8 32 x full prefills and B6/B7 32 x
-                  decode steps, 8 ticks under sync debug mode "error"; each
+  serve_moe       Granite-MoE 3B-A800M at full width, depth cut to 16 of
+                  its 32 layers (d 1536, 24/8 heads of 64, 40 experts
+                  top-8, 6.8 GB fp32) through ServingEngine, batch 8, on
+                  the kernels and on ``ref`` in ring fp32 and paged int8:
+                  tokens (streams part only at near-ties), B8 16 x full
+                  prefills and B6/B7 16 x decode steps, 8 ticks under sync
+                  debug mode "error"; each
                   layer's prefill output on the same input within 1e-4,
                   router flips counted; decode tokens/s, TTFT, a decode
                   step's device time by part beside the weight bytes; then
@@ -178,6 +179,21 @@ its seconds:
                   step by part per cache form, B6/B7 at the live lanes,
                   B6 at 8 x 1500 'bskd' (cross), B8 at 1 x 1500 (encoder),
                   1 x 300 x 1500 (cross) and 1 x 300, beside SDPA
+  slice 14, the launch tooling on a one-rank NCCL mesh:
+  mesh            TinyLlama-1.1B at full width cut to 2 layers, batch 4 x
+                  2048: one step of ``launch.dryrun.build_step`` on
+                  DTensor parameters and AdamW state (rules_for("train"),
+                  attention on the local shards through B9) against the
+                  eager ``make_train_step``: loss (rtol 1e-4), step-1
+                  grads (1e-3 relative norm per leaf), B9 launches equal
+                  to the eager step's, bit-equality reported; Granite-MoE
+                  at full width cut to 2 layers, 4 x 512 tokens, one
+                  forward per moe_impl (dense, a2a, local) against the
+                  eager forward (max |d| <= 1e-5, B8 launches equal); the
+                  full-size ``python -m repro_torch.launch.dryrun --arch
+                  granite-moe-3b-a800m --shape prefill_32k --optimized``
+                  on the (32, 8) fake mesh: exit 0, every roofline term
+                  on the h100-sxm row > 0
   (cli also runs ``launch.serve`` and ``launch.train`` with ``--model`` /
   ``--arch`` rwkv6-3b, granite-moe-3b-a800m, recurrentgemma-9b and
   whisper-medium against ``ref``, and ``launch.serve`` with llama3-8b, qwen3-8b and
@@ -3732,6 +3748,7 @@ def phase_selector(run, torch, np, tiny_np, rwkv_params, store_root):
 # ---------------------------------------------------------------------------
 
 MOE_ARCH = "granite-moe-3b-a800m"
+MOE_SERVE_LAYERS = 16    # serve_moe's depth: 16 of Granite's 32 layers
 MOE_TOL = 1e-4          # a layer's output on the same input, cuda vs ref
 MOE_GAP = 2e-2          # fp32 logit gap of a near-tie where greedy streams part
 MOE_CONFIGS = {"ring-fp32": {},
@@ -3904,13 +3921,14 @@ def _tokens_or_near_ties(torch, cfg, params, reqs, got, want):
 
 
 def phase_serve_moe(run, torch, np, card, store_root):
-    """Granite-MoE 3B-A800M at full width and depth (32 layers, d 1536,
-    24/8 heads of 64, 40 experts top-8 of d_ff 512, vocab 49155, 3.30 B
-    parameters, 13.2 GB in fp32) through ServingEngine at batch 8, cache
+    """Granite-MoE 3B-A800M at full width (d 1536, 24/8 heads of 64, 40
+    experts top-8 of d_ff 512, vocab 49155), depth cut to
+    MOE_SERVE_LAYERS = 16 of its 32 layers (1.71 B parameters, 6.8 GB in
+    fp32) through ServingEngine at batch 8, cache
     1024: the 16 greedy requests of serve_requests on the kernels and on
     ``ref`` in ring fp32 and paged int8; tokens equal ``ref`` (streams
-    part only at near-ties, fp32 logit gap <= MOE_GAP); B8 launches 32 x
-    full prefills and B6/B7 32 x decode steps, none on ``ref``; 8 ticks
+    part only at near-ties, fp32 logit gap <= MOE_GAP); B8 launches 16 x
+    full prefills and B6/B7 16 x decode steps, none on ``ref``; 8 ticks
     under sync debug mode "error".  The prefill of 4 prompts layer by
     layer on the same input within MOE_TOL, router flips counted.  A warm
     run's decode tokens/s and TTFT, a decode step's device time by part,
@@ -3923,8 +3941,10 @@ def phase_serve_moe(run, torch, np, card, store_root):
     from repro_torch.core.modelstore import ModelStore
     from repro_torch.kernels import ops as kops
     from repro_torch.serving.engine import MultiModelServer, ServingEngine
+    import dataclasses
     set_fp32_exact(torch)
-    cfg = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              num_layers=MOE_SERVE_LAYERS)
     t0 = time.perf_counter()
     np_params = numpy_weights_chunked(np, cfg, SEED + 4)
     t_make = time.perf_counter() - t0
@@ -5116,6 +5136,210 @@ def phase_serve_audio(run, torch, np, card):
             "cross": steady["ring-fp32"]["cross"]}
 
 
+# ---------------------------------------------------------------------------
+# slice 14: the launch tooling -- the sharded step on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+MESH_LAYERS = 2                  # depth of both models of the mesh phase
+MESH_TRAIN = dict(batch=4, seq=2048)
+MESH_MOE_TOKENS = (4, 512)
+MESH_MOE_TOL = 1e-5              # max |logit diff| vs the eager forward
+FLASH_KERNELS = ("flash_attention", "flash_attention_fwd",
+                 "flash_attention_dq", "flash_attention_dkv")
+
+
+def _flash_counts(kops):
+    return {k: v for k, v in kops.launches().items() if k in FLASH_KERNELS}
+
+
+def _mesh_train(run, torch, np, mesh, tiny_np):
+    """TinyLlama at full width, 2 layers, one step of dryrun.build_step
+    on DTensors against the eager make_train_step and step-1 grads."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.dryrun import build_step
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim.adamw import (AdamW, cosine_schedule, tree_items,
+                                         tree_map)
+    from repro_torch.sharding_hints import axis_rules
+    cfg, np_params = cut_depth(get_config("tinyllama-1.1b"), tiny_np,
+                               MESH_LAYERS)
+    b, s = MESH_TRAIN["batch"], MESH_TRAIN["seq"]
+    batch0 = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                    global_batch=b, seed=SEED)).batch(0)
+    # eager: the trainer's step (loss, launches), then step-1 grads
+    params = params_from_numpy(np_params, DEVICE, cfg=cfg)
+    for _, x in tree_items(params):
+        x.requires_grad_()
+    opt = AdamW(lr=cosine_schedule(3e-4, 100, 10_000))
+    kops.reset_launches()
+    _, _, metrics = make_train_step(cfg, opt)(params, opt.init(params),
+                                              to_device(batch0, DEVICE))
+    loss_eager = float(metrics["loss"])
+    eager_counts = _flash_counts(kops)
+    del params, metrics
+    _, g_eager = _step1_grads(torch, cfg, np_params, batch0, None)
+    # sharded: the dry run's step on real DTensors
+    rules = shd.rules_for("train")
+    with axis_rules(rules, mesh):
+        step, _, shardings = build_step(cfg, ShapeSpec("mesh_train", s, b,
+                                                       "train"),
+                                        rules, mesh, dtype=torch.float32)
+        params = params_from_numpy(np_params, DEVICE, cfg=cfg)
+        zeros = lambda t: torch.zeros_like(t, dtype=torch.float32)
+        state = {"step": torch.zeros((), dtype=torch.int32, device=DEVICE),
+                 "m": tree_map(zeros, params), "v": tree_map(zeros, params)}
+        args = [shd.distribute(t, p, mesh) for t, p in
+                zip((params, state, to_device(batch0, DEVICE)), shardings)]
+        torch.cuda.synchronize()
+        kops.reset_launches()                        # the main path starts
+        t0 = time.perf_counter()
+        _, _, loss, grads = step(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mesh_counts = _flash_counts(kops)            # read just after
+    loss_mesh = float(loss.full_tensor())
+    rel, bit_equal = {}, loss_mesh == loss_eager
+    for path, g in tree_items(grads):
+        key = "/".join(path)
+        gl, ge = g.full_tensor(), g_eager[key]
+        rel[key] = float((gl - ge).norm() / ge.norm().clamp_min(1e-30))
+        bit_equal &= bool(torch.equal(gl, ge))
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_mesh - loss_eager) / abs(loss_eager)
+    run.check("mesh", f"train: loss vs eager (rtol {TRAIN_LOSS_RTOL})",
+              loss_rel <= TRAIN_LOSS_RTOL, mesh=loss_mesh, eager=loss_eager)
+    run.check("mesh", f"train: step-1 grads vs eager, per leaf ||dg|| / "
+              f"||g|| <= {TRAIN_GRAD_REL}",
+              rel[worst] <= TRAIN_GRAD_REL, worst=worst, rel=rel[worst])
+    L = cfg.num_layers
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_dq": L,
+            "flash_attention_dkv": L}
+    run.check("mesh", "train: B9 launches equal the eager step's "
+              f"(forward 2 x {L}, dq and dk/dv {L})",
+              mesh_counts == eager_counts and
+              all(mesh_counts[k] == v for k, v in want.items()),
+              mesh=mesh_counts, eager=eager_counts)
+    return {"model": cfg.name, "layers": L, "batch": b, "seq": s,
+            "loss": {"mesh": loss_mesh, "eager": loss_eager},
+            "loss_rel": loss_rel, "grad_rel_worst": {worst: rel[worst]},
+            "bit_equal": bit_equal, "launches": mesh_counts,
+            "eager_launches": eager_counts, "step_s": wall}
+
+
+def _mesh_moe(run, torch, np, mesh):
+    """Granite-MoE at full width, 2 layers: one forward per moe_impl on
+    DTensors against the eager forward."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import moe, param_template
+    from repro_torch.sharding_hints import axis_rules
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MESH_LAYERS)
+    np_params = numpy_weights_chunked(np, cfg, SEED + 140)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 141).integers(
+        0, cfg.vocab_size, MESH_MOE_TOKENS)).to(DEVICE)
+    params = params_from_numpy(np_params, DEVICE, cfg=cfg)
+    with torch.no_grad():
+        kops.reset_launches()
+        want, _ = moe.forward(cfg, params, tokens)
+        eager_counts = _flash_counts(kops)
+    out = {}
+    for impl, extra in (("dense", {}), ("a2a", {"tp_ff": None}),
+                        ("local", {"experts": None, "tp_ff": None})):
+        rules = shd.rules_for("train", overrides={"moe_impl": impl, **extra})
+        with axis_rules(rules, mesh), torch.no_grad():
+            dparams = shd.shard_params(params, param_template(cfg), rules,
+                                       mesh)
+            tok = shd.distribute(tokens, shd.struct_shardings(
+                tokens, ("batch", None), rules, mesh), mesh)
+            kops.reset_launches()                    # the main path starts
+            t0 = time.perf_counter()
+            got, aux = moe.forward(cfg, dparams, tok)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _flash_counts(kops)             # read just after
+        got = got.full_tensor()
+        err = float((got - want).abs().max())
+        run.check("mesh", f"moe/{impl}: logits vs eager (max |d| <= "
+                  f"{MESH_MOE_TOL})", err <= MESH_MOE_TOL and
+                  bool(torch.isfinite(got).all()), err=err)
+        run.check("mesh", f"moe/{impl}: B8 launches equal the eager "
+                  f"forward's ({MESH_LAYERS})", counts == eager_counts and
+                  counts["flash_attention"] == MESH_LAYERS, launches=counts)
+        out[impl] = {"max_abs_err": err, "bit_equal": bool(
+            torch.equal(got, want)), "launches": counts, "forward_s": wall}
+    return {"model": cfg.name, "layers": MESH_LAYERS,
+            "tokens": list(MESH_MOE_TOKENS), "impls": out}
+
+
+def _mesh_dryrun(run):
+    """The full-size Granite prefill_32k dry run (optimized: (32, 8) fake
+    mesh, a2a) in a subprocess, as a user runs it."""
+    out = ROOT / "build" / "dryrun_chip"
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           MOE_ARCH, "--shape", "prefill_32k", "--optimized", "--out",
+           str(out)]
+    env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                       env=env, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    files = sorted(out.glob("*.json"))
+    res = json.loads(files[0].read_text()) if files else {}
+    roof = res.get("roofline", {})
+    terms = {k: roof.get(k, 0.0) for k in ("compute_s", "memory_s",
+                                           "collective_s")}
+    run.check("mesh", "dryrun: exit 0, one result, every term > 0",
+              r.returncode == 0 and len(files) == 1 and
+              all(v > 0 for v in terms.values()) and res.get("mesh") ==
+              "32x8", rc=r.returncode, stderr=r.stderr[-1500:])
+    return {"cmd": " ".join(cmd[1:]), "wall_s": wall, "mesh":
+            res.get("mesh"), "hw": res.get("hw"), **terms,
+            "bottleneck": roof.get("bottleneck"),
+            "useful_flops_ratio": roof.get("useful_flops_ratio"),
+            "flops_per_device": res.get("flops_per_device"),
+            "bytes_per_device": res.get("bytes_per_device"),
+            "wire_bytes_per_device": res.get("wire_bytes_per_device"),
+            "collectives": res.get("collectives"), "run_s": res.get("run_s")}
+
+
+def phase_mesh(run, torch, np, tiny_np, card):
+    """The launch tooling on a 1 x 1 NCCL mesh (``make_host_mesh``): the
+    sharded train step of ``dryrun.build_step`` (TinyLlama) and the MoE
+    forward per ``moe_impl`` (Granite) on DTensors, their attention on
+    the local shards through B8/B9, against the eager paths; then the
+    full-size Granite dry run on the H100 row."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    set_fp32_exact(torch)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh()
+        rec = {"phase": "mesh", "card": card["nvidia_smi"],
+               "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               "device_type": mesh.device_type}
+        rec["train"] = _mesh_train(run, torch, np, mesh, tiny_np)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["moe"] = _mesh_moe(run, torch, np, mesh)
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["dryrun"] = _mesh_dryrun(run)
+    emit(rec)
+    return rec
+
+
 def _decode_row(t):
     """The fields of a B6/B7 row from a _time_decode_kernel (or
     _time_cross_decode) record of the hybrid's or Whisper's serve path."""
@@ -5401,6 +5625,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     audio = timed("serve_audio", phase_serve_audio, run, torch, np, card)
+    # slice 14: the sharded step and the MoE bodies on a one-rank NCCL
+    # mesh, and the analytic dry run on the H100 row
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("mesh", phase_mesh, run, torch, np, tiny_np, card)
     kernels = kernel_rows(totals, b2, dec, flash, wkv, cnn_launches,
                           serve_launches, train_launches, rwkv_launches,
                           int8, host, run.max_err, hybrid, audio)

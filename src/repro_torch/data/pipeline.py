@@ -2,8 +2,9 @@
 
 A copy of ``repro.data.pipeline`` (which imports jax for its mesh
 placement): the same Zipf-Markov generator, so a batch is bit-equal to the
-reference's for the same (seed, step).  ``shard_batch`` over a mesh
-becomes :func:`to_device`: one card has no mesh.
+reference's for the same (seed, step).  :func:`to_device` puts a batch
+on one card; :func:`shard_batch` splits it over a mesh's data axes as
+DTensors.
 """
 from __future__ import annotations
 
@@ -81,4 +82,23 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
         t = torch.from_numpy(np.ascontiguousarray(v)).long()
         out[k] = t.pin_memory().to(device, non_blocking=True) \
             if device.type == "cuda" else t
+    return out
+
+
+def shard_batch(batch, mesh, batch_axes=("pod", "data")):
+    """A host batch (the same on every rank) as DTensors on ``mesh``,
+    token ids as int64, split along the batch dim over those of
+    ``batch_axes`` the mesh has."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.sharding_hints import to_placements
+    axes = tuple(a for a in batch_axes if a in mesh.mesh_dim_names)
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.ascontiguousarray(v)) \
+            if isinstance(v, np.ndarray) else v
+        if not t.is_floating_point():
+            t = t.long()
+        spec = (axes,) + (None,) * (t.ndim - 1)
+        out[k] = distribute_tensor(t, mesh, list(to_placements(spec, mesh)))
     return out

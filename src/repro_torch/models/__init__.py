@@ -7,8 +7,12 @@ its plain chunked WKV), the mixture-of-experts decoder (``moe``: serving
 and training), the Griffin hybrid (``hybrid``: serving and training), the
 Whisper-style encoder-decoder (``audio``: serving and training; its
 ``loss_fn`` batch carries ``frames``) and the paper's CNNs (``cnn``).
+``input_specs`` describes a shape's inputs for the dry run
+(``launch.dryrun``).
 """
 from __future__ import annotations
+
+from typing import Any, Dict
 
 import torch
 
@@ -74,3 +78,34 @@ def cache_len(cfg: ArchConfig, shape: ShapeSpec) -> int:
     if cfg.family == "hybrid":
         return min(shape.seq_len, cfg.local_window)
     return min(shape.seq_len, w) if w else shape.seq_len
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec,
+                dtype=torch.bfloat16) -> Dict[str, Any]:
+    """Meta-tensor stand-ins (shape and dtype, no storage) and logical
+    axes for every model input of ``shape``: 'batch' and 'batch_axes',
+    and for decode 'cache', 'cache_axes' and 'pos', the JAX package's
+    keys (its ``ShapeDtypeStruct`` leaves are meta tensors here)."""
+    B, S = shape.global_batch, shape.seq_len
+    tok = lambda s: torch.empty(s, dtype=torch.int32, device="meta")
+    if shape.kind in ("train", "prefill"):
+        args = {"tokens": tok((B, S))}
+        axes = {"tokens": ("batch", None)}
+        if shape.kind == "train":
+            args["labels"] = tok((B, S))
+            axes["labels"] = ("batch", None)
+        if cfg.family == "audio":
+            args["frames"] = torch.empty((B, cfg.encoder_seq, cfg.d_model),
+                                         dtype=dtype, device="meta")
+            axes["frames"] = ("batch", None, None)
+        return {"batch": args, "batch_axes": axes}
+    # decode: ONE new token against a cache of cache_len
+    cache, cache_axes = get_module(cfg).cache_spec(
+        cfg, B, cache_len(cfg, shape), dtype)
+    return {
+        "batch": {"token": tok((B, 1))},
+        "batch_axes": {"token": ("batch", None)},
+        "cache": common.meta_tree(cache),
+        "cache_axes": cache_axes,
+        "pos": tok(()),
+    }

@@ -13,6 +13,12 @@ RoPE rotates split halves (llama's rotate-half), not interleaved pairs.
 
 Where the JAX code rebuilds an array (``.at[...].set``), the cache
 writes here update the cache tensors in place and return them.
+
+Under a mesh (``launch.sharding``) parameters and activations are
+DTensors: ``hint`` redistributes them at the JAX package's sites, and
+full-sequence attention runs on each rank's local shards through
+``compat.shard_map`` (:func:`flash_attention_named`), since the kernels
+take plain tensors.
 """
 from __future__ import annotations
 
@@ -21,8 +27,10 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quantize import quantize_into
+from repro_torch.sharding_hints import hint, is_dtensor, zeros
 
 # ---------------------------------------------------------------------------
 # Param templates
@@ -78,6 +86,27 @@ def init_params(template, generator: torch.Generator,
     return map_template(leaf, template)
 
 
+def param_struct(template, dtype=torch.bfloat16):
+    """Meta tensors (shape and dtype, no storage) for every leaf: the
+    twin of the JAX package's ``ShapeDtypeStruct`` tree."""
+    return map_template(
+        lambda p: torch.empty(p.shape, dtype=dtype, device="meta"), template)
+
+
+def param_axes(template):
+    """Tree of logical-axis tuples, same structure as the params."""
+    return map_template(lambda p: p.axes, template)
+
+
+def meta_tree(tree):
+    """A tree of ``(shape, dtype)`` leaves (the form of every family's
+    ``cache_spec``) as meta tensors."""
+    if isinstance(tree, dict):
+        return {k: meta_tree(v) for k, v in tree.items()}
+    shape, dtype = tree
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 def param_count_of(template) -> int:
     total = 0
 
@@ -113,9 +142,10 @@ def layer_norm(x, weight, bias, eps=1e-5):
 
 
 def swiglu(x, w_gate, w_up, w_down):
-    g = x @ w_gate
-    u = x @ w_up
-    return (torch.nn.functional.silu(g) * u) @ w_down
+    g = hint(x @ w_gate, "batch", "seq", "ff")
+    u = hint(x @ w_up, "batch", "seq", "ff")
+    return hint((torch.nn.functional.silu(g) * u) @ w_down,
+                "batch", "seq", "embed")
 
 
 def gelu(x):
@@ -125,6 +155,61 @@ def gelu(x):
 
 def gelu_mlp(x, w_in, b_in, w_out, b_out):
     return gelu(x @ w_in + b_in) @ w_out + b_out
+
+
+def embed_lookup(table, tokens):
+    """``table[tokens]``.  On DTensors a vocab-parallel lookup in a
+    ``compat.shard_map`` body: the table's rows split on its
+    ``tp_vocab`` axes (its ``fsdp`` split gathered), each rank gathers
+    the tokens in its rows and zeros the rest, and the partial sums meet
+    at the next redistribute."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial
+
+    from repro_torch.launch.compat import shard_map
+    from repro_torch.sharding_hints import logical_to_spec, to_placements
+    mesh = table.device_mesh
+    vocab = table.shape[0]
+    tspec = logical_to_spec(("tp_vocab", None), shape=table.shape)
+    kspec = logical_to_spec(("batch",) + (None,) * (tokens.ndim - 1),
+                            shape=tokens.shape)
+    v_axes = _axes_of(tspec[0])
+    v0, vl = _shard_offset(mesh, v_axes, vocab)
+    out_pl = tuple(Partial() if n in v_axes else p for n, p in zip(
+        mesh.mesh_dim_names, to_placements(kspec + (None,), mesh)))
+    grad_pl = tuple(Partial() if n in _axes_of(kspec[0]) else p
+                    for n, p in zip(mesh.mesh_dim_names,
+                                    to_placements(tspec, mesh)))
+
+    def body(rows, tok):
+        if not v_axes:
+            return rows[tok]
+        local = tok - v0
+        hit = (local >= 0) & (local < vl)
+        x = rows[torch.where(hit, local, 0)]
+        return torch.where(hit[..., None], x, 0.0)
+
+    fn = shard_map(body, mesh=mesh, in_specs=(tspec, kspec),
+                   out_specs=out_pl, in_grad_specs=(grad_pl, kspec))
+    return fn(table, tokens)
+
+
+def split_heads(x, n: int, name: str = "heads"):
+    """(..., n * D) -> (..., n, D).  On a DTensor whose last dim is split
+    at a finer grain than a head (64 kv columns over 4 ranks, 2 heads of
+    32), the split first moves to whole heads (logical ``name``), or off
+    that dim where the head count does not divide."""
+    shape = tuple(x.shape[:-1]) + (n, x.shape[-1] // n)
+    if is_dtensor(x):
+        from repro_torch.sharding_hints import logical_to_spec, to_placements
+        lead = ("batch", "seq")[:x.ndim - 1]
+        lead = (None,) * (x.ndim - 1 - len(lead)) + lead
+        spec = logical_to_spec(lead + (name, None), shape=shape)
+        placements = to_placements(spec[:-1], x.device_mesh)
+        if tuple(x.placements) != placements:
+            x = x.redistribute(x.device_mesh, placements)
+    return x.reshape(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -190,14 +275,34 @@ def attention_full(q, k, v, *, causal: bool = True, window: int = 0,
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
+def _chunk_step(qc, kc, vc, m, l, acc, mask, scale, bf16_pv):
+    """One k chunk of the online softmax: (m, l, acc) updated."""
+    s = torch.einsum("bqhd,bkhd->bhqk", qc.float(), kc.float()) * scale
+    s = torch.where(mask[None, None], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    if bf16_pv:
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(torch.bfloat16),
+                          vc.to(torch.bfloat16)).float()
+    else:
+        pv = torch.einsum("bhqk,bkhd->bhqd", p, vc.float())
+    return m_new, l, acc * corr[..., None] + pv
+
+
 def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,
                       q_chunk: int = 1024, k_chunk: int = 1024,
-                      q_offset: int = 0):
+                      q_offset: int = 0, save_memory: bool = False):
     """Flash-style attention in tensor ops: online softmax over KV
     chunks, (B, H, q_chunk, k_chunk) scores per step.  The JAX package's
     schedule (``lax.map`` over q chunks, ``lax.scan`` over k chunks)
     becomes two Python loops; shapes that do not divide into chunks take
-    :func:`attention_full`, as there."""
+    :func:`attention_full`, as there.  ``save_memory`` (the ``attn_ckpt``
+    perf rule) recomputes each k chunk's scores in the backward instead
+    of keeping them, and takes p.v in bf16, as the JAX package's does.
+    On meta tensors with no gradient (the dry run's prefill) one chunk
+    step runs, counted for all (``op_costs.trips``)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     kvh = k.shape[2]
@@ -207,29 +312,30 @@ def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,
     if sq % q_chunk or sk % k_chunk:
         return attention_full(q, k, v, causal=causal, window=window,
                               q_offset=q_offset)
+    from repro_torch.launch.op_costs import trips
     scale = 1.0 / math.sqrt(d)
+    remat = save_memory and torch.is_grad_enabled()
+    # one trip stands for all only where no backward replays the loop
+    nq, nk = sq // q_chunk, sk // k_chunk
+    meta = q.is_meta and not (torch.is_grad_enabled() and q.requires_grad)
     outs = []
-    for qi in range(sq // q_chunk):
+    for qi in trips(nq, meta):
         qc = q[:, qi * q_chunk:(qi + 1) * q_chunk]
         m = torch.full((b, h, q_chunk), NEG_INF, device=q.device)
         l = torch.zeros((b, h, q_chunk), device=q.device)
         acc = torch.zeros((b, h, q_chunk, d), device=q.device)
-        for ki in range(sk // k_chunk):
+        for ki in trips(nk, meta):
             kc = _repeat_kv(k[:, ki * k_chunk:(ki + 1) * k_chunk], groups)
             vc = _repeat_kv(v[:, ki * k_chunk:(ki + 1) * k_chunk], groups)
-            s = torch.einsum("bqhd,bkhd->bhqk", qc.float(), kc.float()) * scale
             mask = _mask(q_chunk, k_chunk, qi * q_chunk + q_offset - ki * k_chunk,
                          causal, window, q.device)
-            s = torch.where(mask[None, None], s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
-                                                       vc.float())
-            m = m_new
+            args = (qc, kc, vc, m, l, acc, mask, scale, save_memory)
+            m, l, acc = checkpoint(_chunk_step, *args, use_reentrant=False) \
+                if remat else _chunk_step(*args)
         out = acc / torch.clamp_min(l[..., None], 1e-30)
         outs.append(out.permute(0, 2, 1, 3))            # bhqd -> bqhd
+    if meta:                   # shapes only: one q chunk stood for all
+        outs = outs * nq
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
@@ -266,6 +372,75 @@ def attention_decode(q, k_cache, v_cache, valid_len, layout="bskd"):
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum(eq_o, probs.to(cdt).float(), v_cache.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def prefill_cache(init_cache, cache_spec, cfg, batch: int, cache_len: int,
+                  dtype, x):
+    """The cache a family's prefill fills: its ``init_cache``, or on
+    DTensors zeros placed by its ``cache_spec``'s logical axes."""
+    if not is_dtensor(x):
+        return init_cache(cfg, batch, cache_len, dtype, device=x.device)
+    spec, axes = cache_spec(cfg, batch, cache_len, dtype)
+    dev = x.to_local().device
+    return {k: zeros(shape, dt, dev, *axes[k])
+            for k, (shape, dt) in spec.items()}
+
+
+def cache_attend_sharded(q, k_new, v_new, ck, cv, pos):
+    """:func:`cache_write` then :func:`attention_decode` ('bksd', one
+    position ``pos`` for every lane) on DTensor caches placed by the
+    active rules, each rank on its own shards: it writes the token if
+    its ring slot lies in the rank's block of slots, and the split
+    softmax over a slot-split cache is merged across the ranks (max,
+    then the rescaled sums).  q (B, 1, H, D); k_new, v_new (B, KV, 1, D);
+    caches (B, KV, S, D), written in place.  Returns (B, 1, H, D)."""
+    from torch.distributed import _functional_collectives as fc
+
+    from repro_torch.launch.compat import shard_map
+    from repro_torch.sharding_hints import logical_to_spec
+    mesh = ck.device_mesh
+    cspec = logical_to_spec(("batch", "tp_kv", "cache_seq", None),
+                            shape=ck.shape)
+    seq_axes = _axes_of(cspec[2])
+    qspec = (cspec[0], None, cspec[1], None)
+    nspec = (cspec[0], cspec[1], None, None)
+    s_total, d = ck.shape[2], q.shape[-1]
+    s0, s_loc = _shard_offset(mesh, seq_axes, s_total)
+    groups = [mesh.get_group(a) for a in seq_axes]
+
+    def body(ql, kn, vn, ckl, cvl, p):
+        dev = ckl.device
+        idx = torch.remainder(p, s_total)
+        hit = (idx >= s0) & (idx < s0 + s_loc)
+        li = torch.clamp(idx - s0, 0, s_loc - 1).reshape(1).long()
+        for cache, new in ((ckl, kn), (cvl, vn)):
+            old = cache.index_select(2, li)
+            cache.index_copy_(2, li, torch.where(hit, new.to(cache.dtype),
+                                                 old))
+        b, _, h, _ = ql.shape
+        kvh = ckl.shape[1]
+        cdt = ckl.dtype
+        qg = ql[:, 0].reshape(b, kvh, h // kvh, d)
+        scores = torch.einsum("bkgd,bksd->bkgs", qg.to(cdt).float(),
+                              ckl.float()) / math.sqrt(d)
+        slots = torch.arange(s0, s0 + s_loc, device=dev)
+        valid = (slots < torch.clamp_max(p + 1, s_total))[None, None, None]
+        scores = torch.where(valid, scores, NEG_INF)
+        m = scores.amax(dim=-1, keepdim=True)
+        for g in groups:
+            m = fc.all_reduce(m, "max", g)
+        e = torch.where(valid, torch.exp(scores - m), 0.0)
+        l = e.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bkgs,bksd->bkgd", e.to(cdt).float(), cvl.float())
+        for g in groups:
+            l = fc.all_reduce(l, "sum", g)
+            o = fc.all_reduce(o, "sum", g)
+        return (o / l).reshape(b, 1, h, d).to(ql.dtype)
+
+    fn = shard_map(body, mesh=mesh,
+                   in_specs=(qspec, nspec, nspec, cspec, cspec, ()),
+                   out_specs=qspec)
+    return fn(q, k_new, v_new, ck, cv, pos)
 
 
 # ---------------------------------------------------------------------------
@@ -445,20 +620,93 @@ def flash_backend_of(decode_backend: Optional[str]) -> Optional[str]:
 
 
 def flash_attention_named(q, k, v, *, causal: bool = True, window: int = 0,
-                          backend: Optional[str] = None):
+                          backend: Optional[str] = None,
+                          save_memory: bool = False):
     """Full-sequence attention (prefill and training) through a named
     backend: 'ref' (:func:`attention_chunked`), 'cuda' (the flash kernels:
     B9's differentiable forward when grad is on and an input requires
     it, else B8), or None/'auto' (cuda on a CUDA tensor, ref on a CPU
-    one).  q (B, Sq, H, D); k, v (B, Sk, KV, D), query positions from 0."""
+    one).  q (B, Sq, H, D); k, v (B, Sk, KV, D), query positions from 0.
+    On DTensors it runs on each rank's shards (:func:`_sharded_attention`).
+    ``save_memory`` reaches the 'ref' backend only."""
+    if is_dtensor(q):
+        return _sharded_attention(q, k, v, causal=causal, window=window,
+                                  backend=backend, save_memory=save_memory)
     name = resolve_flash_backend(backend, q.device)
     if name == "ref":
-        return attention_chunked(q, k, v, causal=causal, window=window)
+        return attention_chunked(q, k, v, causal=causal, window=window,
+                                 save_memory=save_memory)
     from repro_torch.kernels import ops as kops
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return kops.flash_attention_trainable(q, k, v, causal, window)
     return kops.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _shard_offset(mesh, axes, n: int) -> Tuple[int, int]:
+    """(first index, count) of this rank's block of a dim of size ``n``
+    split over mesh ``axes`` (row-major over them, as DTensor splits)."""
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    block, count = 0, n
+    for a in axes:
+        size = mesh.shape[names.index(a)]
+        count //= size
+        block = block * size + coord[names.index(a)]
+    return block * count, count
+
+
+def _sharded_attention(q, k, v, *, causal, window, backend, save_memory):
+    """Attention on DTensors: q split on (batch, heads), k/v on (batch,
+    kv_heads) by the active rules, and on each rank the same backend on
+    the local shards (the kernel on the card, the plain version on the
+    CPU).  Where the model axis splits q heads but not kv heads, each
+    rank takes the kv heads of its own q heads (q head h meets kv head
+    h // G): a slice where its heads cover whole groups, else one kv head
+    per q head; the kv gradients are then partial sums over that axis."""
+    from torch.distributed.tensor import Partial
+
+    from repro_torch.launch.compat import shard_map
+    from repro_torch.sharding_hints import logical_to_spec, to_placements
+    mesh = q.device_mesh
+    h, kvh = q.shape[2], k.shape[2]
+    groups = h // kvh
+    qspec = logical_to_spec(("batch", None, "heads", None), shape=q.shape)
+    kspec = logical_to_spec(("batch", None, "kv_heads", None), shape=k.shape)
+    q_axes, kv_axes = _axes_of(qspec[2]), _axes_of(kspec[2])
+    h0, hl = _shard_offset(mesh, q_axes, h)
+    if kv_axes == q_axes:
+        pick = None                        # local kv heads = own groups
+    elif kv_axes:
+        raise ValueError(f"kv heads split over {kv_axes} but q heads over "
+                         f"{q_axes}")
+    elif hl % groups == 0 and h0 % groups == 0:
+        pick = slice(h0 // groups, (h0 + hl) // groups)
+    else:
+        pick = torch.arange(h0, h0 + hl) // groups
+
+    def body(ql, kl_, vl_):
+        if isinstance(pick, slice):
+            kl_, vl_ = kl_[:, :, pick], vl_[:, :, pick]
+        elif pick is not None:
+            idx = pick.to(kl_.device)
+            kl_, vl_ = kl_.index_select(2, idx), vl_.index_select(2, idx)
+        return flash_attention_named(ql, kl_, vl_, causal=causal,
+                                     window=window, backend=backend,
+                                     save_memory=save_memory)
+
+    kv_pl = to_placements(kspec, mesh)
+    kv_grad = tuple(Partial() if n in q_axes and n not in kv_axes else p
+                    for n, p in zip(mesh.mesh_dim_names, kv_pl))
+    fn = shard_map(body, mesh=mesh, in_specs=(qspec, kspec, kspec),
+                   out_specs=qspec, in_grad_specs=(qspec, kv_grad, kv_grad))
+    return fn(q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -470,9 +718,11 @@ def softmax_xent(logits, labels, mask=None):
     """Mean next-token cross entropy. logits (B, S, V), labels (B, S);
     with ``mask`` (B, S) the mean over the unmasked positions."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - ll
+    # the trailing unit dim is dropped after the difference: a vocab-split
+    # DTensor's gathered labels cannot be indexed before their reduction
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    ll = torch.gather(logits, -1, labels[..., None].long())
+    nll = (logz - ll)[..., 0]
     if mask is None:
         return nll.mean()
     mask = mask.float()

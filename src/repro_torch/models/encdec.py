@@ -40,6 +40,7 @@ from repro_torch.core.quantize import quantize_into
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import P
+from repro_torch.sharding_hints import hint
 
 
 def _ln(x, lp, name, eps=1e-5):
@@ -123,8 +124,9 @@ def _qkv(cfg: ArchConfig, lp, xq, xkv, prefix: str = ""):
 
 
 def _mlp(cfg: ArchConfig, lp, x):
-    return cm.gelu_mlp(_ln(x, lp, "mlp_ln"), lp["w_in"], lp["b_in"],
-                       lp["w_out"], lp["b_out"])
+    h = cm.gelu(_ln(x, lp, "mlp_ln") @ lp["w_in"] + lp["b_in"])
+    h = hint(h, "batch", "seq", "ff")
+    return hint(h @ lp["w_out"] + lp["b_out"], "batch", "seq", "embed")
 
 
 def _out(cfg: ArchConfig, lp, a, prefix: str = ""):
@@ -190,7 +192,8 @@ def _dec_block(cfg, lp, x, enc_out, window, backend):
 
 def _logits(params, x):
     x = cm.layer_norm(x, params["final_ln_w"], params["final_ln_b"])
-    return x @ params["embed"].t().to(x.dtype)
+    return hint(x @ params["embed"].t().to(x.dtype), "batch", "seq",
+                "vocab_act")
 
 
 def forward(cfg: ArchConfig, params, tokens, frames, *, window: int = 0,
@@ -201,7 +204,8 @@ def forward(cfg: ArchConfig, params, tokens, frames, *, window: int = 0,
     decoder layers in the JAX package; the encoder is not
     rematerialized, as there)."""
     enc_out = encode(cfg, params, frames, backend=backend)
-    x = params["embed"][tokens]
+    x = hint(cm.embed_lookup(params["embed"], tokens), "batch", "seq",
+             "embed")
     grad = torch.is_grad_enabled()
     for lp in _layers(params["dec"], unbind=grad):
         if remat and grad:
@@ -449,8 +453,10 @@ def prefill(cfg: ArchConfig, params, tokens, cache_len: int, frames=None, *,
                              dtype=params["embed"].dtype,
                              device=tokens.device)
     enc_out = encode(cfg, params, frames, backend=backend)
-    x = params["embed"][tokens]
-    cache = init_cache(cfg, b, cache_len, cache_dtype, device=x.device)
+    x = hint(cm.embed_lookup(params["embed"], tokens), "batch", "seq",
+             "embed")
+    cache = cm.prefill_cache(init_cache, cache_spec, cfg, b, cache_len,
+                             cache_dtype, x)
     keep = min(s, cache_len)
     for l, lp in enumerate(_layers(params["dec"])):
         x, (k, v, kx, vx) = _dec_layer(cfg, lp, x, enc_out, window=window,

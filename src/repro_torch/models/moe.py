@@ -22,9 +22,13 @@ Three departures in spelling, none in result:
 - The layer loops of the serving path are the dense transformer's, with
   the MoE block passed in as its ``ffn``.
 
-The ``shard_map`` paths of the JAX package (``moe_ffn_a2a``,
-``moe_ffn_local``) fall back to ``moe_ffn_dense`` there when no mesh is
-active; the port has no mesh yet, so ``moe_ffn`` is ``moe_ffn_dense``.
+Under a mesh (DTensor parameters and activations, ``launch.sharding``)
+``moe_ffn`` picks the implementation from the rule ``moe_impl``, as the
+JAX package does: 'dense' runs the dispatch on the whole token buffer,
+replicated on every rank, and the experts sharded by the hints; 'a2a'
+(expert parallelism over an all-to-all on the model axis) and 'local'
+(replicated experts) are ``compat.shard_map`` bodies.  With no mesh all
+three are the dense path.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import P
+from repro_torch.sharding_hints import get_rule, hint, is_dtensor
 
 
 def param_template(cfg: ArchConfig):
@@ -117,34 +122,232 @@ def _combine(y_flat, meta, T: int, dtype):
     return contrib[inv].reshape(T, -1, y_flat.shape[1]).sum(dim=1).to(dtype)
 
 
-def _expert_ffn(xbuf, wg, wu, wd):
-    """(E, C, d) through per-expert SwiGLU."""
+def _expert_ffn(xbuf, wg, wu, wd, use_hints: bool = False):
+    """(E, C, d) through per-expert SwiGLU.  ``use_hints`` applies the
+    logical-axis hints (dense path only: the shard_map paths place
+    everything explicitly)."""
     g = torch.bmm(xbuf, wg)
     u = torch.bmm(xbuf, wu)
     h = torch.nn.functional.silu(g) * u
+    if use_hints:
+        h = hint(h, "experts_act", None, "ff")
     return torch.bmm(h, wd)
 
 
 def moe_ffn_dense(cfg: ArchConfig, lp, x) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss scalar): global dispatch
-    over all B*S tokens."""
+    over all B*S tokens.  On DTensors the routing, dispatch and combine
+    run on the whole token buffer, replicated on every rank (what GSPMD
+    makes of the JAX package's data-dependent scatter), and the expert
+    products are sharded by the hints."""
     b, s, d = x.shape
     E = cfg.num_experts
     T = b * s
     C = _capacity(cfg, T)
     xf = x.reshape(T, d)
-    top_p, top_e, aux = _route(cfg, xf, lp["router"])
-    xbuf, meta = _dispatch(xf, top_e, top_p, E, C)
-    y = _expert_ffn(xbuf, lp["we_gate"], lp["we_up"], lp["we_down"])
-    out = _combine(y.reshape(E * C, d), meta, T, x.dtype)
-    return out.reshape(b, s, d), aux
+
+    def route_dispatch(xf, router):
+        top_p, top_e, aux = _route(cfg, xf, router)
+        xbuf, meta = _dispatch(xf, top_e, top_p, E, C)
+        return (xbuf, aux) + meta
+
+    def combine(y, *meta):
+        return _combine(y, meta, T, x.dtype)
+
+    if is_dtensor(xf):
+        from repro_torch.launch.compat import shard_map
+        mesh, rep = xf.device_mesh, ()
+        route_dispatch = shard_map(route_dispatch, mesh=mesh,
+                                   in_specs=(rep, rep), out_specs=[rep] * 7)
+        combine = shard_map(combine, mesh=mesh, in_specs=(rep,) * 6,
+                            out_specs=rep)
+    xbuf, aux, *meta = route_dispatch(xf, lp["router"])
+    xbuf = hint(xbuf, "experts_act", None, None)
+    y = _expert_ffn(xbuf, lp["we_gate"], lp["we_up"], lp["we_down"],
+                    use_hints=True)
+    out = combine(y.reshape(E * C, d), *meta)
+    return hint(out.reshape(b, s, d), "batch", "seq", "embed"), aux
+
+
+def _mesh_info(x):
+    """(mesh, axis sizes, batch axes, model axis) when ``x`` is a DTensor
+    under installed rules, else None."""
+    from repro_torch.sharding_hints import active_mesh, mesh_sizes
+    mesh = active_mesh()
+    if mesh is None or not is_dtensor(x):
+        return None
+    names = mesh.mesh_dim_names
+    batch_axes = tuple(a for a in ("pod", "data") if a in names)
+    model_axis = "model" if "model" in names else None
+    return x.device_mesh, mesh_sizes(mesh), batch_axes, model_axis
+
+
+def _all_gather(x, dim: int, mesh, axis):
+    """Tiled all-gather of ``x`` along ``dim`` over a mesh axis; its
+    gradient is the reduce-scatter of the gathered gradient."""
+    from torch.distributed import _functional_collectives as fc
+    gather = getattr(fc, "all_gather_single_autograd",   # the newer name
+                     fc.all_gather_tensor_autograd)
+    return gather(x.contiguous(), dim, mesh.get_group(axis))
+
+
+def _all_to_all(x, mesh, axis):
+    """Chunk j of ``x``'s dim 0 to the j-th rank of a mesh axis; chunk j
+    of the result came from it (``lax.all_to_all``, split = concat = 0)."""
+    from torch.distributed import _functional_collectives as fc
+    return fc.all_to_all_single_autograd(x.contiguous(), None, None,
+                                         mesh.get_group(axis))
+
+
+def _pmean(x, mesh, axes):
+    """Mean over the ranks of mesh ``axes`` (``lax.pmean``); each rank's
+    input gets 1/n of the gradient."""
+    from torch.distributed import _functional_collectives as fc
+    from repro_torch.sharding_hints import mesh_sizes
+    sizes = mesh_sizes(mesh)
+    for a in axes:
+        n = sizes[a]
+        total = fc.all_reduce(x.detach(), "sum", mesh.get_group(a))
+        x = x / n + (total - x.detach()) / n
+    return x
+
+
+def _weight_grad(wspec, token_axes, mesh):
+    """Gradient placements of a weight that enters a body with ``wspec``:
+    split where the weight is split, a partial sum over the other axes
+    that split the tokens (each rank's grad covers its own tokens)."""
+    from torch.distributed.tensor import Partial
+    from repro_torch.sharding_hints import to_placements
+    pl = to_placements(wspec, mesh)
+    sharded = {a for e in wspec if e for a in ((e,) if isinstance(e, str)
+                                              else e)}
+    return tuple(Partial() if n not in sharded and n in token_axes else p
+                 for n, p in zip(mesh.mesh_dim_names, pl))
+
+
+def moe_ffn_a2a(cfg: ArchConfig, lp, x) -> Tuple[torch.Tensor,
+                                                 torch.Tensor]:
+    """Expert-parallel path: tokens dispatched locally per shard (the
+    dense path's arithmetic), an all-to-all along the ``model`` axis
+    takes each expert's slots to its owner, and a reverse all-to-all
+    brings the results home.  Requires E % model axis == 0."""
+    info = _mesh_info(x)
+    if info is None:
+        return moe_ffn_dense(cfg, lp, x)
+    from repro_torch.launch.compat import shard_map
+    mesh, sizes, batch_axes, maxis = info
+    b, s, d = x.shape
+    E = cfg.num_experts
+    m = sizes[maxis]
+    if E % m:
+        raise ValueError(f"a2a needs the model axis ({m}) to divide the "
+                         f"{E} experts")
+    e_loc = E // m
+    # shard seq over model when it divides; decode (s == 1) keeps it whole
+    seq_axis = maxis if s % m == 0 and s > 1 else None
+    dax = "data" if "data" in sizes else None
+    token_axes = set(batch_axes) | ({seq_axis} if seq_axis else set())
+
+    def body(xl, router, wg, wu, wd):
+        bl, sl, _ = xl.shape
+        T_loc = bl * sl
+        xf = xl.reshape(T_loc, d)
+        if dax:
+            router = _all_gather(router, 0, mesh, dax)
+            wg = _all_gather(wg, 1, mesh, dax)
+            wu = _all_gather(wu, 1, mesh, dax)
+            wd = _all_gather(wd, 2, mesh, dax)
+        top_p, top_e, aux = _route(cfg, xf, router)
+        C = _capacity(cfg, T_loc)
+        xbuf, meta = _dispatch(xf, top_e, top_p, E, C)       # (E, C, d)
+        recv = _all_to_all(xbuf.reshape(m, e_loc, C, d), mesh, maxis)
+        # (m peers, e_loc, C, d) -> (e_loc, m * C, d)
+        xe = recv.transpose(0, 1).reshape(e_loc, m * C, d)
+        y = _expert_ffn(xe, wg, wu, wd)
+        back = y.reshape(e_loc, m, C, d).transpose(0, 1)
+        got = _all_to_all(back, mesh, maxis)                 # (m, e_loc, C, d)
+        out = _combine(got.reshape(E * C, d), meta, T_loc, x.dtype)
+        # over the model axis without seq the tokens (so aux) are equal
+        aux = _pmean(aux, mesh, tuple(a for a in (*batch_axes, seq_axis)
+                                      if a))
+        return out.reshape(bl, sl, d), aux
+
+    xspec = (batch_axes, seq_axis, None)
+    rspec = (dax, None)
+    wspec = (maxis, dax, None)
+    dspec = (maxis, None, dax)
+    grads = tuple(_weight_grad(w, token_axes, mesh)
+                  for w in (rspec, wspec, wspec, dspec))
+    fn = shard_map(body, mesh=mesh,
+                   in_specs=(xspec, rspec, wspec, wspec, dspec),
+                   out_specs=[xspec, ()],
+                   in_grad_specs=(xspec,) + grads)
+    out, aux = fn(x, lp["router"], lp["we_gate"], lp["we_up"],
+                  lp["we_down"])
+    return hint(out, "batch", "seq", "embed"), aux
+
+
+def moe_ffn_local(cfg: ArchConfig, lp, x) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """Replicated-experts path for banks that do not divide the model
+    axis (granite: 40 experts on 16): tokens split over every mesh axis,
+    each rank runs all experts on its own tokens; no dispatch
+    collectives, the expert weights replicated on the model axis."""
+    info = _mesh_info(x)
+    if info is None:
+        return moe_ffn_dense(cfg, lp, x)
+    from repro_torch.launch.compat import shard_map
+    mesh, sizes, batch_axes, maxis = info
+    b, s, d = x.shape
+    E = cfg.num_experts
+    msize = sizes[maxis] if maxis else 1
+    seq_axis = maxis if maxis and s % msize == 0 and s > 1 else None
+    dax = "data" if "data" in sizes else None
+    token_axes = set(batch_axes) | ({seq_axis} if seq_axis else set())
+
+    def body(xl, router, wg, wu, wd):
+        bl, sl, _ = xl.shape
+        T_loc = bl * sl
+        xf = xl.reshape(T_loc, d)
+        if dax:
+            router = _all_gather(router, 0, mesh, dax)
+            wg = _all_gather(wg, 1, mesh, dax)
+            wu = _all_gather(wu, 1, mesh, dax)
+            wd = _all_gather(wd, 2, mesh, dax)
+        top_p, top_e, aux = _route(cfg, xf, router)
+        C = _capacity(cfg, T_loc)
+        xbuf, meta = _dispatch(xf, top_e, top_p, E, C)
+        y = _expert_ffn(xbuf, wg, wu, wd)
+        out = _combine(y.reshape(E * C, d), meta, T_loc, x.dtype)
+        aux = _pmean(aux, mesh, tuple(a for a in (*batch_axes, seq_axis)
+                                      if a))
+        return out.reshape(bl, sl, d), aux
+
+    xspec = (batch_axes, seq_axis, None)
+    rspec = (dax, None)
+    wspec = (None, dax, None)
+    dspec = (None, None, dax)
+    grads = tuple(_weight_grad(w, token_axes, mesh)
+                  for w in (rspec, wspec, wspec, dspec))
+    fn = shard_map(body, mesh=mesh,
+                   in_specs=(xspec, rspec, wspec, wspec, dspec),
+                   out_specs=[xspec, ()],
+                   in_grad_specs=(xspec,) + grads)
+    out, aux = fn(x, lp["router"], lp["we_gate"], lp["we_up"],
+                  lp["we_down"])
+    return hint(out, "batch", "seq", "embed"), aux
 
 
 def moe_ffn(cfg: ArchConfig, lp, x) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out, aux).  The JAX package picks 'dense', 'a2a'
-    or 'local' from its sharding rules; with no mesh all three are the
-    dense path, which is the one the port has."""
+    """x: (B, S, d) -> (out, aux).  The implementation comes from the
+    active rule ``moe_impl``: 'dense' (default), 'a2a' (expert-parallel
+    all-to-all) or 'local' (replicated experts)."""
+    impl = get_rule("moe_impl", "dense")
+    if impl == "a2a":
+        return moe_ffn_a2a(cfg, lp, x)
+    if impl == "local":
+        return moe_ffn_local(cfg, lp, x)
     return moe_ffn_dense(cfg, lp, x)
 
 
@@ -204,6 +407,7 @@ def loss_fn(cfg: ArchConfig, params, batch, *, window: int = 0,
 # ---------------------------------------------------------------------------
 
 init_cache = tfm.init_cache
+cache_spec = tfm.cache_spec
 cache_to_kv_dtype = tfm.cache_to_kv_dtype
 cache_splice_paged = tfm.cache_splice_paged
 paged_info = tfm.paged_info

@@ -38,6 +38,7 @@ from repro_torch.core.quantize import quantize_into
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import P
+from repro_torch.sharding_hints import hint
 
 LRU_C = 8.0
 
@@ -178,10 +179,12 @@ def rec_block(cfg: ArchConfig, lp, x, conv_state=None, h_state=None):
     """The Griffin recurrent block. x: (B, T, d).  Returns (output, conv
     state, h state)."""
     xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a = cm.gelu(xn @ lp["w_a"])
-    bconv, conv_state = causal_conv(lp, xn @ lp["w_b"], conv_state)
+    a = cm.gelu(hint(xn @ lp["w_a"], "batch", "seq", "ff"))
+    bpre = hint(xn @ lp["w_b"], "batch", "seq", "ff")
+    bconv, conv_state = causal_conv(lp, bpre, conv_state)
     b, h_state = rg_lru(lp, bconv, h_state)
-    return (a * b) @ lp["w_out"], conv_state, h_state
+    return hint((a * b) @ lp["w_out"], "batch", "seq", "embed"), \
+        conv_state, h_state
 
 
 def rec_block_step(cfg: ArchConfig, lp, x, conv_state, h_state):
@@ -194,7 +197,8 @@ def rec_block_step(cfg: ArchConfig, lp, x, conv_state, h_state):
 
 
 def _logits(cfg: ArchConfig, params, x):
-    return cm.rms_norm(x, params["final_ln"], cfg.norm_eps) @ params["unembed"]
+    x = cm.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    return hint(x @ params["unembed"], "batch", "seq", "vocab_act")
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +223,8 @@ def forward(cfg: ArchConfig, params, tokens, *, window: int = 0,
     again there (``jax.checkpoint`` in the JAX package).  The stacked
     weights are unbound once, so their gradients are stacked once."""
     del window
-    x = params["embed"][tokens]
+    x = hint(cm.embed_lookup(params["embed"], tokens), "batch", "seq",
+             "embed")
     stacks = {n: {k: w.unbind(0) for k, w in params[n].items()}
               for n in ("rec", "attn", "mlp")}
     for kind, i, li in _layers(cfg):
@@ -443,8 +448,9 @@ def prefill(cfg: ArchConfig, params, tokens, cache_len: int, *,
     backend (see ``transformer.attn``)."""
     del window
     b, s = tokens.shape
-    x = params["embed"][tokens]
-    cache = init_cache(cfg, b, cache_len, cache_dtype, device=x.device)
+    x = cm.embed_lookup(params["embed"], tokens)
+    cache = cm.prefill_cache(init_cache, cache_spec, cfg, b, cache_len,
+                             cache_dtype, x)
     wlen = _window_len(cfg, cache_len)
     keep = min(s, wlen)
     for kind, i, li in _layers(cfg):

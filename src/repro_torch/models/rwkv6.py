@@ -32,6 +32,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common as cm
 from repro_torch.models.common import P
+from repro_torch.launch import op_costs
+from repro_torch.sharding_hints import hint, is_dtensor
 
 # O(1) matrix state, no KV ring at all: generation length is unbounded by
 # cache_len, so the scheduler's ring-wrap guard does not apply
@@ -120,8 +122,10 @@ def wkv_chunked(r, k, v, w, u, s0=None, chunk: int = CHUNK):
     ii = torch.arange(chunk, device=r.device)
     lower = (ii[:, None] > ii[None, :]).to(acc)[None, :, :, None, None]
     uf = u.to(acc)
+    # shapes only with no gradient (the dry run): one chunk stands for all
+    meta = r.is_meta and not (torch.is_grad_enabled() and r.requires_grad)
     outs = []
-    for c in range(nc):
+    for c in op_costs.trips(nc, meta):
         rr, kk, vv, ww = (x[:, c].to(acc) for x in (rc, kc, vc, wc))
         lw = torch.log(torch.clamp(ww, 1e-26, 1.0))       # (B,C,H,N) <= 0
         cum = torch.cumsum(lw, dim=1)
@@ -140,6 +144,8 @@ def wkv_chunked(r, k, v, w, u, s0=None, chunk: int = CHUNK):
         s = s * torch.exp(cum_last[:, 0])[..., None] + \
             torch.einsum("bjhn,bjhm->bhnm", kdec, vv)
         outs.append(out)
+    if meta:
+        outs = outs * nc
     out = torch.stack(outs, 1).reshape(b, nc * chunk, h, n)[:, :t]
     return out.to(r.dtype), s
 
@@ -175,6 +181,8 @@ def wkv_named(r, k, v, w, u, *, s0=None, backend: Optional[str] = None):
     through its jnp chunked scan too.  B10 starts from a zero state, as
     the TPU kernel does, so 'cuda' raises on a non-None ``s0``.
     """
+    if is_dtensor(r):
+        return _wkv_sharded(r, k, v, w, u, s0=s0, backend=backend)
     name = cm.resolve_flash_backend(backend, r.device)
     inputs = (r, k, v, w, u) + (() if s0 is None else (s0,))
     if name == "ref" or (torch.is_grad_enabled()
@@ -187,6 +195,34 @@ def wkv_named(r, k, v, w, u, *, s0=None, backend: Optional[str] = None):
     return kops.rwkv6_chunked(r, k, v, w, u)
 
 
+def _wkv_sharded(r, k, v, w, u, *, s0, backend):
+    """:func:`wkv_named` on DTensors: each rank runs the same backend on
+    its own (batch, heads) shards, which the recurrence never mixes; u's
+    gradient is a partial sum over the batch axes."""
+    from torch.distributed.tensor import Partial
+
+    from repro_torch.launch.compat import shard_map
+    from repro_torch.sharding_hints import logical_to_spec, to_placements
+    mesh = r.device_mesh
+    xspec = logical_to_spec(("batch", None, "heads", None), shape=r.shape)
+    uspec = (xspec[2], None)
+    sspec = (xspec[0], xspec[2], None, None)
+    batch = cm._axes_of(xspec[0])
+    ugrad = tuple(Partial() if n in batch else p for n, p in zip(
+        mesh.mesh_dim_names, to_placements(uspec, mesh)))
+
+    def body(*xs):
+        return wkv_named(*xs[:5], s0=xs[5] if len(xs) > 5 else None,
+                         backend=backend)
+
+    args = (r, k, v, w, u) + (() if s0 is None else (s0,))
+    specs = (xspec,) * 4 + (uspec,) + (() if s0 is None else (sspec,))
+    grads = (xspec,) * 4 + (ugrad,) + (() if s0 is None else (sspec,))
+    fn = shard_map(body, mesh=mesh, in_specs=specs, out_specs=[xspec, sspec],
+                   in_grad_specs=grads)
+    return fn(*args)
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
@@ -195,8 +231,7 @@ def wkv_named(r, k, v, w, u, *, s0=None, backend: Optional[str] = None):
 def _ddlerp(lp, x, sx):
     """Data-dependent token-shift mixing -> (xw, xk, xv, xr, xg)."""
     xxx = x + sx * lp["maa_x"]
-    m = torch.tanh(xxx @ lp["maa_w1"])
-    m = m.reshape(*x.shape[:-1], 5, MIX_LORA)
+    m = cm.split_heads(torch.tanh(xxx @ lp["maa_w1"]), 5, None)
     off = torch.einsum("...fr,frd->...fd", m, lp["maa_w2"])
     mix = lp["maa_base"] + off                            # (..., 5, d)
     xs = x[..., None, :] + sx[..., None, :] * mix
@@ -209,8 +244,7 @@ def _decay(cfg, lp, xw):
 
 
 def _heads(cfg, x):
-    return x.reshape(*x.shape[:-1], x.shape[-1] // cfg.rwkv_head_dim,
-                     cfg.rwkv_head_dim)
+    return cm.split_heads(x, x.shape[-1] // cfg.rwkv_head_dim)
 
 
 def _group_norm(x, w, b, eps=1e-5):
@@ -247,6 +281,7 @@ def time_mix(cfg: ArchConfig, lp, x, shift_state=None, wkv_state=None,
         if shift_state is None else shift_state[:, None].to(x.dtype)
     x_prev = torch.cat([prev, x[:, :-1]], dim=1)
     r, k, v, w, g, u = _rkvgwu(cfg, lp, x, x_prev - x)
+    r = hint(r, "batch", "seq", "heads", None)
     if use_chunked:
         out, s = wkv_named(r, k, v, w, u, s0=wkv_state, backend=backend)
     else:
@@ -280,12 +315,14 @@ def channel_mix(cfg: ArchConfig, lp, x, shift_state=None):
     sx = x_prev - x
     xk = x + sx * lp["cm_maa_k"]
     xr = x + sx * lp["cm_maa_r"]
-    k = torch.square(torch.relu(xk @ lp["cm_wk"]))
+    k = torch.square(torch.relu(hint(xk @ lp["cm_wk"], "batch", "seq",
+                                     "ff")))
     return torch.sigmoid(xr @ lp["cm_wr"]) * (k @ lp["cm_wv"]), new_shift
 
 
 def _logits(cfg: ArchConfig, params, x):
-    return cm.rms_norm(x, params["final_ln"], cfg.norm_eps) @ params["unembed"]
+    x = cm.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    return hint(x @ params["unembed"], "batch", "seq", "vocab_act")
 
 
 # ---------------------------------------------------------------------------
@@ -308,7 +345,8 @@ def forward(cfg: ArchConfig, params, tokens, *, window: int = 0,
     there (``jax.checkpoint`` in the JAX package).  ``window`` is
     accepted for API parity: the model is attention-free."""
     del window
-    x = params["embed"][tokens]
+    x = hint(cm.embed_lookup(params["embed"], tokens), "batch", "seq",
+             "embed")
     layers = {k: w.unbind(0) for k, w in params["layers"].items()}
     for l in range(cfg.num_layers):
         lp = {k: w[l] for k, w in layers.items()}
@@ -354,6 +392,24 @@ def cache_to_kv_dtype(cfg: ArchConfig, cache, kv_dtype):
     return cache
 
 
+def cache_spec(cfg: ArchConfig, batch: int, cache_len: int, dtype):
+    """The recurrent state's leaves as ``(shape, dtype)`` tuples
+    (``common.meta_tree`` makes them meta tensors), and their logical
+    axes; ``cache_len`` does not size it."""
+    del cache_len
+    L, d = cfg.num_layers, cfg.d_model
+    H, N = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    return ({
+        "wkv": ((L, batch, H, N, N), torch.float32),
+        "shift_tm": ((L, batch, d), dtype),
+        "shift_cm": ((L, batch, d), dtype),
+    }, {
+        "wkv": (None, "batch", "heads", None, None),
+        "shift_tm": (None, "batch", None),
+        "shift_cm": (None, "batch", None),
+    })
+
+
 def decode_step(cfg: ArchConfig, params, token, cache, pos, *,
                 window: int = 0):
     """token (B, 1) int.  Advances the state views of ``cache`` in place
@@ -392,8 +448,9 @@ def prefill(cfg: ArchConfig, params, tokens, cache_len: int, *,
     chunked WKV goes through ``backend`` (see :func:`wkv_named`)."""
     del window
     b, _ = tokens.shape
-    x = params["embed"][tokens]
-    cache = init_cache(cfg, b, cache_len, cache_dtype, device=x.device)
+    x = cm.embed_lookup(params["embed"], tokens)
+    cache = cm.prefill_cache(init_cache, cache_spec, cfg, b, cache_len,
+                             cache_dtype, x)
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
         a, stm, wkv = time_mix(cfg, lp,

@@ -23,6 +23,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantize import quantize_into
 from repro_torch.models import common as cm
 from repro_torch.models.common import P
+from repro_torch.sharding_hints import get_rule, hint, is_dtensor
 
 # ---------------------------------------------------------------------------
 # Templates
@@ -80,12 +81,10 @@ def _layer(params, l: int):
 def _qkv(cfg: ArchConfig, lp, x, positions):
     """Normed, projected, qk-normed and rotated q (B,S,H,D), k, v
     (B,S,KV,D)."""
-    b, s, _ = x.shape
-    hd = cfg.resolved_head_dim
     xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q = (xn @ lp["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = (xn @ lp["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (xn @ lp["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    q = cm.split_heads(xn @ lp["wq"], cfg.num_heads, "heads")
+    k = cm.split_heads(xn @ lp["wk"], cfg.num_kv_heads, "kv_heads")
+    v = cm.split_heads(xn @ lp["wv"], cfg.num_kv_heads, "kv_heads")
     if cfg.qk_norm:
         q = cm.rms_norm(q, lp["q_norm"], cfg.norm_eps)
         k = cm.rms_norm(k, lp["k_norm"], cfg.norm_eps)
@@ -103,18 +102,26 @@ def attn(cfg: ArchConfig, lp, x, *, window: int = 0, q_offset: int = 0,
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :] + q_offset
     q, k, v = _qkv(cfg, lp, x, positions)
+    q = hint(q, "batch", "seq", "heads", None)
+    k = hint(k, "batch", "seq", "kv_heads", None)
     out = cm.flash_attention_named(q, k, v, causal=True, window=window,
-                                   backend=backend)
-    return out.reshape(b, s, cfg.q_dim) @ lp["wo"], (k, v)
+                                   backend=backend,
+                                   save_memory=bool(get_rule("attn_ckpt")))
+    out = out.reshape(b, s, cfg.q_dim) @ lp["wo"]
+    return hint(out, "batch", "seq", "embed"), (k, v)
 
 
 def attn_decode(cfg: ArchConfig, lp, x, ck, cv, pos, *, window: int = 0):
     """One-token attention against a ring cache, B lanes at one position:
     x (B, 1, d); caches (B, KV, S, D) written in place; pos an int or a
-    0-dim tensor."""
+    0-dim tensor.  DTensor caches take ``common.cache_attend_sharded``."""
     b = x.shape[0]
     pos_t = cm.as_device_scalar(pos, x.device)
     q, k, v = _qkv(cfg, lp, x, pos_t.reshape(1, 1).expand(b, 1))
+    if is_dtensor(ck):
+        out = cm.cache_attend_sharded(q, k.transpose(1, 2),
+                                      v.transpose(1, 2), ck, cv, pos_t)
+        return out.reshape(b, 1, cfg.q_dim) @ lp["wo"]
     cm.cache_write(ck, cv, k.transpose(1, 2), v.transpose(1, 2), pos_t,
                    seq_axis=2)
     valid = cm.cache_valid_len(pos_t, ck.shape[2])
@@ -164,11 +171,12 @@ def mlp(cfg: ArchConfig, lp, x):
 def _logits(cfg: ArchConfig, params, x):
     x = cm.rms_norm(x, params["final_ln"], cfg.norm_eps)
     w = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
-    return x @ w.to(x.dtype)
+    return hint(x @ w.to(x.dtype), "batch", "seq", "vocab_act")
 
 
 def _embed(cfg: ArchConfig, params, tokens):
-    return params["embed"][tokens]
+    return hint(cm.embed_lookup(params["embed"], tokens), "batch", "seq",
+                "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -299,6 +307,17 @@ def cache_to_kv_dtype(cfg: ArchConfig, cache, kv_dtype):
     return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
 
 
+def cache_spec(cfg: ArchConfig, batch: int, cache_len: int, dtype):
+    """The ring cache's leaves as ``(shape, dtype)`` tuples
+    (``common.meta_tree`` makes them meta tensors), and their logical
+    axes."""
+    L, kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (L, batch, kv, cache_len, hd)
+    axes = (None, "batch", "tp_kv", "cache_seq", None)
+    return ({"k": (shape, dtype), "v": (shape, dtype)},
+            {"k": axes, "v": axes})
+
+
 def decode_step(cfg: ArchConfig, params, token, cache, pos, *,
                 window: int = 0, ffn=mlp):
     """token (B, 1) int; pos an int or 0-dim tensor, shared by the
@@ -368,7 +387,8 @@ def prefill(cfg: ArchConfig, params, tokens, cache_len: int,
     ``ffn`` the block after attention (see :func:`decode_step`)."""
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
-    cache = init_cache(cfg, b, cache_len, cache_dtype, device=x.device)
+    cache = cm.prefill_cache(init_cache, cache_spec, cfg, b, cache_len,
+                             cache_dtype, x)
     keep = min(s, cache_len)
     for l in range(cfg.num_layers):
         lp = _layer(params, l)

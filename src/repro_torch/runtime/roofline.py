@@ -29,14 +29,15 @@ from repro_torch.core.ops import REGISTRY
 __all__ = ["HW_PEAKS", "HWSpec", "RooflineAccountant", "roofline_terms"]
 
 # Published peaks.  h100-sxm: NVIDIA's data sheet for the SXM part, dense
-# rates (fp32 outside the tensor cores, bf16 and int8 on them) and HBM3
-# bandwidth, at the full 700 W power limit; the int8 rate is B11's compute
-# bound.  cpu: an indicative host figure, for the
-# CPU tests only (it shows the shape of MBU, not a measured peak).
+# rates (fp32 outside the tensor cores, bf16 and int8 on them), HBM3
+# bandwidth and NVLink 4 (450 GB/s each way of the 900 GB/s total), at the
+# full 700 W power limit; the int8 rate is B11's compute bound.  cpu: an
+# indicative host figure, for the CPU tests only (it shows the shape of
+# MBU, not a measured peak).
 HW_PEAKS: Dict[str, Dict[str, Any]] = {
     "h100-sxm": {"name": "h100-sxm", "peak_flops_fp32": 67e12,
                  "peak_flops_bf16": 989e12, "peak_ops_int8": 1979e12,
-                 "hbm_bw": 3.35e12},
+                 "hbm_bw": 3.35e12, "link_bw": 450e9},
     "cpu": {"name": "cpu-host", "peak_flops_fp32": 2.0e11,
             "peak_flops_bf16": 2.0e11, "hbm_bw": 5.0e10},
 }
@@ -46,12 +47,17 @@ _CARD_ROWS = {"NVIDIA H100 80GB HBM3": "h100-sxm"}
 
 
 def roofline_terms(flops: float, hbm_bytes: float,
-                   hw: Dict[str, float]) -> Dict[str, object]:
+                   hw: Dict[str, float],
+                   wire_bytes: float = 0.0) -> Dict[str, object]:
     """Roofline decomposition: the time lower bound of each resource and
-    the binding one.  ``hw`` carries ``peak_flops`` and ``hbm_bw``; there
-    is no default machine."""
+    the binding one.  ``hw`` carries ``peak_flops`` and ``hbm_bw``, and
+    ``link_bw`` for the collective term, ``wire_bytes`` over the link
+    (0 where the row names no link); there is no default machine."""
+    link = hw.get("link_bw")
     terms = {"compute_s": flops / hw["peak_flops"],
-             "memory_s": hbm_bytes / hw["hbm_bw"]}
+             "memory_s": hbm_bytes / hw["hbm_bw"],
+             "collective_s": wire_bytes / link if wire_bytes and link
+             else 0.0}
     bottleneck = max(terms, key=lambda k: terms[k])
     terms["bound_s"] = terms[bottleneck]
     terms["bottleneck"] = bottleneck.replace("_s", "")

@@ -541,7 +541,13 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(sources) > 15
     names = {p.relative_to(REPO).as_posix() for p in sources}
     assert {"src/repro_torch/models/moe.py",
-            "src/repro_torch/kernels/int8_matmul.py"} <= names
+            "src/repro_torch/kernels/int8_matmul.py",
+            "src/repro_torch/sharding_hints.py",
+            "src/repro_torch/launch/compat.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/sharding.py",
+            "src/repro_torch/launch/op_costs.py",
+            "src/repro_torch/launch/dryrun.py"} <= names
     bad = [(p.relative_to(REPO).as_posix(), m) for p in sources
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]

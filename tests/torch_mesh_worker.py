@@ -1,0 +1,125 @@
+"""One gloo rank of the port's sharded paths, for test_torch_moe_parallel.
+
+    python tests/torch_mesh_worker.py <io_dir> <rank> <world>
+
+Reads ``<io_dir>/job.json`` and the numpy weights beside it, joins a
+gloo group of ``world`` ranks through a file store in ``io_dir``, and for
+each case builds its mesh, places the weights as DTensors by the rules
+and runs the port: MoE forwards per ``moe_impl`` and the sharded train
+step of ``launch.dryrun.build_step``.  Rank 0 writes the full results to
+``<io_dir>/out_<case>.npz``.  Imports no JAX.
+"""
+import json
+import pathlib
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src"))
+
+from repro_torch import models  # noqa: E402
+from repro_torch.configs.base import ShapeSpec, get_config, reduced  # noqa: E402
+from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.launch import sharding as shd  # noqa: E402
+from repro_torch.launch.dryrun import build_step  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.optim.adamw import tree_items  # noqa: E402
+from repro_torch.sharding_hints import axis_rules  # noqa: E402
+
+
+def _nested(flat):
+    out = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        d = out
+        for k in path:
+            d = d.setdefault(k, {})
+        d[leaf] = v
+    return out
+
+
+def _config(case):
+    import dataclasses
+    cfg = reduced(get_config(case["arch"]))
+    return dataclasses.replace(cfg, **case.get("cfg", {}))
+
+
+def _full(x):
+    return x.full_tensor().detach().numpy() if hasattr(x, "full_tensor") \
+        else x.detach().numpy()
+
+
+def run_moe(case, io, mesh):
+    cfg = _config(case)
+    np_params = _nested(dict(np.load(io / case["weights"])))
+    tokens = torch.from_numpy(np.load(io / case["tokens"])).long()
+    mod = models.get_module(cfg)
+    out = {}
+    for impl, extra in (("dense", {}), ("a2a", {"tp_ff": None}),
+                        ("local", {"experts": None, "tp_ff": None})):
+        rules = shd.rules_for("train", overrides={"moe_impl": impl, **extra})
+        with axis_rules(rules, mesh), torch.no_grad():
+            params = shd.shard_params(
+                params_from_numpy(np_params, "cpu", cfg=cfg),
+                models.param_template(cfg), rules, mesh)
+            tok = shd.distribute(
+                tokens, shd.struct_shardings(tokens, ("batch", None), rules,
+                                             mesh), mesh)
+            logits, aux = mod.forward(cfg, params, tok)
+            out[impl] = _full(logits)
+            out[impl + "_aux"] = _full(aux)
+    return out
+
+
+def run_train(case, io, mesh):
+    cfg = _config(case)
+    np_params = _nested(dict(np.load(io / case["weights"])))
+    tokens = torch.from_numpy(np.load(io / case["tokens"])).long()
+    b, s = tokens.shape
+    rules = shd.rules_for("train")
+    with axis_rules(rules, mesh):
+        step, structs, shardings = build_step(
+            cfg, ShapeSpec("mesh_train", s, b, "train"), rules, mesh,
+            dtype=torch.float32)
+        params = params_from_numpy(np_params, "cpu", cfg=cfg)
+        opt = {"step": torch.zeros((), dtype=torch.int32),
+               "m": _zeros_like(params), "v": _zeros_like(params)}
+        batch = {"tokens": tokens, "labels": tokens}
+        args = [shd.distribute(t, p, mesh)
+                for t, p in zip((params, opt, batch), shardings)]
+        _, _, loss, grads = step(*args)
+        out = {"loss": _full(loss)}
+        for path, g in tree_items(grads):
+            out["grad/" + "/".join(path)] = _full(g)
+    return out
+
+
+def _zeros_like(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like(v) for k, v in tree.items()}
+    return torch.zeros_like(tree, dtype=torch.float32)
+
+
+def main():
+    io, rank, world = pathlib.Path(sys.argv[1]), int(sys.argv[2]), \
+        int(sys.argv[3])
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{io}/store",
+                            rank=rank, world_size=world)
+    try:
+        job = json.loads((io / "job.json").read_text())
+        for case in job["cases"]:
+            mesh = make_host_mesh(model_axis=case["model_axis"])
+            run = run_moe if case["kind"] == "moe" else run_train
+            out = run(case, io, mesh)
+            if rank == 0:
+                out["jax_imported"] = np.array("jax" in sys.modules)
+                np.savez(io / f"out_{case['name']}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
