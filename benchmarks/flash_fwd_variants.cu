@@ -1,18 +1,15 @@
-// The flash forward (B8, B9's forward) against the design it replaced, on
-// one CUDA card, at TinyLlama's train shape (4 x 2048, 32/4 heads of 64,
-// causal) and at the serving prefill (1 x 300, the same heads), in fp32
-// and bf16:
+// The flash forward (B8, B9's forward) on one CUDA card, at TinyLlama's
+// train shape (4 x 2048, 32/4 heads of 64, causal) and at the serving
+// prefill (1 x 300, the same heads), in fp32 and bf16:
 //
-//   ffma     the kernel the port had before: fp32 FFMA on a 16 x 16 thread
-//            grid, K and V loaded synchronously each key tile, the
-//            probabilities through shared memory (csrc/flash_attention.cu's
-//            flash_fwd, which the library now builds only at head dim 256)
 //   shipped  csrc/flash_attention.cu's flash_fwd_tc as the library
 //            launches it (3xTF32 on wgmma, the probabilities in registers,
 //            a cp.async K/V ring, the wgmma operands in shared memory in
-//            csrc/sm90.cuh's 128-byte swizzle); the reference here
+//            csrc/sm90.cuh's 128-byte swizzle)
 //
-// each with and without the logsumexp (B9's forward and B8).
+// with and without the logsumexp (B9's forward and B8).  A design to be
+// weighed against it goes in beside it as another variant; the FFMA
+// forward it replaced is no longer built (CHANGES.md keeps its times).
 //
 // Build and run on the machine with the card, from the repo root:
 //
@@ -22,12 +19,12 @@
 //
 // Prints one JSON line per case: ms per launch (CUDA events over 20
 // back-to-back launches, the best of 5); each variant's largest
-// difference from the shipped kernel's output and lse, with whether it is
-// within the port's tolerance (fp32 rtol 1e-4 / atol 1e-5, bf16 2e-2 /
-// 3e-2; lse 1e-4 / 1e-5); and o's error against a reference in fp64 on
-// the same (fp32 or bf16-rounded) inputs: the largest and the rms
-// difference, and the slope of o against it less 1 (a systematic shrink
-// or growth of o).
+// difference from the shipped kernel's output and lse (with the
+// logsumexp), with whether it is within the port's tolerance (fp32 rtol
+// 1e-4 / atol 1e-5, bf16 2e-2 / 3e-2; lse 1e-4 / 1e-5); and o's error
+// against a reference in fp64 on the same (fp32 or bf16-rounded) inputs:
+// the largest and the rms difference, and the slope of o against it less
+// 1 (a systematic shrink or growth of o).
 #include <cmath>
 #include <cstdio>
 #include <vector>
@@ -54,17 +51,6 @@ float host_f32(float x) { return x; }
 float host_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 void host_set(float& x, float f) { x = f; }
 void host_set(__nv_bfloat16& x, float f) { x = __float2bfloat16(f); }
-
-template <typename T, bool LSE>
-int launch_ffma(const T* q, const T* k, const T* v, T* o, float* lse, int B,
-                const Shape& sh) {
-  auto kern = flash_fwd<64, T, LSE>;
-  static DlkSmemOnce once;
-  if (int err = dlk_prepare_smem(kern, fwd_smem<64>(), once)) return err;
-  const dim3 grid((sh.Sq + Tiles<64>::Q - 1) / Tiles<64>::Q, sh.H, B);
-  kern<<<grid, THREADS, fwd_smem<64>()>>>(q, k, v, o, lse, sh);
-  return dlk_last_error();
-}
 
 template <typename T, bool LSE>
 int launch_shipped(const T* q, const T* k, const T* v, T* o, float* lse, int B,
@@ -192,8 +178,6 @@ void run_case(const Case& c, const char* dtype, double rtol, double atol) {
     int (*fn)(const T*, const T*, const T*, T*, float*, int, const Shape&);
   };
   const Variant variants[] = {
-      {"ffma", true, launch_ffma<T, true>},
-      {"ffma", false, launch_ffma<T, false>},
       {"shipped", true, launch_shipped<T, true>},
       {"shipped", false, launch_shipped<T, false>},
   };

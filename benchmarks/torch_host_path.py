@@ -50,7 +50,18 @@ built as its own ``_build`` builds them.  The measurements are
          ms with B10's part (``rwkv_prefill_profile``; full width and
          depth, weights from ``numpy_weights_chunked``)
 
-``--phases`` runs the named phases only (default: all seven).  Prints
+  rg_attention  RecurrentGemma-9B's attention shapes (16 query heads of
+         256 on one KV head, window 2048): B8 at the 1 x 300 and 1 x 2100
+         prefills beside SDPA (``_b8_prefill_times``), B8's and B9's
+         forward o against fp64 at 1 x 2100 (inputs uniform in [-2, 2),
+         ``_flash_fp64_error``), and B6 (ring fp32) and B7 (paged int8)
+         over 12 synthetic layers at RG_LIVE_VALID and B6 at 8 lanes of
+         32, 512 and 2048 of 2048 slots (``decode_launch_record``: events
+         ms, device µs, the error against fp64); on a tree with the wide
+         route, its chunks of 32, 64 and 128 slots at RG_LIVE_VALID and
+         8 x 2048 (``rg_chunks``)
+
+``--phases`` runs the named phases only (default: all eight).  Prints
 JSON lines, the card's name and power limit in each; exits 2 without a
 CUDA card.
 """
@@ -62,13 +73,22 @@ import sys
 import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PHASES = ("host_path", "b3b4", "b1", "b9", "train", "decode", "b10b11")
+PHASES = ("host_path", "b3b4", "b1", "b9", "train", "decode", "b10b11",
+          "rg_attention")
 B11_SHAPES = ((8, 1536, 1536), (300, 1536, 1536), (2048, 1536, 512),
               (2048, 512, 1536))   # (M, K, N) of the Granite int8 artifact's
 # a decode step's 8 lanes of 5 to 300 slots (prompts of 5-300 plus new
 # tokens), for the chunk sweep
 DECODE_SERVE_VALID = (37, 300, 100, 5, 180, 120, 16, 250)
 TRAIN_SHAPE = (4, 2048, 32, 4, 64)      # B, S, H, KV, D: TinyLlama's train
+# RecurrentGemma-9B's attention: heads, KV heads, head dim, window, and
+# 8 decode lanes like serve_hybrid's live ones (seven prompts of 5-300
+# tokens into their first decode steps, one 2100-token prompt on a
+# wrapped ring of 2048)
+RG_HEADS = (16, 1, 256)
+RG_WINDOW = 2048
+RG_LIVE_VALID = (2048, 239, 100, 180, 150, 120, 210, 130)
+RG_LAYERS = 12
 
 
 def b9_calls(torch, fa):
@@ -149,6 +169,75 @@ def decode_chunks(torch, cs, head):
                              n=2 * n)[0],
                          "max_abs_vs_plain": float(
                              (call(cases[0]) - want).abs().max())})
+
+
+def rg_attention(torch, cs, head):
+    """B8, B9's forward and B6/B7 at RecurrentGemma-9B's attention shapes
+    through their public wrappers, so any tree of the port runs them."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    h, kvh, d = RG_HEADS
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 121)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    for sq in (cs.PREFILL_SEQ, cs.HYBRID_LONG):
+        cs.emit({"phase": "rg_attention", **head, "kernel": "flash_attention",
+                 **cs._b8_prefill_times(torch, randn, h, kvh, d, sq=sq,
+                                        window=RG_WINDOW)})
+    q, k, v = (torch.rand(1, cs.HYBRID_LONG, n, d, generator=gen,
+                          device="cuda") * 4 - 2 for n in (h, kvh, kvh))
+    for name, o in (("B8", kops.flash_attention(q, k, v, window=RG_WINDOW)),
+                    ("B9's forward", fa.flash_fwd_lse(q, k, v,
+                                                      window=RG_WINDOW)[0])):
+        rms, slope = cs._flash_fp64_error(torch, q, k, v, o, window=RG_WINDOW)
+        cs.emit({"phase": "rg_attention", **head, "check": f"{name} against "
+                 f"fp64 at 1 x {cs.HYBRID_LONG}, window {RG_WINDOW}",
+                 "rms": rms, "slope_minus_1": slope})
+    del q, k, v
+    g = torch.Generator().manual_seed(cs.SEED + 122)
+    rows = [("ring fp32", "float32", False, RG_LIVE_VALID),
+            ("paged int8", "int8", True, RG_LIVE_VALID)] + [
+        ("ring fp32", "float32", False, (n,) * 8) for n in (32, 512, 2048)]
+    for form, dtype, paged, valid in rows:
+        cases = [cs.decode_case(torch, g, "cuda", b=8, kvh=kvh, g=h // kvh,
+                                dtype=dtype, layout="bksd", paged=paged,
+                                s=cs.HYBRID_CACHE_LEN, d=d, valid=list(valid))
+                 for _ in range(RG_LAYERS)]
+        cs.emit({"phase": "rg_attention", **head, "kernel": "decode_attention",
+                 "form": form, **cs.decode_launch_record(
+                     torch, cases, h, d, plain=False)})
+        if hasattr(da, "is_wide") and valid in (RG_LIVE_VALID, (2048,) * 8):
+            rg_chunks(torch, cs, head, da, form, dtype, paged, cases)
+        del cases
+    torch.cuda.empty_cache()
+
+
+def rg_chunks(torch, cs, head, da, form, dtype, paged, cases):
+    """The wide route at every chunk it takes (32, 64 and 128 slots;
+    fp32 rows fit 64): device µs per launch over the cycled layers and
+    the largest distance from the plain version on the first."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    kern = da.PAGED_Q8 if paged else da.RING
+    want = cs.decode_call(kops, ref, cases[0], "bksd", plain=True)
+    n = len(cases)
+    for chunk in (32, 64, 128):
+        if chunk > 64 and dtype == "float32":
+            continue
+
+        def call(c, chunk=chunk):
+            return da.launch(kern, c["q"], c["k"], c["v"], c["valid"],
+                             layout="bksd", scales=c["scales"],
+                             page_table=c.get("pt"), chunk=chunk)
+        nxt = iter(range(1 << 62))
+        cs.emit({"phase": "rg_attention", **head, "chunk_sweep": form,
+                 "valid_len": cases[0]["valid"].tolist(), "chunk": chunk,
+                 "device_us": cs.device_us(
+                     torch, lambda: call(cases[next(nxt) % n]), n=2 * n)[0],
+                 "max_abs_vs_plain": float((call(cases[0]) - want)
+                                           .abs().max())})
 
 
 def b10b11(torch, np, cs, head):
@@ -308,6 +397,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "b10b11" in phases:
         b10b11(torch, np, cs, head)
+    if "rg_attention" in phases:
+        rg_attention(torch, cs, head)
     if "train" in phases:
         torch.cuda.empty_cache()
         tiny_np = cs.numpy_weights(np, get_config("tinyllama-1.1b"), cs.SEED)

@@ -56,7 +56,10 @@ its seconds:
                   valid_len (both layouts); the split-KV kernel's chunk edges, the
                   capacity and past it (reruns bit-equal), a lane alone
                   bit-equal to the lane in a batch of 8, NaN for
-                  valid_len 0 and for a page id outside the pool
+                  valid_len 0 and for a page id outside the pool, at
+                  TinyLlama's heads and on the wide route (G 16); the wide
+                  route's max and rms error against fp64 within bounds
+                  that the FFMA route's error set
   serve           TinyLlama-1.1B at full width through ServingEngine in five
                   cache forms, on the kernels and on ``ref``: tokens, launches
                   (B6/B7 22 x decode steps, B8 22 x full prefills), one host
@@ -81,7 +84,8 @@ its seconds:
                   encoder and Sq != Sk (Whisper's
                   300 x 1500 cross attention, causal and not; rows no key
                   can see); every kernel runs each case twice, bit-equal;
-                  causality
+                  causality; B8 and B9's forward against fp64 at the train
+                  shape and at RecurrentGemma's 1 x 2100 prefill
   cli             ``launch.serve --model tinyllama-1.1b`` on an empty store
                   (bootstraps a reduced model; B8 prefill, B6 decode; tokens
                   equal ``ref``) and ``launch.train`` with its defaults
@@ -1165,6 +1169,10 @@ DECODE_FAMILY = {"decode_attention": ("decode_attention", "decode_attention_q8")
                                             "decode_attention_paged_q8")}
 # both sides compute in fp32 from the same stored values
 DECODE_TOL = (1e-4, 1e-5)                           # rtol, atol
+DECODE_ROUTES = ["decode_attn_split: FFMA split-KV, the last CTA merges "
+                 "(every (KV, G, D) but G 16)",
+                 "decode_attn_wide + decode_merge_wide: 3xTF32 on mma.sync "
+                 "with the 16 query heads as M, a merge kernel (G 16)"]
 # (KV, G, D): TinyLlama, Qwen3, Granite-MoE, the reduced Granite and
 # RecurrentGemma-9B's local attention (one KV head for 16 query heads of 256)
 DECODE_HEADS = ((4, 8, 64), (8, 2, 64), (8, 3, 64), (2, 4, 32), (1, 16, 256))
@@ -1324,11 +1332,12 @@ def phase_decode_kernels(run, torch):
     # nothing past a lane's prefix is read: NaN there changes nothing
     for paged in (False, True):
         for dtype in ("float32", "int8"):
-            for layout, heads, s in (("bksd", (4, 8), 1024),
-                                     ("bskd", (16, 1), 448)):
+            for layout, heads, s in (("bksd", (4, 8, 64), 1024),
+                                     ("bskd", (16, 1, 64), 448),
+                                     ("bksd", (1, 16, 256), 1024)):
                 case = decode_case(torch, gen, dev, b=8, kvh=heads[0],
-                                   g=heads[1], dtype=dtype, layout=layout,
-                                   paged=paged, s=s,
+                                   g=heads[1], d=heads[2], dtype=dtype,
+                                   layout=layout, paged=paged, s=s,
                                    valid=None if s == 1024 else WHISPER_SELF)
                 clean = decode_call(kops, ref, case, layout)
                 poison(torch, case, layout)
@@ -1337,17 +1346,22 @@ def phase_decode_kernels(run, torch):
                 ok = bool(torch.isfinite(dirty).all()) and \
                     torch.equal(clean, dirty)
                 run.check("decode_kernels", f"nothing read past valid_len "
-                          f"paged={paged} {dtype} {layout}", ok)
+                          f"paged={paged} {dtype} {layout} (KV, G, D) "
+                          f"{heads}", ok)
                 summary.setdefault("nan_past_valid_len", []).append(
                     {"paged": paged, "dtype": dtype, "layout": layout,
-                     "ok": ok})
+                     "heads": list(heads), "ok": ok})
     summary["split_kv"] = split_kv_checks(run, torch, gen, dev)
+    summary["split_kv_wide"] = split_kv_checks(run, torch, gen, dev,
+                                               heads=(1, 16, 256))
+    summary["fp64_wide"] = wide_fp64_checks(run, torch, dev)
     for key, s in summary.items():
         emit({"phase": "decode_kernels", "check": key, "result": s})
 
 
-def split_kv_checks(run, torch, gen, dev):
-    """The split-KV kernel at TinyLlama's heads, ring and paged, fp32, bf16
+def split_kv_checks(run, torch, gen, dev, heads=(4, 8, 64)):
+    """The split-KV kernel at ``heads`` (KV, G, D; TinyLlama's by default,
+    RecurrentGemma's takes the wide route), ring and paged, fp32, bf16
     and int8: valid lengths on the chunk's edges and at and past the
     capacity against the plain version (DECODE_TOL), each call run twice
     bit-equal (a ticket counter left non-zero would break the second); one
@@ -1358,15 +1372,22 @@ def split_kv_checks(run, torch, gen, dev):
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
-    chunk = da.plan(8, 4, 8, 64, 4, slots=1024).chunk
-    edges = [1, chunk - 1, chunk, chunk + 1, 2 * chunk, 1023, 1024, 1031]
+    kvh, g, d = heads
     rtol, atol = DECODE_TOL
     rows = []
     for paged in (False, True):
         fam = "decode_attention_paged" if paged else "decode_attention"
         for dtype in ("float32", "bfloat16", "int8"):
-            case = decode_case(torch, gen, dev, b=8, kvh=4, g=8, dtype=dtype,
-                               layout="bksd", paged=paged, valid=edges)
+            elem = {"float32": 4, "bfloat16": 2, "int8": 1}[dtype]
+            p = da.plan(8, kvh, g, d, elem, slots=16 if paged else 1024,
+                        page_size=16 if paged else None, width=64,
+                        scaled=dtype == "int8")
+            chunk = p.chunk
+            edges = [1, chunk - 1, chunk, chunk + 1, 2 * chunk, 1023, 1024,
+                     1031]
+            case = decode_case(torch, gen, dev, b=8, kvh=kvh, g=g, d=d,
+                               dtype=dtype, layout="bksd", paged=paged,
+                               valid=edges)
             got = decode_call(kops, ref, case, "bksd")
             again = decode_call(kops, ref, case, "bksd")
             want = decode_call(kops, ref, case, "bksd", plain=True)
@@ -1392,7 +1413,8 @@ def split_kv_checks(run, torch, gen, dev):
             err, bad = compare(torch, got, want, rtol, atol)
             run.max_err[fam] = max(run.max_err.get(fam, 0.0), err)
             keep = [j for j in range(8) if j not in nan_lanes]
-            row = {"paged": paged, "dtype": dtype, "chunk": chunk,
+            row = {"paged": paged, "dtype": dtype, "heads": list(heads),
+                   "chunk": chunk, "wide": p.wide,
                    "valid_len": edges, "max_abs_err": err,
                    "edges_within_tol": bad == 0,
                    "rerun_bit_equal": torch.equal(got, again),
@@ -1402,8 +1424,44 @@ def split_kv_checks(run, torch, gen, dev):
             rows.append(row)
             for key in ("edges_within_tol", "rerun_bit_equal",
                         "alone_bit_equal", "nan_lanes", "other_lanes_kept"):
-                run.check("decode_kernels", f"split-KV {fam} {dtype}: {key}",
-                          row[key], max_abs_err=err, mismatches=bad)
+                run.check("decode_kernels", f"split-KV {fam} {dtype} (KV, G, "
+                          f"D) {heads}: {key}", row[key], max_abs_err=err,
+                          mismatches=bad)
+    return rows
+
+
+def wide_fp64_checks(run, torch, dev):
+    """B6 (ring fp32) and B7 (paged int8) at RecurrentGemma's heads (the
+    wide route) against fp64 (decode_fp64) at 8 lanes like serve_hybrid's
+    live ones: the largest and the rms error within the bounds that the
+    FFMA route's errors on the same inputs set (DECODE_WIDE_FP64)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    kvh, g, d = DECODE_WIDE_FP64["heads"]
+    gen = torch.Generator().manual_seed(SEED + DECODE_WIDE_FP64["seed"])
+
+    def draw(dtype, paged, where=dev):
+        return decode_case(torch, gen, where, b=8, kvh=kvh, g=g, d=d,
+                           dtype=dtype, layout="bksd", paged=paged,
+                           s=HYBRID_CACHE_LEN,
+                           valid=list(DECODE_WIDE_FP64["valid"]))
+    rows = []
+    for form, (dtype, paged) in (("ring fp32", ("float32", False)),
+                                 ("paged int8", ("int8", True))):
+        case = draw(dtype, paged)
+        if not paged:       # the phase's other ring layers precede paged's
+            for _ in range(DECODE_WIDE_FP64["layers"] - 1):
+                draw(dtype, paged, "cpu")
+        err = decode_call(kops, ref, case, "bksd").double() - \
+            decode_fp64(torch, case)
+        row = {"form": form, "max_abs_err_fp64": float(err.abs().max()),
+               "rms_err_fp64": float(err.pow(2).mean().sqrt())}
+        bound = DECODE_WIDE_FP64[form]
+        run.check("decode_kernels", f"{form} at (KV, G, D) {(kvh, g, d)} "
+                  f"against fp64: max <= {bound[0]}, rms <= {bound[1]}",
+                  row["max_abs_err_fp64"] <= bound[0]
+                  and row["rms_err_fp64"] <= bound[1], **row)
+        rows.append(row)
     return rows
 
 
@@ -1891,7 +1949,11 @@ def decode_bound(case, layout, h, d=64):
     """(seconds from bytes, seconds from operations) of one call: q, the
     K/V (and scales) of each lane's valid prefix, the table entries it
     reads, valid_len and the output; 4*H*D flops per valid slot at the
-    fp32 peak."""
+    fp32 peak, or on the wide route (16 query heads a KV head) three
+    times as many at the TF32 tensor-core peak, twice as many where K/V
+    (bf16, int8) are exact in TF32 and the kernel drops their lo
+    products."""
+    from repro_torch.kernels import decode_attention as da
     valid = case["valid"].tolist()
     elem = case["k"].element_size()
     kvh = case["k"].shape[1] if layout == "bksd" else case["k"].shape[2]
@@ -1904,14 +1966,19 @@ def decode_bound(case, layout, h, d=64):
         ps = case["k"].shape[2] if layout == "bksd" else case["k"].shape[1]
         nbytes += 4 * sum(-(-n // ps) for n in valid)
     ops = 4 * h * d * slots
+    if da.is_wide(h // kvh, d):
+        return nbytes / PEAK_HBM_BYTES, \
+            (3 if elem == 4 else 2) * ops / PEAK_TF32_FLOPS
     return nbytes / PEAK_HBM_BYTES, ops / PEAK_FP32_FLOPS
 
 
+# B6/B7's kernels by name: the split-KV kernels and the wide route's merge
+DECODE_KERNEL_NAMES = ("decode_attn", "decode_merge")
 # device kernels by name -> the part of a decode step they belong to
-STEP_GROUPS = (("decode_attn", "decode attention (B6/B7)"),
-               ("gemm", "matmul (cuBLAS)"), ("Gemm", "matmul (cuBLAS)"),
-               ("gemv", "matmul (cuBLAS)"), ("Memcpy", "copies"),
-               ("Memset", "copies"))
+STEP_GROUPS = tuple((key, "decode attention (B6/B7)")
+                    for key in DECODE_KERNEL_NAMES) + (
+    ("gemm", "matmul (cuBLAS)"), ("Gemm", "matmul (cuBLAS)"),
+    ("gemv", "matmul (cuBLAS)"), ("Memcpy", "copies"), ("Memset", "copies"))
 
 
 def _profile_ticks(torch, sched, ticks):
@@ -1944,6 +2011,19 @@ def _profile_ticks(torch, sched, ticks):
 
 
 DECODE_LONG_VALID = 1000     # 8 lanes x 1000 of 1024: bytes the bound sees
+# B6/B7 at RecurrentGemma's heads against fp64 at 8 lanes like
+# serve_hybrid's live ones (one wrapped ring of 2048, seven prompts into
+# their first steps), on the first synthetic layer of
+# benchmarks/torch_host_path.py's rg_attention phase (the same seed and
+# draws): the bounds (max, rms) are 3x and 1.5x the FFMA route's errors on
+# those inputs (ring fp32 3.306e-7 / 2.851e-8, paged int8 4.890e-6 /
+# 5.517e-7; that phase on the tree before the wide route, NVIDIA H100
+# 80GB HBM3, 700 W): the wide route's products run on the tensor core,
+# whose sums truncate
+DECODE_WIDE_FP64 = {"heads": (1, 16, 256), "seed": 122, "layers": 12,
+                    "valid": (2048, 239, 100, 180, 150, 120, 210, 130),
+                    "ring fp32": (9.92e-7, 4.28e-8),
+                    "paged int8": (1.467e-5, 8.28e-7)}
 DECODE_TIME_LAYERS = 22      # synthetic layers cycled (TinyLlama's depth)
 
 
@@ -2313,6 +2393,13 @@ def phase_fft_conv(run, torch, np, graph, card):
 # ---------------------------------------------------------------------------
 
 FLASH_CU = "src/repro_torch/kernels/csrc/flash_attention.cu"
+# the kernels behind each wrapper, by head dim (the kernels line names them)
+FLASH_ROUTES = {
+    "fwd": ["flash_fwd_tc: 3xTF32 on wgmma, one warpgroup, head dim <= 128",
+            "flash_fwd_tc256: 3xTF32 on wgmma, two warpgroups splitting "
+            "q.k^T and o by head-dim halves, head dim 256"],
+    "bwd": ["flash_dq_tc, flash_dkv_tc: 3xTF32 on mma.sync, head dim <= 128",
+            "flash_dq, flash_dkv: FFMA, head dim 256"]}
 FLASH_SOURCES = {
     "flash_attention": (FLASH_CU, "src/repro/kernels/flash_attention.py:77"),
     "flash_attention_fwd": (FLASH_CU,
@@ -2358,15 +2445,27 @@ TRAIN = {"tinyllama-1.1b": dict(batch=4, seq=2048, steps=4),
          "qwen3-0.6b": dict(batch=4, seq=1024, steps=2)}
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_REL = 1e-3                       # ||g_cuda - g_ref|| / ||g_ref||
+# o against fp64 at RecurrentGemma-9B's 1 x 2100 prefill (16/1 heads of
+# 256, window 2048, inputs uniform in [-2, 2)): rms at most the FFMA
+# forward's there, 1.035e-7, which the head-dim-256 wgmma route replaced
+# (benchmarks/torch_host_path.py --phases rg_attention on the tree before
+# it; NVIDIA H100 80GB HBM3, 700 W), rounded up; |slope - 1| the
+# train-shape bar of the tensor-core route (the FFMA forward's -6.1e-9
+# has no truncating sums)
+RG_FP64 = {"heads": (16, 1, 256), "window": 2048, "rms": 1.1e-7,
+           "slope": 5e-7}
 PREFILL_SEQ = 300          # B8 timed at a serving prompt's length as well
 
 
-def _flash_fp64_error(torch, q, k, v, o):
+def _flash_fp64_error(torch, q, k, v, o, window=0):
     """(rms of o - exact, slope of o against exact less 1), exact being
-    causal attention in fp64 on the same inputs, one batch row at a time."""
+    causal attention in fp64 on the same inputs (local within ``window``
+    keys where it is set), one batch row at a time."""
     b, s, h, d = q.shape
     g = h // k.shape[2]
     future = torch.ones(s, s, dtype=torch.bool, device=q.device).triu(1)
+    if window:
+        future |= torch.ones_like(future).tril(-window)
     sq = gw = ww = 0.0
     for i in range(b):
         qi = q[i].double().transpose(0, 1)
@@ -2502,6 +2601,26 @@ def phase_flash_kernels(run, torch):
                   slope_minus_1=slope)
         emit({"phase": "flash_kernels", "check": f"{name} against fp64",
               "rms": rms, "slope_minus_1": slope})
+    # and at RecurrentGemma-9B's longest prefill (1 x 2100, 16/1 heads of
+    # 256, window 2048): the head-dim-256 route held to the FFMA forward's
+    # error on the same shape and distribution (RG_FP64)
+    h, kvh, d = RG_FP64["heads"]
+    q, k, v = (torch.rand(1, HYBRID_LONG, n, d, generator=gen, device=dev)
+               * 4 - 2 for n in (h, kvh, kvh))
+    win = RG_FP64["window"]
+    for name, o in (("B8", kops.flash_attention(q, k, v, window=win)),
+                    ("B9's forward", fa.flash_fwd_lse(q, k, v,
+                                                      window=win)[0])):
+        rms, slope = _flash_fp64_error(torch, q, k, v, o, window=win)
+        run.check("flash_kernels", f"{name} fp32 at RecurrentGemma's 1 x "
+                  f"{HYBRID_LONG} prefill (window {win}) against fp64: rms "
+                  f"<= {RG_FP64['rms']}, |slope - 1| <= {RG_FP64['slope']}",
+                  rms <= RG_FP64["rms"] and abs(slope) <= RG_FP64["slope"],
+                  rms=rms, slope_minus_1=slope)
+        emit({"phase": "flash_kernels", "check": f"{name} against fp64 at "
+              f"1 x {HYBRID_LONG}, window {win}", "rms": rms,
+              "slope_minus_1": slope})
+    del q, k, v
     for key, s in summary.items():
         emit({"phase": "flash_kernels", "check": key, "result": s})
     emit({"phase": "flash_kernels", "check": "causality", "ok": ok,
@@ -3834,7 +3953,8 @@ def _profile_ranged_ticks(torch, sched, ticks, module, ranges):
         kernels += 1
         total += e.device_time
         part = in_range.get(e.id) or (
-            "attention (B6/B7)" if "decode_attn" in e.name else
+            "attention (B6/B7)" if any(key in e.name for key in
+                                       DECODE_KERNEL_NAMES) else
             OTHER_MM if _is_gemm(e.name) else OTHER)
         parts[part] = parts.get(part, 0.0) + e.device_time
     return {"ticks": ticks, "wall_ms_per_step": wall_us / ticks / 1e3,
@@ -5423,6 +5543,7 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
                 "valid_len", "ms", "device_us", "bound_ms", "share_of_bound",
                 "library_ms", "library_device_us", "max_abs_err_fp64",
                 "rms_err_fp64")},
+            "kernel_routes": DECODE_ROUTES,
             "hybrid": _decode_row(
                 ((hybrid or {}).get("decode") or {}).get(config)),
             "audio_self": _decode_row(audio_dec),
@@ -5453,6 +5574,8 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
             "library_device_us": t.get("library_device_us"),
             "bound_unit": t.get("bound_unit"),
             "bound_ffma_ms": t.get("bound_ffma_ms"),
+            "kernel_routes": FLASH_ROUTES["fwd" if name in (
+                "flash_attention", "flash_attention_fwd") else "bwd"],
             **({"prefill": t["prefill"]} if "prefill" in t else {}),
             **({"hybrid_prefill": (hybrid or {}).get("b8_prefill"),
                 "audio_prefill": (audio or {}).get("b8")} if b8 else {}),

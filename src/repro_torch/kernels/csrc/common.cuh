@@ -1,10 +1,14 @@
 // Shared pieces of the kernel library: activation codes (the same numbers
 // as ACT_CODES in repro_torch/kernels/elementwise.py), the activations in
-// fp32, cp.async copies, the error return every C entry point ends with,
-// and the opt-in to more than 48 KB of dynamic shared memory.
+// fp32, cp.async copies, 3xTF32 fragments and mma.sync m16n8k8 TF32 (the
+// flash backward and the wide-group decode), the error return every C
+// entry point ends with, and the opt-in to more than 48 KB of dynamic
+// shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <stdint.h>
 
 #include <atomic>
 
@@ -59,6 +63,45 @@ __device__ __forceinline__ void dlk_cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void dlk_cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// An operand fragment as two TF32 parts, x = hi + lo to ~2^-21 relative:
+// hi = rna(x), rna rounding to nearest, ties away from zero, in its
+// integer form ((bits + 2^12) with the low 13 bits cleared: cvt.rna.tf32's
+// result for every finite x, in two integer operations), and lo = x - hi,
+// exact in fp32, whose low 13 bits the tensor core ignores (lo truncated
+// to TF32).  A NaN or an infinity in x gives a NaN lo, which reaches the
+// product.
+template <int N>
+struct Frag {
+  uint32_t hi[N], lo[N];
+};
+
+template <int N>
+__device__ __forceinline__ void split(Frag<N>& f, int i, float x) {
+  const uint32_t hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  f.hi[i] = hi;
+  f.lo[i] = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a b on one m16n8k8 tile (TF32 in, fp32 accumulators).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32: lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b), the small
+// terms first.  An operand exact in TF32 (bf16 data: its lo is 0) drops
+// its term.
+template <bool EXACT_A, bool EXACT_B>
+__device__ __forceinline__ void mma3(float (&c)[4], const Frag<4>& a,
+                                     const Frag<2>& b) {
+  if constexpr (!EXACT_A) mma_tf32(c, a.lo, b.hi);
+  if constexpr (!EXACT_B) mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.hi, b.hi);
 }
 
 // Every entry point returns this: a launch refused for its configuration

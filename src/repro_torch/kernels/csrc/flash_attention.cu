@@ -15,12 +15,13 @@
 //
 // Bound on the H100: operations.  A 64 x 64 score tile costs 2*64*64*D
 // flops for QK^T and as many for PV against 2*64*D*4 bytes of K/V, so the
-// kernels sit far above the ridge at S >= 64.  Up to head dim 128 every
-// product runs 3xTF32 on the tensor cores (494.7 TFLOP/s TF32, three
-// products each); at head dim 256 all four kernels run fp32 FFMA (67
-// TFLOP/s).  The forward at TinyLlama's train shape (4 x 2048, 32/4 heads
-// of 64, causal, fp32: 2.69e8 visible pairs, 6.87e10 flops) is bound at
-// 3 x 6.87e10 / 494.7e12 = 0.417 ms (FFMA: 1.026 ms).
+// kernels sit far above the ridge at S >= 64.  The forward at every head
+// dim, and dq and dk/dv up to head dim 128, run every product 3xTF32 on
+// the tensor cores (494.7 TFLOP/s TF32, three products each); dq and
+// dk/dv at head dim 256 run fp32 FFMA (67 TFLOP/s).  The forward at
+// TinyLlama's train shape (4 x 2048, 32/4 heads of 64, causal, fp32:
+// 2.69e8 visible pairs, 6.87e10 flops) is bound at 3 x 6.87e10 / 494.7e12
+// = 0.417 ms (FFMA: 1.026 ms).
 //
 // Design, common to all four kernels:
 //  - q has Sq rows and k, v have Sk; query positions start at 0, as in the
@@ -73,10 +74,14 @@
 //     accumulator's columns (a product's depth order is free);
 //  4. row statistics over 16 lanes: a thread holds two whole-row slices,
 //     and a row's max and sum take 2 shuffles within its quad.
-// At head dim 256 the FFMA forward (flash_fwd) stays: see launch_fwd.
+// At head dim 256 the forward is flash_fwd_tc256 (FwdTc256, below): two
+// warpgroups that split q.k^T and o by head-dim halves, o accumulated
+// transposed with V as the register operand.  It replaced an FFMA forward
+// on the tiles below (benchmarks/flash_fwd_variants.cu keeps that one, at
+// head dim 64, as its yardstick).
 //
-// The FFMA kernels (the forward, dq and dk/dv at head dim 256): 32 query
-// and 32 key rows a tile (Tiles<256>), 256 threads; thread (ty, tx) of a
+// The FFMA kernels (dq and dk/dv at head dim 256): 32 query and 32 key
+// rows a tile (Tiles<256>), 256 threads; thread (ty, tx) of a
 // 16 x 16 grid owns rows ty + 16 i and score columns tx + 16 j of a score
 // tile, and D / 16 output columns of its rows (4 tx + 64 j + e), so the
 // row statistics of the online softmax stay in its registers and are
@@ -105,8 +110,9 @@
 // once (the reference's per-head outputs and their sum over G are never
 // stored).
 //
-// Not yet done (a later PR): the backward on wgmma (this forward's
-// sm90.cuh pieces); the kernels at head dim 256 on the tensor cores.
+// Not yet done: the backward on wgmma (the forward's sm90.cuh pieces),
+// and dq and dk/dv at head dim 256 on the tensor cores (no model trains at
+// head dim 256 at full width).
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
@@ -161,6 +167,8 @@ __device__ __forceinline__ void st2(float* p, float x, float y) {
 __device__ __forceinline__ void st2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
+__device__ __forceinline__ void st1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st1(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // The D / 16 output columns that thread tx owns in a row of D (the FFMA
 // kernels: head dim 256, or 64 in benchmarks/flash_fwd_variants.cu):
@@ -332,92 +340,6 @@ __device__ __forceinline__ void store_rows(T* dst, long long row_stride,
 #pragma unroll
     for (int e = 0; e < D / 16; ++e) x[e] = div ? acc[i][e] / div[i] : acc[i][e];
     st_cols<D>(dst + r * row_stride, x, tx);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// forward: o (B, Sq, H, D) and, with LSE, lse (B, H, Sq) fp32
-// ---------------------------------------------------------------------------
-
-template <int D, typename T, bool LSE>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-          Shape sh) {
-  constexpr int QR = Tiles<D>::Q, KR = Tiles<D>::K;
-  constexpr int NI = QR / 16, NJ = KR / 16, STR = D + 4, PS = KR + 4;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);   // QR x STR
-  float* k_s = q_s + QR * STR;                    // KR x STR
-  float* v_s = k_s + KR * STR;                    // KR x STR
-  float* p_s = v_s + KR * STR;                    // QR x PS
-  const int nq = (sh.Sq + QR - 1) / QR;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * QR;  // long rows first
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / sh.G;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const long long qrow = static_cast<long long>(sh.H) * D;
-  const long long krow = static_cast<long long>(sh.KV) * D;
-  const long long qoff = (static_cast<long long>(b) * sh.Sq + q0) * qrow + h * D;
-  const long long kbase = static_cast<long long>(b) * sh.Sk * krow + kvh * D;
-  load_tile<D, QR>(q_s, q + qoff, qrow, sh.Sq - q0);
-
-  float m[NI], l[NI], acc[NI][D / 16];
-#pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.0f;
-  }
-  int lo, hi;
-  key_range<QR, KR>(sh, q0, lo, hi);
-  for (int k0 = lo; k0 < hi; k0 += KR) {
-    __syncthreads();                    // the previous tiles are consumed
-    load_tile<D, KR>(k_s, k + kbase + k0 * krow, krow, sh.Sk - k0);
-    load_tile<D, KR>(v_s, v + kbase + k0 * krow, krow, sh.Sk - k0);
-    __syncthreads();
-    float s[NI][NJ];
-    dot_tile<D, NI, NJ>(s, q_s, k_s, ty, tx);
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const int qp = q0 + ty + 16 * i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        s[i][j] = kp < sh.Sk && visible(sh, qp, kp) ? s[i][j] * sh.scale
-                                                    : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], max16(mx));
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float p = k0 + tx + 16 * j < sh.Sk ? expf(s[i][j] - m_new) : 0.0f;
-        p_s[(ty + 16 * i) * PS + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * corr + sum16(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-    pm_tile<D, NI, KR>(acc, p_s, v_s, ty, tx);
-  }
-  float lf[NI];
-#pragma unroll
-  for (int i = 0; i < NI; ++i) lf[i] = fmaxf(l[i], 1e-30f);
-  store_rows<D, NI>(o + qoff, qrow, sh.Sq - q0, acc, lf, ty, tx);
-  if (LSE && tx == 0) {
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const int qp = q0 + ty + 16 * i;
-      if (qp < sh.Sq)
-        lse[(static_cast<long long>(b) * sh.H + h) * sh.Sq + qp] =
-            m[i] + logf(lf[i]);
-    }
   }
 }
 
@@ -600,45 +522,6 @@ struct TcTiles {
   static constexpr int STAGES = D <= 64 ? 1 : 2;
   static constexpr int CTAS_PER_SM = D <= 64 ? 2 : 1;
 };
-
-// An operand fragment as two TF32 parts, x = hi + lo to ~2^-21 relative:
-// hi = rna(x), rna rounding to nearest, ties away from zero, in its
-// integer form ((bits + 2^12) with the low 13 bits cleared: cvt.rna.tf32's
-// result for every finite x, in two integer operations), and lo = x - hi,
-// exact in fp32, whose low 13 bits the tensor core ignores (lo truncated
-// to TF32).  A NaN or an infinity in x gives a NaN lo, which reaches the
-// product.
-template <int N>
-struct Frag {
-  uint32_t hi[N], lo[N];
-};
-
-template <int N>
-__device__ __forceinline__ void split(Frag<N>& f, int i, float x) {
-  const uint32_t hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  f.hi[i] = hi;
-  f.lo[i] = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// c += a b on one m16n8k8 tile (TF32 in, fp32 accumulators).
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b in 3xTF32: lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b), the small
-// terms first.  An operand exact in TF32 (bf16 data: its lo is 0) drops
-// its term.
-template <bool EXACT_A, bool EXACT_B>
-__device__ __forceinline__ void mma3(float (&c)[4], const Frag<4>& a,
-                                     const Frag<2>& b) {
-  if constexpr (!EXACT_A) mma_tf32(c, a.lo, b.hi);
-  if constexpr (!EXACT_B) mma_tf32(c, a.hi, b.lo);
-  mma_tf32(c, a.hi, b.hi);
-}
 
 // Fragments (g = lane / 4, t = lane % 4).  For a product whose depth runs
 // along both tiles' rows (q.k^T, dO.v^T and their transposes) the
@@ -1443,11 +1326,388 @@ flash_fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D>
-constexpr size_t fwd_smem() {
-  constexpr int Q = Tiles<D>::Q, K = Tiles<D>::K;
-  return sizeof(float) * ((Q + 2 * K) * (D + 4) + Q * (K + 4));
+// The forward at head dim 256 (flash_fwd_tc256, FwdTc256<T>): 3xTF32 on
+// wgmma like flash_fwd_tc, with two consumer warpgroups (256 threads) a CTA
+// of 64 query rows and key tiles of 32.  One warpgroup's 64 x 256 fp32
+// accumulator alone would take 128 registers a thread, and K^T and V^T
+// stored hi and lo at 256 columns beside a K/V ring would leave 16-key
+// tiles in 227 KB, so:
+//  1. the two warpgroups split each product: q.k^T by head-dim halves
+//     (warpgroup w sums dims 128 w .. 128 w + 127 on its own chains), the
+//     halves' scores meet through shared memory and are added in fp32 (in
+//     the same order in both: a + b is b + a), and both run the same
+//     online softmax; o by head-dim halves, warpgroup w owning o's dims
+//     128 w .. 128 w + 127 (64 registers a thread);
+//  2. o is accumulated transposed, o^T = V^T p^T: V is the A operand, read
+//     by each thread straight from global memory (L2) into registers one
+//     tile ahead and split into hi and lo there, and p^T the B operand, p
+//     written to shared memory by the softmax (hi by warpgroup 0, lo by
+//     warpgroup 1) in its natural key order.  So V is never staged,
+//     transposed or split in shared memory, and q keeps its hi and lo
+//     tiles (128 KB) for the score products;
+//  3. K: one stage by cp.async (swizzled; fp32 rounded to its hi in place,
+//     lo beside it; bf16 converted into an fp32 tile), the next tile's
+//     copies issued as soon as both warpgroups' score products are done,
+//     in flight during the softmax and p.V;
+//  4. the grid is (query tiles, heads, batch): at RecurrentGemma's 1 x 300
+//     prefill 80 CTAs, one wave at one CTA an SM.
+// The G query heads of a KV head are not packed into a CTA's rows: at 64
+// rows a CTA a tile of keys is visited as often either way, K and V (1 x
+// 2100 x 256 fp32: 2.2 MB each) stay in L2, and the time is each CTA's
+// chain of tensor-core products.  Product order: in each half, every
+// k-step's small terms (q_lo k_hi, q_hi k_lo) on one chain, then the hi.hi
+// terms spread over 4 chains (k-step s on chain s % 4), the chains added in
+// fp32; each tile's p.V for each 64 dims summed apart (v_lo p_hi, v_hi
+// p_lo, then v_hi p_hi) and added to o in fp32.
+// Shared memory (fp32): q hi and lo 128 KB, the K stage 32 KB, K's lo 32
+// KB, the halves' scores 16 KB, p's hi and lo 16 KB, corr and 1 / l
+// 0.5 KB, the alignment pad 1 KB: 225.5 KB (bf16: 145.5 KB).
+template <typename T>
+struct FwdTc256 {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr int D = 256, HALF = 128, QR = 64, KR = 32, THREADS = 256;
+  static constexpr int CH = 16 / sizeof(T);            // elements a 16-byte copy
+  static constexpr size_t QS = sizeof(float) * QR * D * (F32 ? 2 : 1);
+  static constexpr size_t KSTAGE = sizeof(T) * KR * D;
+  static constexpr size_t KWORK = sizeof(float) * KR * D;   // fp32: K's lo; bf16: K
+  static constexpr size_t XS = sizeof(float) * 2 * QR * KR;
+  static constexpr size_t PS = sizeof(float) * 2 * QR * KR;
+  static constexpr size_t ROWS = sizeof(float) * 2 * QR;
+  static constexpr size_t PAD = Sm90Swizzle128::ALIGN;
+  static constexpr size_t SMEM = QS + KSTAGE + KWORK + XS + PS + ROWS + PAD;
+  static_assert(QS % 1024 == 0 && KSTAGE % 1024 == 0 && KWORK % 1024 == 0 &&
+                    XS % 1024 == 0 && (QR * KR * 4) % 1024 == 0,
+                "every swizzled tile starts 1024-byte aligned");
+  static_assert(KR * (D / CH) % THREADS == 0 && KR * D % (4 * THREADS) == 0,
+                "every thread takes the same number of copies and splits");
+};
+
+// The cp.async copies of key tile [k0, k0 + 32) of K into the stage (fp32
+// swizzled, bf16 row-major); rows at or past Sk are zero-filled.
+template <typename T>
+__device__ __forceinline__ void fwd256_stage(T* __restrict__ ks, const T* __restrict__ k,
+                                             long long base, long long krow, int rows) {
+  using FT = FwdTc256<T>;
+  constexpr int KR = FT::KR, D = FT::D, CH = FT::CH, PER_ROW = D / CH;
+#pragma unroll
+  for (int u = 0; u < KR * PER_ROW / FT::THREADS; ++u) {
+    const int i = threadIdx.x + u * FT::THREADS;
+    const int r = i / PER_ROW, c = (i % PER_ROW) * CH;
+    const bool ok = r < rows;
+    const long long src = ok ? base + r * krow + c : 0;
+    float* kd = reinterpret_cast<float*>(
+        FT::F32 ? ks + Sm90Swizzle128::off(r, c, KR, D) : ks + r * D + c);
+    dlk_cp_async16(kd, reinterpret_cast<const float*>(k + src), ok);
+  }
 }
+
+// V's A fragments of one key tile for this thread (head-dim tiles dt of 64
+// of its warpgroup's half, k-steps s of 8 keys; a[i] as sm90.cuh lays an
+// m64k8 A out, rows = head dims), zero past Sk.
+template <typename T>
+__device__ __forceinline__ void fwd256_load_v(float (&vr)[2][4][4], const T* __restrict__ v,
+                                              long long base, long long krow, int k0,
+                                              int Sk, int dim0) {
+#pragma unroll
+  for (int dt = 0; dt < 2; ++dt)
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + 8 * s + (threadIdx.x % 4) + 4 * (i >> 1);
+        const int d = dim0 + 64 * dt + 8 * (i & 1);
+        vr[dt][s][i] = key < Sk ? to_f32(v[base + key * krow + d]) : 0.0f;
+      }
+}
+
+template <typename T, bool LSE>
+__global__ void __launch_bounds__(256, 1)
+flash_fwd_tc256(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, T* __restrict__ o,
+                float* __restrict__ lse, Shape sh) {
+  using FT = FwdTc256<T>;
+  using SW = Sm90Swizzle128;
+  constexpr int D = FT::D, QR = FT::QR, KR = FT::KR, NJ = KR / 8;
+  constexpr int NS = FT::HALF / 8, SC = 4;        // k-steps a half, score chains
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4);
+  {
+    const uint32_t mis = static_cast<uint32_t>(__cvta_generic_to_shared(base)) & (FT::PAD - 1);
+    base += mis ? FT::PAD - mis : 0;
+  }
+  float* q_hi = reinterpret_cast<float*>(base);
+  float* q_lo = q_hi + QR * D;                                  // fp32 only
+  T* k_stage = reinterpret_cast<T*>(base + FT::QS);
+  float* k_work = reinterpret_cast<float*>(base + FT::QS + FT::KSTAGE);
+  float* xs = reinterpret_cast<float*>(base + FT::QS + FT::KSTAGE + FT::KWORK);
+  float* p_hi = xs + 2 * QR * KR;
+  float* p_lo = p_hi + QR * KR;
+  float* corr_s = p_lo + QR * KR;
+  float* lf_s = corr_s + QR;
+  const int nq = (sh.Sq + QR - 1) / QR;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * QR;  // long rows first
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / sh.G;
+  const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;      // warpgroup, thread in it
+  const int warp = tw / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int dim0 = FT::HALF * wg + 16 * warp + g;               // o^T rows: +64 dt, +8
+  const long long qrow = static_cast<long long>(sh.H) * D;
+  const long long krow = static_cast<long long>(sh.KV) * D;
+  const long long qoff = (static_cast<long long>(b) * sh.Sq + q0) * qrow + h * D;
+  const long long kbase = static_cast<long long>(b) * sh.Sk * krow + kvh * D;
+  int lo, hi;
+  key_range<QR, KR>(sh, q0, lo, hi);
+  const int ntiles = (hi - lo + KR - 1) / KR;
+
+  // q (fp32 by cp.async, split into hi and lo below; bf16 converted, exact
+  // in TF32), the first K tile, and the first V fragments
+#pragma unroll 4
+  for (int i = threadIdx.x; i < QR * D / 4; i += FT::THREADS) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const bool ok = q0 + r < sh.Sq;
+    if constexpr (FT::F32) {
+      dlk_cp_async16(q_hi + SW::off(r, c, QR, D),
+                     reinterpret_cast<const float*>(q + (ok ? qoff + r * qrow + c : 0)), ok);
+    } else {
+      st4(q_hi + SW::off(r, c, QR, D),
+          ok ? ld4(q + qoff + r * qrow + c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+    }
+  }
+  fwd256_stage<T>(k_stage, k, kbase + lo * krow, krow, sh.Sk - lo);
+  dlk_cp_async_commit();
+  float vr[2][4][4];
+  fwd256_load_v<T>(vr, v, kbase, krow, lo, sh.Sk, dim0);
+  if constexpr (FT::F32) {
+    dlk_cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll 4
+    for (int i = threadIdx.x; i < QR * D / 4; i += FT::THREADS) {
+      const float4 x = ld4(q_hi + 4 * i), xh = tf32_rna(x);
+      st4(q_hi + 4 * i, xh);
+      st4(q_lo + 4 * i, sub4(x, xh));
+    }
+  }
+
+  const float scale_log2 = sh.scale * LOG2E;
+  float acc[2][32], m[2], l[2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[0][i] = acc[1][i] = 0.0f;
+  m[0] = m[1] = NEG_INF;
+  l[0] = l[1] = 0.0f;
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = lo + it * KR;
+    dlk_cp_async_wait<0>();             // K tile it is in (this thread's copies)
+    __syncthreads();                    // ... every thread's
+    // fp32: K's hi rounded in place, its lo beside it (same offsets); bf16:
+    // K converted into the fp32 tile
+    if constexpr (FT::F32) {
+      float* kf = reinterpret_cast<float*>(k_stage);
+#pragma unroll
+      for (int u = 0; u < KR * D / 4 / FT::THREADS; ++u) {
+        const int i = threadIdx.x + u * FT::THREADS;
+        const float4 x = ld4(kf + 4 * i), xh = tf32_rna(x);
+        st4(kf + 4 * i, xh);
+        st4(k_work + 4 * i, sub4(x, xh));
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < KR * D / 4 / FT::THREADS; ++u) {
+        const int i = threadIdx.x + u * FT::THREADS;
+        const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+        st4(k_work + SW::off(r, c, KR, D), ld4(k_stage + r * D + c));
+      }
+    }
+    sm90_fence_proxy_async();
+    __syncthreads();
+
+    // this warpgroup's half of s = q.k^T: the small terms of its 16
+    // k-steps first, then the hi.hi terms on SC chains
+    const float* k_hi = FT::F32 ? reinterpret_cast<const float*>(k_stage) : k_work;
+    const int s0 = NS * wg;
+    float sc[SC][KR / 2];
+#pragma unroll
+    for (int c = 0; c < SC; ++c)
+#pragma unroll
+      for (int i = 0; i < KR / 2; ++i) sc[c][i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < SC; ++c) sm90_fence_operand(sc[c]);
+    sm90_wgmma_fence();
+    if constexpr (FT::F32) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        Sm90Tf32<KR>::ss(sc[0], SW::desc(q_lo, QR, D, s0 + s), SW::desc(k_hi, KR, D, s0 + s));
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        Sm90Tf32<KR>::ss(sc[0], SW::desc(q_hi, QR, D, s0 + s), SW::desc(k_work, KR, D, s0 + s));
+    }
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      Sm90Tf32<KR>::ss(sc[s % SC], SW::desc(q_hi, QR, D, s0 + s), SW::desc(k_hi, KR, D, s0 + s));
+    sm90_wgmma_commit();
+    sm90_wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < SC; ++c) sm90_fence_operand(sc[c]);
+    float (&s)[KR / 2] = sc[0];
+#pragma unroll
+    for (int c = 1; c < SC; ++c)
+#pragma unroll
+      for (int i = 0; i < KR / 2; ++i) s[i] += sc[c][i];
+
+    // the halves meet: each warpgroup's scores out, then the other's in
+    float* mine = xs + wg * QR * KR;
+    const float* other = xs + (1 - wg) * QR * KR;
+#pragma unroll
+    for (int i = 0; i < KR / 2; ++i) mine[i * 128 + tw] = s[i];
+    __syncthreads();                    // both halves written; K is free
+    if (it + 1 < ntiles) {
+      const int kn = k0 + KR;
+      fwd256_stage<T>(k_stage, k, kbase + kn * krow, krow, sh.Sk - kn);
+    }
+    dlk_cp_async_commit();
+#pragma unroll
+    for (int i = 0; i < KR / 2; ++i) s[i] += other[i * 128 + tw];
+
+    // the online softmax on the thread's rows g (e < 2) and g + 8 (e >= 2)
+    // of its warp's 16, in log2 units, the same in both warpgroups
+    const bool full = tile_visible<QR, KR>(sh, q0, k0);
+    float corr[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int qp = q0 + 16 * warp + g + 8 * hr;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kp = k0 + 8 * j + 2 * t + e;
+          float& x = s[4 * j + 2 * hr + e];
+          x = full || (kp < sh.Sk && visible(sh, qp, kp)) ? x * scale_log2 : NEG_INF;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      corr[hr] = ex2(m[hr] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kp = k0 + 8 * j + 2 * t + e;
+          float& x = s[4 * j + 2 * hr + e];
+          x = full || kp < sh.Sk ? ex2(x - m_new) : 0.0f;
+          sum += x;
+        }
+      sum += __shfl_xor_sync(FULL, sum, 1);
+      sum += __shfl_xor_sync(FULL, sum, 2);
+      l[hr] = l[hr] * corr[hr] + sum;
+      m[hr] = m_new;
+    }
+    // p (64 rows x 32 keys, swizzled: p^T's K-major B tile) as hi = rna(p)
+    // by warpgroup 0 and lo = p - hi by warpgroup 1; corr by warpgroup 0
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = 16 * warp + g + 8 * hr;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float x0 = s[4 * j + 2 * hr], x1 = s[4 * j + 2 * hr + 1];
+        const float h0 = tf32_rna(x0), h1 = tf32_rna(x1);
+        st2(wg ? p_lo + SW::off(r, 8 * j + 2 * t, QR, KR)
+               : p_hi + SW::off(r, 8 * j + 2 * t, QR, KR),
+            wg ? x0 - h0 : h0, wg ? x1 - h1 : h1);
+      }
+      if (wg == 0 && t == 0) corr_s[r] = corr[hr];
+    }
+    sm90_fence_proxy_async();
+    __syncthreads();
+
+    // o^T += V^T p^T on this warpgroup's two 64-dim tiles, each tile's sum
+    // apart: v_lo p_hi, v_hi p_lo, then v_hi p_hi (bf16: v exact, no v_lo)
+    uint32_t vh[2][4][4], vl[2][4][4];
+#pragma unroll
+    for (int dt = 0; dt < 2; ++dt)
+#pragma unroll
+      for (int s8 = 0; s8 < 4; ++s8)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float x = vr[dt][s8][i], xh = FT::F32 ? tf32_rna(x) : x;
+          vh[dt][s8][i] = __float_as_uint(xh);
+          vl[dt][s8][i] = __float_as_uint(x - xh);
+        }
+    float part[2][32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) part[0][i] = part[1][i] = 0.0f;
+    sm90_fence_operand(part[0]);
+    sm90_fence_operand(part[1]);
+#pragma unroll
+    for (int dt = 0; dt < 2; ++dt)
+#pragma unroll
+      for (int s8 = 0; s8 < 4; ++s8) {
+        asm volatile("" : "+r"(vh[dt][s8][0]), "+r"(vh[dt][s8][1]), "+r"(vh[dt][s8][2]),
+                     "+r"(vh[dt][s8][3])::"memory");
+        asm volatile("" : "+r"(vl[dt][s8][0]), "+r"(vl[dt][s8][1]), "+r"(vl[dt][s8][2]),
+                     "+r"(vl[dt][s8][3])::"memory");
+      }
+    sm90_wgmma_fence();
+#pragma unroll
+    for (int dt = 0; dt < 2; ++dt) {
+      if constexpr (FT::F32) {
+#pragma unroll
+        for (int s8 = 0; s8 < 4; ++s8)
+          Sm90Tf32<64>::rs(part[dt], vl[dt][s8], SW::desc(p_hi, QR, KR, s8));
+      }
+#pragma unroll
+      for (int s8 = 0; s8 < 4; ++s8)
+        Sm90Tf32<64>::rs(part[dt], vh[dt][s8], SW::desc(p_lo, QR, KR, s8));
+#pragma unroll
+      for (int s8 = 0; s8 < 4; ++s8)
+        Sm90Tf32<64>::rs(part[dt], vh[dt][s8], SW::desc(p_hi, QR, KR, s8));
+    }
+    sm90_wgmma_commit();
+    sm90_wgmma_wait<0>();
+    sm90_fence_operand(part[0]);
+    sm90_fence_operand(part[1]);
+    // the next tile's V fragments, in flight during its K wait and scores
+    if (it + 1 < ntiles) fwd256_load_v<T>(vr, v, kbase, krow, k0 + KR, sh.Sk, dim0);
+    // o^T's columns are query rows: column 8 j + 2 t + (e & 1) of register
+    // 4 j + e
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 cj = *reinterpret_cast<const float2*>(corr_s + 8 * j + 2 * t);
+#pragma unroll
+      for (int dt = 0; dt < 2; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[dt][4 * j + e] = fmaf(acc[dt][4 * j + e], e & 1 ? cj.y : cj.x,
+                                    part[dt][4 * j + e]);
+    }
+  }
+
+  // each row's l (and lse) from warpgroup 0's copy of the row statistics
+  if (wg == 0 && t == 0) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = 16 * warp + g + 8 * hr;
+      const float lf = fmaxf(l[hr], 1e-30f);
+      lf_s[r] = lf;
+      if (LSE && q0 + r < sh.Sq)   // a row that saw no key keeps m = -1e30
+        lse[(static_cast<long long>(b) * sh.H + h) * sh.Sq + q0 + r] =
+            (m[hr] == NEG_INF ? NEG_INF : m[hr] * LN2) + logf(lf);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 8 * j + 2 * t + (e & 1);
+      if (q0 + r >= sh.Sq) continue;
+      const float lf = lf_s[r];
+#pragma unroll
+      for (int dt = 0; dt < 2; ++dt)
+        st1(o + qoff + r * qrow + dim0 + 64 * dt + 8 * (e >> 1), acc[dt][4 * j + e] / lf);
+    }
+}
+
 template <int D>
 constexpr size_t dq_smem() {
   constexpr int Q = Tiles<D>::Q, K = Tiles<D>::K;
@@ -1473,10 +1733,10 @@ constexpr size_t dkv_tc_smem() {
                           2 * TL::DKV_K * (TL::DKV_Q + 4) +
                           2 * TL::STAGES * TL::DKV_Q);
 }
-static_assert(fwd_smem<256>() <= 232448 && dkv_smem<256>() <= 232448 &&
-              dq_smem<256>() <= 232448 && dq_tc_smem<128>() <= 232448 &&
-              dkv_tc_smem<128>() <= 232448 &&
+static_assert(dkv_smem<256>() <= 232448 && dq_smem<256>() <= 232448 &&
+              dq_tc_smem<128>() <= 232448 && dkv_tc_smem<128>() <= 232448 &&
               FwdTc<128, float>::SMEM <= 232448 &&
+              FwdTc256<float>::SMEM <= 232448 && FwdTc256<__nv_bfloat16>::SMEM <= 232448 &&
               FwdTc<64, float>::CTAS_PER_SM == 2,
               "a tile set must fit 227 KB (the forward's at head dim 64 twice an SM)");
 
@@ -1493,32 +1753,28 @@ Shape make_shape(int Sq, int Sk, int H, int KV, int D, int causal, int window) {
   return sh;
 }
 
-// The forward: the tensor-core kernel up to head dim 128; at 256 the FFMA
-// kernel, because one warpgroup's 64 x 256 fp32 accumulator alone would
-// take 128 registers a thread beside the scores and q's fragments, and the
-// K/V ring with V^T's hi and lo at 256 columns would leave 16-key tiles
-// (RecurrentGemma, the one config with head dim 256, has no served path).
+// The forward: flash_fwd_tc up to head dim 128, flash_fwd_tc256 at 256
+// (RecurrentGemma's local attention): both
+// 3xTF32 on wgmma, 64 query rows a CTA.
 template <int D, typename T, bool LSE>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                int B, const Shape& sh, cudaStream_t stream) {
   static DlkSmemOnce once;
+  auto run = [&](auto kern, size_t smem, int rows, int threads) {
+    if (int err = dlk_prepare_smem(kern, smem, once, true)) return err;
+    const dim3 grid((sh.Sq + rows - 1) / rows, sh.H, B);
+    kern<<<grid, threads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, sh);
+    return dlk_last_error();
+  };
   if constexpr (D <= 128) {
     using FT = FwdTc<D, T>;
-    auto kern = flash_fwd_tc<D, T, LSE>;
-    if (int err = dlk_prepare_smem(kern, FT::SMEM, once, true)) return err;
-    const dim3 grid((sh.Sq + FT::QR - 1) / FT::QR, sh.H, B);
-    kern<<<grid, FT::THREADS, FT::SMEM, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), lse, sh);
+    return run(flash_fwd_tc<D, T, LSE>, FT::SMEM, FT::QR, FT::THREADS);
   } else {
-    auto kern = flash_fwd<D, T, LSE>;
-    if (int err = dlk_prepare_smem(kern, fwd_smem<D>(), once)) return err;
-    const dim3 grid((sh.Sq + Tiles<D>::Q - 1) / Tiles<D>::Q, sh.H, B);
-    kern<<<grid, THREADS, fwd_smem<D>(), stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), lse, sh);
+    using FT = FwdTc256<T>;
+    return run(flash_fwd_tc256<T, LSE>, FT::SMEM, FT::QR, FT::THREADS);
   }
-  return dlk_last_error();
 }
 
 // dq and dk/dv: the tensor-core kernels up to head dim 128, the FFMA

@@ -11,8 +11,11 @@ repro/kernels/decode_attention.py ``decode_attention`` and
 
 The kernel is split-KV: a CTA per (lane, KV head, chunk of ``chunk``
 slots), the chunks' partial softmax states merged in split order by the
-CTA that finishes last.  :func:`plan` fixes the chunk and the number of
-splits from the shapes alone; the wrapper keeps one ctypes
+CTA that finishes last.  Groups of 16 query heads (RecurrentGemma's MQA)
+take the wide route instead: both products on mma.sync in 3xTF32 with
+the 16 heads as mma's M, and the splits merged in split order by a
+second small kernel.  :func:`plan` fixes the route, the chunk and the
+number of splits from the shapes alone; the wrapper keeps one ctypes
 :class:`DecodePlan` per call geometry and one workspace per (device,
 stream, B, KV, splits, G, D), so a call is the checks, the output's
 allocation and one ``ctypes`` call.
@@ -53,6 +56,14 @@ MAX_CHUNK = THREADS       # one score thread per slot at least
 SMEM_BUDGET = 112 * 1024  # two CTAs an SM
 MAX_HEAD_DIM = 256
 MAX_GROUP = 32
+# the wide route: G = 16 (mma's M) and head_dim a multiple of 32 (four
+# warps' n-tiles of 8 columns); chunks a multiple of 32 up to 128, 64 by
+# default for every element size: at RecurrentGemma's live lanes one
+# CTA's chain sets the time, and chunks of 128 took 1.4x as long as 64
+# for paged int8 (PERF.md); one CTA an SM
+WIDE_GROUP = 16
+WIDE_CHUNK = 64
+WIDE_SMEM_BUDGET = 200 * 1024
 
 
 class DecodePlan(ctypes.Structure):
@@ -63,20 +74,23 @@ class DecodePlan(ctypes.Structure):
         + [("ws", ctypes.c_void_p)]
         + [(n, ctypes.c_int) for n in (
             "B", "KV", "G", "D", "slots", "W", "n_outer", "dtype", "chunk",
-            "n_split", "vw")]
+            "n_split", "vw", "wide")]
         + [("scale", ctypes.c_float)])
 
 
 class Split(NamedTuple):
     """The split-KV arithmetic of one call: ``chunk`` slots a split,
     ``n_split`` splits over ``capacity`` slots, the shared memory a CTA
-    takes and the workspace's size in 4-byte words (the per-(lane, KV head)
-    counters, then each split's partial acc (G x D) and (m, l) (2 x G))."""
+    takes, the workspace's size in 4-byte words (the per-(lane, KV head)
+    counters, then each split's partial acc (G x D) and (m, l) (2 x G))
+    and the route (``wide``: the mma.sync kernel and its merge kernel,
+    which take no tickets)."""
     chunk: int
     n_split: int
     capacity: int
     smem: int
     ws_words: int
+    wide: bool = False
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -95,34 +109,72 @@ def smem_bytes(g: int, d: int, chunk: int, elem: int, scaled: bool) -> int:
     return _cdiv(n, 16) * 16 + 16 * THREADS
 
 
+def wide_smem_bytes(d: int, chunk: int, elem: int, scaled: bool) -> int:
+    """Shared memory of one wide-route CTA (``wide_layout`` in the
+    source): q (16 rows of d + 4 floats), K rows (an odd multiple of 16
+    bytes), V rows (fp32: d * 4 + 32 bytes, else K's), the probabilities
+    (16 rows of chunk + 4 floats), m and l, the int8 scales."""
+    r16 = _cdiv(d * elem, 16)
+    krow = 16 * (r16 + 1 - r16 % 2)
+    vrow = d * 4 + 32 if elem == 4 else krow
+    n = 4 * WIDE_GROUP * (d + 4) + chunk * (krow + vrow) \
+        + 4 * WIDE_GROUP * (chunk + 4) + 8 * WIDE_GROUP
+    return n + (8 * chunk if scaled else 0)
+
+
+def is_wide(g: int, d: int) -> bool:
+    """Shapes the wide route takes: 16 query heads a KV head (mma's M)
+    and head_dim a multiple of 32, at most 256."""
+    return g == WIDE_GROUP and d % 32 == 0 and d <= MAX_HEAD_DIM
+
+
 def plan(b: int, kvh: int, g: int, d: int, elem: int, *, slots: int,
          page_size: Optional[int] = None, width: int = 1,
-         scaled: bool = False, chunk: int = CHUNK) -> Split:
+         scaled: bool = False, chunk: Optional[int] = None) -> Split:
     """The split of a call over ``b`` lanes and ``kvh`` KV heads of ``g``
     query heads of dim ``d``, K/V elements of ``elem`` bytes.  Ring:
     ``slots`` = S, the capacity.  Paged: ``page_size`` = ps and ``width``
     = W, the capacity W * ps, and the chunk a multiple of ps (or, for
     pages longer than the chunk, the largest divisor of ps under it), so
-    that a CTA reads whole pages' ids once.  The chunk asked for is halved
-    while a CTA's shared memory would exceed SMEM_BUDGET; it never depends
-    on valid_len or on ``b``, so a lane's result does not either."""
-    if not 1 <= chunk <= MAX_CHUNK:
-        raise ValueError(f"decode_attention: chunk {chunk} not in "
-                         f"[1, {MAX_CHUNK}]")
-    while chunk > 8 and smem_bytes(g, d, chunk, elem, scaled) > SMEM_BUDGET:
-        chunk //= 2
-    if page_size is None:
-        capacity = slots
+    that a CTA reads whole pages' ids once.  The route by shape: the wide
+    one for :func:`is_wide` shapes, the FFMA one otherwise.  The chunk
+    asked for (default WIDE_CHUNK on the wide route, CHUNK on the other)
+    shrinks while a CTA's shared memory would exceed the route's budget:
+    on the wide route it stays a multiple of 32 (a ValueError where the
+    chunk asked for, or the page size, leaves none), on the FFMA route it
+    halves.  It never depends on valid_len or on ``b``, so a lane's
+    result does not either."""
+    wide = is_wide(g, d)
+    c = chunk if chunk is not None else (WIDE_CHUNK if wide else CHUNK)
+    if not 1 <= c <= MAX_CHUNK or (wide and c % 32):
+        raise ValueError(f"decode_attention: chunk {c} not in "
+                         f"[1, {MAX_CHUNK}]" + (" or not a multiple of 32 "
+                         "(16 query heads a KV head)" if wide else ""))
+    if wide:
+        while c > 32 and wide_smem_bytes(d, c, elem, scaled) > \
+                WIDE_SMEM_BUDGET:
+            c -= 32
     else:
-        capacity = width * page_size
-        if page_size <= chunk:
-            chunk -= chunk % page_size
+        while c > 8 and smem_bytes(g, d, c, elem, scaled) > SMEM_BUDGET:
+            c //= 2
+    capacity = slots if page_size is None else width * page_size
+    if page_size is not None:
+        step = 32 * page_size // math.gcd(32, page_size) if wide else page_size
+        if page_size <= c:
+            c -= c % step
         else:
-            chunk = max(c for c in range(1, chunk + 1) if page_size % c == 0)
-    n_split = _cdiv(capacity, chunk)
+            unit = 32 if wide else 1
+            c = max((x for x in range(unit, c + 1, unit)
+                     if page_size % x == 0), default=0)
+        if not c:
+            raise ValueError(f"decode_attention: pages of {page_size} slots "
+                             f"give no chunk that is a multiple of 32 and "
+                             f"of whole pages (16 query heads a KV head)")
+    n_split = _cdiv(capacity, c)
     ws = _cdiv(b * kvh, 4) * 4 + b * kvh * n_split * g * (d + 2)
-    return Split(chunk, n_split, capacity,
-                 smem_bytes(g, d, chunk, elem, scaled), ws)
+    smem = wide_smem_bytes(d, c, elem, scaled) if wide else \
+        smem_bytes(g, d, c, elem, scaled)
+    return Split(c, n_split, capacity, smem, ws, wide)
 
 
 def splits_used(p: Split, valid: int) -> int:
@@ -133,9 +185,10 @@ def splits_used(p: Split, valid: int) -> int:
 
 def tickets(p: Split, valid: int) -> int:
     """Tickets a lane's counter takes in one launch: one a working split
-    when there are two or more, none when one split writes the output."""
+    when there are two or more, none when one split writes the output or
+    on the wide route (its merge is a kernel of its own)."""
     n = splits_used(p, valid)
-    return n if n > 1 else 0
+    return n if n > 1 and not p.wide else 0
 
 
 def _split_layout(shape, layout):
@@ -265,10 +318,10 @@ def workspace(idx: int, stream: int, b: int, kvh: int, p: Split, g: int,
 
 
 def launch(kernel: CudaKernel, q, k, v, valid_len, *, layout: str,
-           scales=None, page_table=None, chunk: int = CHUNK):
-    """The kernel on CUDA tensors.  ``chunk`` defaults to CHUNK; tests and
-    the chip smoke pass others to hold every split against the plain
-    version and to time them."""
+           scales=None, page_table=None, chunk: Optional[int] = None):
+    """The kernel on CUDA tensors.  ``chunk`` defaults to :func:`plan`'s;
+    tests and the chip smoke pass others to hold every split against the
+    plain version and to time them."""
     idx, outer, slots, kvh, g, d = _check(q, k, v, layout, scales, page_table)
     b = q.shape[0]
     paged = page_table is not None
@@ -321,7 +374,7 @@ def _make_plan(idx, stream, b, outer, slots, kvh, g, d, elem, code, st, cst,
         raise ValueError("decode_attention: capacity must fit int32")
     ws = workspace(idx, stream, b, kvh, p, g, d)
     c = DecodePlan(*st, *cst, ws.data_ptr(), b, kvh, g, d, slots, width,
-                   outer, code, p.chunk, p.n_split, vw,
+                   outer, code, p.chunk, p.n_split, vw, int(p.wide),
                    1.0 / math.sqrt(d))
     return c, ctypes.addressof(c)
 

@@ -386,61 +386,76 @@ def prefill_cache(init_cache, cache_spec, cfg, batch: int, cache_len: int,
             for k, (shape, dt) in spec.items()}
 
 
-def cache_attend_sharded(q, k_new, v_new, ck, cv, pos):
-    """:func:`cache_write` then :func:`attention_decode` ('bksd', one
-    position ``pos`` for every lane) on DTensor caches placed by the
-    active rules, each rank on its own shards: it writes the token if
-    its ring slot lies in the rank's block of slots, and the split
-    softmax over a slot-split cache is merged across the ranks (max,
-    then the rescaled sums).  q (B, 1, H, D); k_new, v_new (B, KV, 1, D);
-    caches (B, KV, S, D), written in place.  Returns (B, 1, H, D)."""
+def cache_attend_sharded(q, k_new, v_new, ck, cv, pos, layout="bksd"):
+    """:func:`cache_write` then :func:`attention_decode` (one position
+    ``pos`` for every lane) on DTensor caches placed by the active rules,
+    each rank on its own shards: it writes the token if its ring slot
+    lies in the rank's block of slots, and the split softmax over a
+    slot-split cache is merged across the ranks (max, then the rescaled
+    sums).  q (B, 1, H, D); caches (B, KV, S, D) ('bksd') or (B, S, KV,
+    D) ('bskd'), written in place, and k_new, v_new one token in the
+    same layout.  With ``k_new`` None nothing is written and every slot
+    is valid (the encoder-decoder's cross-attention cache, its slots
+    not split).  Returns (B, 1, H, D)."""
     from torch.distributed import _functional_collectives as fc
 
     from repro_torch.launch.compat import shard_map
     from repro_torch.sharding_hints import logical_to_spec
     mesh = ck.device_mesh
-    cspec = logical_to_spec(("batch", "tp_kv", "cache_seq", None),
-                            shape=ck.shape)
-    seq_axes = _axes_of(cspec[2])
-    qspec = (cspec[0], None, cspec[1], None)
-    nspec = (cspec[0], cspec[1], None, None)
-    s_total, d = ck.shape[2], q.shape[-1]
+    if layout not in ("bksd", "bskd"):
+        raise ValueError(f"unknown layout {layout!r}")
+    sax, kax = (2, 1) if layout == "bksd" else (1, 2)
+    seq = "cache_seq" if k_new is not None else None
+    axes = [None] * 4
+    axes[0], axes[sax], axes[kax] = "batch", seq, "tp_kv"
+    cspec = logical_to_spec(tuple(axes), shape=ck.shape)
+    seq_axes = _axes_of(cspec[sax])
+    qspec = (cspec[0], None, cspec[kax], None)
+    nspec = tuple(None if i == sax else a for i, a in enumerate(cspec))
+    s_total, d = ck.shape[sax], q.shape[-1]
     s0, s_loc = _shard_offset(mesh, seq_axes, s_total)
     groups = [mesh.get_group(a) for a in seq_axes]
+    eq_s, eq_o = ("bkgd,bksd->bkgs", "bkgs,bksd->bkgd") if layout == "bksd" \
+        else ("bkgd,bskd->bkgs", "bkgs,bskd->bkgd")
 
-    def body(ql, kn, vn, ckl, cvl, p):
+    def body(ql, ckl, cvl, *new):
         dev = ckl.device
-        idx = torch.remainder(p, s_total)
-        hit = (idx >= s0) & (idx < s0 + s_loc)
-        li = torch.clamp(idx - s0, 0, s_loc - 1).reshape(1).long()
-        for cache, new in ((ckl, kn), (cvl, vn)):
-            old = cache.index_select(2, li)
-            cache.index_copy_(2, li, torch.where(hit, new.to(cache.dtype),
-                                                 old))
+        slots = torch.arange(s0, s0 + s_loc, device=dev)
+        if new:
+            kn, vn, p = new
+            idx = torch.remainder(p, s_total)
+            hit = (idx >= s0) & (idx < s0 + s_loc)
+            li = torch.clamp(idx - s0, 0, s_loc - 1).reshape(1).long()
+            for cache, t in ((ckl, kn), (cvl, vn)):
+                old = cache.index_select(sax, li)
+                cache.index_copy_(sax, li, torch.where(hit, t.to(cache.dtype),
+                                                       old))
+            valid = (slots < torch.clamp_max(p + 1, s_total))[None, None, None]
+        else:
+            valid = torch.ones((1, 1, 1, s_loc), dtype=torch.bool, device=dev)
         b, _, h, _ = ql.shape
-        kvh = ckl.shape[1]
+        kvh = ckl.shape[kax]
         cdt = ckl.dtype
         qg = ql[:, 0].reshape(b, kvh, h // kvh, d)
-        scores = torch.einsum("bkgd,bksd->bkgs", qg.to(cdt).float(),
+        scores = torch.einsum(eq_s, qg.to(cdt).float(),
                               ckl.float()) / math.sqrt(d)
-        slots = torch.arange(s0, s0 + s_loc, device=dev)
-        valid = (slots < torch.clamp_max(p + 1, s_total))[None, None, None]
         scores = torch.where(valid, scores, NEG_INF)
         m = scores.amax(dim=-1, keepdim=True)
         for g in groups:
             m = fc.all_reduce(m, "max", g)
         e = torch.where(valid, torch.exp(scores - m), 0.0)
         l = e.sum(dim=-1, keepdim=True)
-        o = torch.einsum("bkgs,bksd->bkgd", e.to(cdt).float(), cvl.float())
+        o = torch.einsum(eq_o, e.to(cdt).float(), cvl.float())
         for g in groups:
             l = fc.all_reduce(l, "sum", g)
             o = fc.all_reduce(o, "sum", g)
         return (o / l).reshape(b, 1, h, d).to(ql.dtype)
 
-    fn = shard_map(body, mesh=mesh,
-                   in_specs=(qspec, nspec, nspec, cspec, cspec, ()),
-                   out_specs=qspec)
-    return fn(q, k_new, v_new, ck, cv, pos)
+    args, specs = (q, ck, cv), (qspec, cspec, cspec)
+    if k_new is not None:
+        args, specs = args + (k_new, v_new, pos), specs + (nspec, nspec, ())
+    fn = shard_map(body, mesh=mesh, in_specs=specs, out_specs=qspec)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------

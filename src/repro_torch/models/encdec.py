@@ -40,7 +40,7 @@ from repro_torch.core.quantize import quantize_into
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import P
-from repro_torch.sharding_hints import hint
+from repro_torch.sharding_hints import hint, is_dtensor
 
 
 def _ln(x, lp, name, eps=1e-5):
@@ -357,15 +357,20 @@ def _cross_decode(cfg: ArchConfig, lp, x, xk, xv, attend):
 def decode_step(cfg: ArchConfig, params, token, cache, pos, *,
                 window: int = 0):
     """token (B, 1) int; pos an int or 0-dim tensor shared by the lanes.
-    Plain decode attention (``attention_decode``) for both blocks.
+    Plain decode attention (``attention_decode``) for both blocks; on
+    DTensor caches both take ``common.cache_attend_sharded`` ('bskd').
     Writes the ring cache in place; returns (logits (B, 1, V), cache)."""
     x = params["embed"][token]                         # (B, 1, d)
     b = x.shape[0]
     pos_t = cm.as_device_scalar(pos, x.device)
     posv = pos_t.reshape(1, 1).expand(b, 1)
     se = cache["xk"].shape[2]
+    sharded = is_dtensor(cache["k"])
 
     def cross(qx, xk, xv):
+        if sharded:
+            return cm.cache_attend_sharded(qx, None, None, xk, xv, None,
+                                           layout="bskd")
         return cm.attention_decode(qx, xk, xv, se, layout="bskd")
     for l, lp in enumerate(_layers(params["dec"])):
         ck, cv = cache["k"][l], cache["v"][l]
@@ -373,9 +378,12 @@ def decode_step(cfg: ArchConfig, params, token, cache, pos, *,
         q, k, v = _qkv(cfg, lp, xn, xn)
         q = cm.apply_rope(q, posv, cfg.rope_theta)
         k = cm.apply_rope(k, posv, cfg.rope_theta)
-        cm.cache_write(ck, cv, k, v, pos_t, seq_axis=1)
-        valid = cm.cache_valid_len(pos_t, ck.shape[1])
-        a = cm.attention_decode(q, ck, cv, valid, layout="bskd")
+        if sharded:
+            a = cm.cache_attend_sharded(q, k, v, ck, cv, pos_t, layout="bskd")
+        else:
+            cm.cache_write(ck, cv, k, v, pos_t, seq_axis=1)
+            valid = cm.cache_valid_len(pos_t, ck.shape[1])
+            a = cm.attention_decode(q, ck, cv, valid, layout="bskd")
         x = x + _out(cfg, lp, a)
         x = _cross_decode(cfg, lp, x, cache["xk"][l], cache["xv"][l], cross)
         x = x + _mlp(cfg, lp, x)

@@ -38,7 +38,7 @@ from repro_torch.core.quantize import quantize_into
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import P
-from repro_torch.sharding_hints import hint
+from repro_torch.sharding_hints import hint, is_dtensor
 
 LRU_C = 8.0
 
@@ -97,11 +97,35 @@ def _slice(tree, i: int):
 # ---------------------------------------------------------------------------
 
 
+def _log_sigmoid(lam):
+    """``F.logsigmoid(lam)``.  On a DTensor (DTensor has no sharding rule
+    for its backward) in a ``compat.shard_map`` body on each rank's
+    shard of lam's ``tp_ff`` split: the function is elementwise, so the
+    gradient keeps lam's placement."""
+    if not is_dtensor(lam):
+        return F.logsigmoid(lam)
+    from repro_torch.launch.compat import shard_map
+    from repro_torch.sharding_hints import logical_to_spec
+    spec = logical_to_spec(("tp_ff",), shape=lam.shape)
+    fn = shard_map(F.logsigmoid, mesh=lam.device_mesh, in_specs=(spec,),
+                   out_specs=spec, in_grad_specs=(spec,))
+    return fn(lam)
+
+
+def _gate(x, w, b):
+    """sigmoid(x @ w + b).  On DTensors the product, partial over the
+    split width, is hinted to the width split before the bias meets it
+    (torch 2.11's DTensor cannot turn the split bias into a partial)."""
+    y = x @ w
+    y = hint(y, *(("batch", "seq", "ff") if y.ndim == 3 else ("batch", "ff")))
+    return torch.sigmoid(y + b)
+
+
 def _log_a(lp, x):
     """x: (..., w) pre-activation input; returns (log_a, input_gate)."""
-    r = torch.sigmoid(x @ lp["gate_a_w"] + lp["gate_a_b"])
-    i = torch.sigmoid(x @ lp["gate_x_w"] + lp["gate_x_b"])
-    log_a = LRU_C * r.float() * F.logsigmoid(lp["lam"].float())
+    r = _gate(x, lp["gate_a_w"], lp["gate_a_b"])
+    i = _gate(x, lp["gate_x_w"], lp["gate_x_b"])
+    log_a = LRU_C * r.float() * _log_sigmoid(lp["lam"].float())
     return log_a, i
 
 

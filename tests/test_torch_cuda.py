@@ -627,6 +627,82 @@ def test_decode_split_every_head_shape(dev, paged, kvh, g, d, dtype):
         close(run(), plain(), **DECODE_TOL)
 
 
+# The wide route (16 query heads of a KV head on mma.sync, the splits
+# merged by a kernel of their own) at RecurrentGemma's heads.
+WIDE = dict(kvh=1, g=16, d=256)
+
+
+@pytest.mark.parametrize("paged,dtype", DECODE_FORMS)
+@pytest.mark.parametrize("chunk", [None, 32, 64, 128])
+def test_decode_wide_route_chunk_edges_and_reruns(dev, paged, dtype, chunk):
+    """Valid lengths on every edge of the wide route's chunk (its plan's,
+    and each multiple of 32 it takes), at the capacity and past it,
+    against the plain version; each launch runs twice, bit-equal (the
+    merge sums the splits in a fixed order)."""
+    from repro_torch.kernels import decode_attention as da
+    elem = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[dtype]
+    p = da.plan(8, 1, 16, 256, elem, slots=16 if paged else 1024,
+                page_size=16 if paged else None, width=64,
+                scaled=dtype == torch.int8, chunk=chunk)
+    assert p.wide and p.chunk % 32 == 0
+    if chunk is None and dtype == torch.float32:
+        assert p.chunk == 64
+    c, cap = p.chunk, 1024
+    valid = [1, c - 1, c, c + 1, 2 * c, cap - 1, cap, cap + 7]
+    args, run, plain = _decode_inputs(dev, paged, dtype, valid, **WIDE)
+    want = plain([*args[:-1], args[-1].clamp(max=cap)])
+    first, again = run(chunk), run(chunk)
+    close(first, want, **DECODE_TOL)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("paged,dtype", DECODE_FORMS)
+def test_decode_wide_route_lanes_poison_and_prefix(dev, paged, dtype):
+    """On the wide route: lane 5 alone equals lane 5 of the batch bit for
+    bit; valid_len 0 (and, paged, a page id outside the pool in a lane's
+    prefix) gives that lane NaN and no other; NaN in every stored slot
+    past each lane's prefix changes nothing."""
+    valid = [37, 1000, 64, 5, 300, 777, 16, 129]
+    args, run, plain = _decode_inputs(dev, paged, dtype, valid, **WIDE)
+    batch = run()
+    i = 5
+    one = [args[0][i:i + 1]]
+    if paged:
+        one += args[1:-2] + [args[-2][i:i + 1], args[-1][i:i + 1]]
+    else:
+        one += [x[i:i + 1] for x in args[1:]]
+    torch.cuda.synchronize()
+    assert torch.equal(run(a=one)[0], batch[i])
+    bad_args = list(args)
+    bad_args[-1] = args[-1].clone()
+    bad_args[-1][0] = 0
+    bad = [0]
+    if paged:
+        bad_args[-2] = args[-2].clone()
+        bad_args[-2][2, 1] = 10 ** 6
+        bad.append(2)
+    got = run(a=bad_args)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[bad]).all())
+    keep = [j for j in range(8) if j not in bad]
+    assert torch.equal(got[keep], batch[keep])
+    targets = [3, 4] if dtype == torch.int8 else [1, 2]
+    for t in targets:
+        buf = args[t]
+        for j, n in enumerate(valid):
+            if paged:                  # pages are a lane's own; 0 unused
+                for w, page in enumerate(args[-2][j].tolist()):
+                    lo = max(n - 16 * w, 0)
+                    if page and lo < 16:
+                        buf[page, :, lo:] = float("nan")
+            else:
+                buf[j, :, n:] = float("nan")
+    dirty = run()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dirty).all())
+    assert torch.equal(dirty, batch)
+
+
 @pytest.mark.parametrize("layout", ["bksd", "bskd"])
 def test_decode_split_narrow_copies_and_refusals(dev, layout):
     """int8 rows of 40 bytes (head_dim 40) take 8-byte copies and match

@@ -27,6 +27,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.models import common as tcm
 
 from conftest import assert_close
+from test_torch_flash_attention import mm_tf32, tf32_rna
 from test_torch_transformer import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -217,14 +218,73 @@ def test_plan_paged_chunk_is_whole_pages(ps, chunk, want):
 
 
 def test_plan_fits_the_widest_heads_in_shared_memory():
-    """RecurrentGemma's 16 query heads of 256 on one KV head and the widest
-    group the wrapper takes (32): the chunk halves until two CTAs fit an
-    SM; int8 rows take a quarter of fp32's."""
-    for g in (16, 32):
-        for elem in (4, 2, 1):
-            p = da.plan(8, 1, g, 256, elem, slots=2048)
-            assert p.smem <= da.SMEM_BUDGET and p.chunk >= 16
+    """RecurrentGemma's 16 query heads of 256 on one KV head take the wide
+    route, whose chunk of 64 fits one CTA an SM at every element size (a
+    forced 128 halves for fp32's rows of 1 KB); the widest group the
+    wrapper takes (32) keeps the FFMA route, whose chunk halves until two
+    CTAs fit an SM; int8 rows take a quarter of fp32's."""
+    for elem in (4, 2, 1):
+        p = da.plan(8, 1, 16, 256, elem, slots=2048)
+        assert p.wide and p.chunk == da.WIDE_CHUNK == 64
+        assert p.smem == da.wide_smem_bytes(256, 64, elem, False) \
+            <= da.WIDE_SMEM_BUDGET
+        forced = da.plan(8, 1, 16, 256, elem, slots=2048, chunk=128)
+        assert forced.wide and forced.chunk == (64 if elem == 4 else 128)
+    for elem in (4, 2, 1):
+        p = da.plan(8, 1, 32, 256, elem, slots=2048)
+        assert not p.wide and p.smem <= da.SMEM_BUDGET and p.chunk >= 16
     assert da.plan(1, 1, 32, 256, 4, slots=2048).chunk == min(da.CHUNK, 32)
+
+
+@pytest.mark.parametrize("g,d,wide", [(16, 256, True), (16, 128, True),
+                                      (16, 32, True), (16, 40, False),
+                                      (8, 256, False), (32, 256, False),
+                                      (1, 64, False)])
+def test_plan_takes_the_wide_route_for_groups_of_16(g, d, wide):
+    """The route by shape: 16 query heads a KV head (mma's M) and a
+    head_dim that four warps' n-tiles of 8 divide; every other (KV, G, D)
+    keeps the FFMA route and its plan as before (CHUNK, the 112 KB
+    budget)."""
+    assert da.is_wide(g, d) == wide
+    p = da.plan(8, 1, g, d, 4, slots=2048)
+    assert p.wide == wide
+    if not wide:
+        want = da.CHUNK
+        while want > 8 and da.smem_bytes(g, d, want, 4, False) > \
+                da.SMEM_BUDGET:
+            want //= 2
+        assert p.chunk == want and p.smem == da.smem_bytes(g, d, want, 4,
+                                                           False)
+
+
+def test_plan_wide_chunk_workspace_and_tickets():
+    """The wide route's chunk is a multiple of 32 (a warp's n-tiles of
+    slots) and of whole pages: a forced chunk that is not, or pages that
+    leave none, raise (no second route at G 16); paged int8 at
+    RecurrentGemma's pages of 16 takes chunks of 64 (4 pages), pages
+    longer than the chunk the largest multiple of 32 dividing them.  Its
+    workspace has the FFMA route's layout (the counters unused), and it
+    takes no tickets: the merge is a kernel of its own."""
+    p = da.plan(8, 1, 16, 256, 1, slots=2048, scaled=True)
+    assert p.wide and p.chunk == 64 and p.n_split == 32
+    assert p.ws_words == 8 + 8 * 32 * 16 * (256 + 2)
+    assert da.tickets(p, 2048) == 0 and da.splits_used(p, 300) == 5
+    q = da.plan(8, 1, 16, 256, 1, slots=16, page_size=16, width=128,
+                scaled=True)
+    assert q.wide and q.chunk == 64 and q.capacity == 2048
+    for forced in (16, 48, 100):
+        with pytest.raises(ValueError, match="multiple of 32"):
+            da.plan(8, 1, 16, 256, 4, slots=2048, chunk=forced)
+    for ps in (24, 48):
+        with pytest.raises(ValueError, match=f"pages of {ps} slots"):
+            da.plan(8, 1, 16, 256, 4, slots=ps, page_size=ps, width=10)
+    for ps, want in ((8, 64), (32, 64), (96, 32), (256, 64)):
+        r = da.plan(8, 1, 16, 256, 4, slots=ps, page_size=ps, width=10)
+        assert r.wide and r.chunk == want, ps
+    assert da.plan(8, 1, 16, 256, 4, slots=2048, chunk=32).wide
+    assert da.plan(1, 1, 16, 256, 4, slots=2048)[:4] == p._replace(
+        chunk=64, n_split=32, capacity=2048,
+        smem=da.wide_smem_bytes(256, 64, 4, False))[:4]
 
 
 def test_vector_bytes_from_pointers_and_strides():
@@ -285,6 +345,143 @@ def split_kv_emulation(q, k, v, valid, *, chunk, layout, scales=None,
             acc = acc + ai * f
         out[lane] = acc / torch.clamp_min(l, 1e-30)
     return out.reshape(b, h, d)
+
+
+def mm_3xtf32(a, b, b_exact=False):
+    """a @ b as mma.sync's three TF32 products with hi = rna(x) and lo =
+    x - hi read truncated (b exact in TF32, bf16 or int8 data: no hi.lo);
+    fp32 sums.  The forward's emulation (``mm_tf32``) with its operand
+    rules."""
+    return mm_tf32(a, b, tf32_rna, tf32_rna, b_exact=b_exact)
+
+
+def wide_emulation(q, k, v, valid, *, chunk, layout, scales=None,
+                   page_table=None):
+    """The wide route (16 query heads a KV head on mma.sync) in plain
+    torch fp32, in its order: per chunk of a lane's prefix, s = q.k in
+    3xTF32 (hi = rna, lo truncated) x (1/sqrt(D)) x k_scale; m = max,
+    p = e^(s - m), l = sum p, p x v_scale; acc = p.V in 3xTF32 (V from
+    bf16 or int8 exact: no hi.lo); one chunk writes acc / max(l, 1e-30),
+    several are merged in split order by the merge kernel (m = max m_i,
+    l = sum l_i e^(m_i - m), acc likewise)."""
+    exact = k.dtype != torch.float32
+    if page_table is not None:
+        k = tref.paged_gather(k, page_table, layout=layout)
+        v = tref.paged_gather(v, page_table, layout=layout)
+        if scales is not None:
+            scales = tuple(tref.paged_gather(x, page_table, layout=layout)
+                           for x in scales)
+    if layout == "bskd":
+        k, v = k.transpose(1, 2), v.transpose(1, 2)          # (B, KV, S, D)
+        if scales is not None:
+            scales = tuple(x.transpose(1, 2) for x in scales)
+    b, h, d = q.shape
+    kvh, cap = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, kvh, h // kvh, d)
+    scale = torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32)
+    out = torch.empty(b, kvh, h // kvh, d)
+    for lane in range(b):
+        n = min(int(valid[lane]), cap)
+        parts = []
+        for t0 in range(0, n, chunk):
+            sl = slice(t0, min(t0 + chunk, n))
+            kc, vc = k[lane, :, sl].float(), v[lane, :, sl].float()
+            s = mm_3xtf32(qg[lane], kc.transpose(-1, -2), exact) * scale
+            if scales is not None:
+                s = s * scales[0][lane, :, None, sl]
+            m = s.amax(-1, keepdim=True)
+            p = torch.exp(s - m)
+            l = p.sum(-1, keepdim=True)
+            if scales is not None:
+                p = p * scales[1][lane, :, None, sl]
+            parts.append((m, l, mm_3xtf32(p, vc, exact)))
+        m = torch.stack([x[0] for x in parts]).amax(0)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(parts[0][2])
+        for mi, li, ai in parts:                       # in split order
+            f = torch.exp(mi - m)
+            l = l + li * f
+            acc = acc + ai * f
+        out[lane] = acc / torch.clamp_min(l, 1e-30)
+    return out.reshape(b, h, d)
+
+
+@pytest.mark.parametrize("layout", ["bskd", "bksd"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_wide_route_matches_pallas_ring_at_g16_d256(layout, dtype):
+    """The wide route emulated (3xTF32 products, the chunk the plan
+    gives, the merge in split order) against JAX's Pallas decode_attention
+    (interpret mode) at RecurrentGemma's group: 16 query heads of 256 on
+    one KV head, a 300-slot ring, valid lengths on the chunk's edges, at
+    the capacity and past it (clamped); SPLIT_TOL (chip_smoke.py's
+    DECODE_TOL).  bf16 caches are held to Pallas on the same bf16 values
+    cast to fp32."""
+    b, h, kvh, d, s = 7, 16, 1, 256, 300
+    elem = {"float32": 4, "bfloat16": 2, "int8": 1}[dtype]
+    p = da.plan(b, kvh, h // kvh, d, elem, slots=s, scaled=dtype == "int8")
+    assert p.wide
+    valid = np.array(_ring_plan_edges(p) + [2 * p.chunk - 3], np.int32)
+    ins = _inputs(layout, dtype == "int8", b=b, h=h, kvh=kvh, d=d, s=s,
+                  seed=21)
+    q, k, v = ins[:3]
+    if dtype == "bfloat16":
+        kt, vt = (t(x).to(torch.bfloat16) for x in (k, v))
+        k, v = (x.float().numpy() for x in (kt, vt))
+    else:
+        kt, vt = t(k), t(v)
+    sc = tuple(t(x) for x in ins[3:]) if dtype == "int8" else None
+    got = wide_emulation(t(q), kt, vt, valid, chunk=p.chunk, layout=layout,
+                         scales=sc)
+    if dtype == "int8":
+        want = jops.decode_attention_q8(j(q), j(k), j(v), j(ins[3]),
+                                        j(ins[4]), j(valid), layout=layout,
+                                        block_s=20)
+    else:
+        want = jops.decode_attention(j(q), j(k), j(v), j(valid),
+                                     layout=layout, block_s=20)
+    assert_close(got, want, **SPLIT_TOL)
+
+
+def test_wide_route_matches_pallas_paged_int8_at_g16_d256():
+    """The wide route emulated over RecurrentGemma's paged int8 pools
+    (pages of 16 shuffled across the pool, chunks of 4 pages) against
+    JAX's Pallas decode_attention_paged_q8 (interpret mode)."""
+    rng = np.random.default_rng(22)
+    b, h, kvh, d, ps, w = 4, 16, 1, 256, 16, 20
+    pool = 1 + b * w
+    p = da.plan(b, kvh, h // kvh, d, 1, slots=ps, page_size=ps, width=w,
+                scaled=True)
+    assert p.wide and p.chunk == 64
+    valid = np.array([1, p.chunk, p.chunk + 1, w * ps], np.int32)
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    shape = (pool, ps, kvh, d)
+    pt = rng.permutation(np.arange(1, pool)).reshape(b, w).astype(np.int32)
+    k = rng.integers(-127, 128, shape).astype(np.int8)
+    v = rng.integers(-127, 128, shape).astype(np.int8)
+    ks = rng.uniform(0.01, 0.05, shape[:3]).astype(np.float32)
+    vs = rng.uniform(0.01, 0.05, shape[:3]).astype(np.float32)
+    want = jops.decode_attention_paged_q8(j(q), j(k), j(v), j(ks), j(vs),
+                                          j(pt), j(valid), layout="bskd")
+    got = wide_emulation(t(q), t(k), t(v), valid, chunk=p.chunk,
+                         layout="bskd", scales=(t(ks), t(vs)),
+                         page_table=t(pt))
+    assert_close(got, want, **SPLIT_TOL)
+
+
+def test_wide_emulation_needs_three_tf32_products():
+    """The negative control: with hi.hi alone (one TF32 product a dot)
+    the wide route's output breaks DECODE_TOL against the fp32 plain
+    version at G 16, D 256, where three products hold it."""
+    b, h, kvh, d, s = 4, 16, 1, 256, 300
+    q, k, v = _inputs("bskd", False, b=b, h=h, kvh=kvh, d=d, s=s, seed=23)
+    valid = np.array([40, 130, 256, 300], np.int32)
+    want = tops.decode_attention(t(q), t(k), t(v), t(valid), layout="bskd")
+    got = wide_emulation(t(q), t(k), t(v), valid, chunk=64, layout="bskd")
+    assert_close(got, want, **SPLIT_TOL)
+    one = tops.decode_attention(tf32_rna(t(q)), tf32_rna(t(k)),
+                                tf32_rna(t(v)), t(valid), layout="bskd")
+    with pytest.raises(AssertionError):
+        assert_close(one, want, **SPLIT_TOL)
 
 
 @pytest.mark.parametrize("layout", ["bskd", "bksd"])

@@ -405,7 +405,7 @@ def mm_tf32(a, b, a_hi, b_hi, a_exact=False, b_exact=False, products=3):
     return out + tf32_truncate(ah) @ tf32_truncate(bh)
 
 
-def fwd_tf32(q, k, v, causal, window, products=3, kr=64):
+def fwd_tf32(q, k, v, causal, window, products=3, kr=64, halves=1):
     """(o, lse) of the tensor-core forward, its schedule step by step:
     key tiles of ``kr`` (zero-filled past Sk), masked scores (-1e30) and
     the others scaled by scale * log2(e), the online softmax in log2 units
@@ -414,7 +414,9 @@ def fwd_tf32(q, k, v, causal, window, products=3, kr=64):
     8, then o = o corr + part; lse = m ln 2 + log(l) (-1e30 + log(l) where
     no key was seen).  Products in 3xTF32 (``products`` 1: hi.hi alone)
     with hi = rna(x) for every operand; bf16 inputs are exact in TF32, so
-    q, k and v drop their lo terms (p, fp32, never does)."""
+    q, k and v drop their lo terms (p, fp32, never does).  ``halves`` 2 is
+    the head-dim-256 kernel's split of q.k^T: each half of the head dim
+    summed apart (one warpgroup each), then added in fp32."""
     exact = q.dtype == torch.bfloat16
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -440,8 +442,11 @@ def fwd_tf32(q, k, v, causal, window, products=3, kr=64):
             mask = mask & (kpos <= qpos)
         if window:
             mask = mask & (kpos > qpos - window)
-        s = mm_tf32(qh, kh[:, :, k0:k0 + kr].transpose(-1, -2), tf32_rna,
-                    tf32_rna, exact, exact, products)
+        kt = kh[:, :, k0:k0 + kr].transpose(-1, -2)
+        w = d // halves
+        s = sum(mm_tf32(qh[..., i * w:(i + 1) * w], kt[..., i * w:(i + 1) * w, :],
+                        tf32_rna, tf32_rna, exact, exact, products)
+                for i in range(halves))
         s = torch.where(mask, s * scale, torch.tensor(-1e30))
         m_new = torch.maximum(m, s.amax(-1))
         corr = torch.exp2(m - m_new)
@@ -527,6 +532,44 @@ def test_1xtf32_forward_misses_the_fp32_bar():
     _, want_o, _ = _pallas_fwd(q, k, v, s, window, "float32")
     three, _ = fwd_tf32(t(q), t(k), t(v), True, window)
     one, _ = fwd_tf32(t(q), t(k), t(v), True, window, products=1)
+    assert_close(three, want_o, **OUT_TOL)
+    with pytest.raises(AssertionError):
+        assert_close(one, want_o, **OUT_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("s", [127, 300])
+def test_3xtf32_forward_at_head_dim_256_matches_pallas(s, window, dtype):
+    """The head-dim-256 forward's schedule (key tiles of 32, q.k^T summed
+    by head-dim halves and added, 3xTF32 with hi rounded to nearest),
+    emulated in torch, against _flash_kernel and _fwd_kernel in interpret
+    mode at RecurrentGemma's group (16 query heads of 256 on one KV head),
+    causal, with and without a window: o within the fp32 bar (bf16: the
+    bf16 bar), lse within the fp32 bar."""
+    h, d = 16, 256
+    q, k, v = qkv(1, s, h, 1, d, seed=15)
+    want8, want_o, want_lse = _pallas_fwd(q, k, v, s, window, dtype)
+    tdt = getattr(torch, dtype)
+    o, lse = fwd_tf32(*(t(x).to(tdt) for x in (q, k, v)), True, window,
+                      kr=32, halves=2)
+    assert o.dtype == tdt
+    tol = OUT_TOL if dtype == "float32" else BF16_TOL
+    assert_close(o.float(), want_o, **tol, err_msg="o vs _fwd_kernel")
+    assert_close(o.float(), want8, **tol, err_msg="o vs _flash_kernel")
+    assert_close(lse, want_lse, **OUT_TOL, err_msg="lse")
+
+
+def test_1xtf32_forward_at_head_dim_256_misses_the_fp32_bar():
+    """The negative control at head dim 256: hi.hi alone breaks the fp32
+    bar against _fwd_kernel at 1 x 300, 16 heads on one KV head, where
+    the kernel's three products hold it."""
+    s, h, d = 300, 16, 256
+    q, k, v = qkv(1, s, h, 1, d, seed=15)
+    _, want_o, _ = _pallas_fwd(q, k, v, s, 0, "float32")
+    three, _ = fwd_tf32(t(q), t(k), t(v), True, 0, kr=32, halves=2)
+    one, _ = fwd_tf32(t(q), t(k), t(v), True, 0, products=1, kr=32,
+                      halves=2)
     assert_close(three, want_o, **OUT_TOL)
     with pytest.raises(AssertionError):
         assert_close(one, want_o, **OUT_TOL)

@@ -10,7 +10,10 @@ collective records, and a matmul counts 2MNK.  Then, in a subprocess
 with a fake process group of 8 ranks: on a pure-data (8, 1) mesh a
 reduced step's FLOPs per device are exactly 1/8 of the unsharded count,
 and the dry run of reduced TinyLlama and Qwen3-MoE on a (2, 4) mesh
-gives every roofline term.
+gives every roofline term.  In another subprocess, on a fake group of
+256: the full-size dry run of the two pairs that need the RG-LRU's
+sharded log-sigmoid (RecurrentGemma-9B ``train_4k``) and the 'bskd'
+decode on a slot-split cache (Whisper-medium ``long_500k``).
 """
 import json
 import subprocess
@@ -284,3 +287,41 @@ def test_dryrun_on_fake_2x4_mesh_gives_every_term(fake_group_run):
         assert r["memory_analysis"]["peak_bytes"] is None
     moe_train = results[2]
     assert moe_train["optimized"] and "all-to-all" in moe_train["collectives"]
+
+
+C5_PAIRS = [("recurrentgemma-9b", "train_4k"), ("whisper-medium", "long_500k")]
+
+FAKE_FULL = textwrap.dedent("""
+    import json, sys
+    sys.path.insert(0, "src")
+    from repro_torch.launch import dryrun as dr
+
+    dr.init_fake_group(256)
+    out = {}
+    for arch, shape in %r:
+        try:
+            out[arch + "/" + shape] = dr.dryrun(arch, shape, verbose=False)
+        except Exception as e:
+            out[arch + "/" + shape] = {"error": repr(e)}
+    print("RESULT " + json.dumps(out))
+""" % (C5_PAIRS,))
+
+
+@pytest.fixture(scope="module")
+def full_pairs_run():
+    r = subprocess.run([sys.executable, "-c", FAKE_FULL], capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = [l for l in r.stdout.splitlines() if l.startswith("RESULT ")][-1]
+    return json.loads(line[len("RESULT "):])
+
+
+@pytest.mark.parametrize("arch,shape", C5_PAIRS)
+def test_full_size_dryrun_of_hybrid_train_and_encdec_long_decode(
+        full_pairs_run, arch, shape):
+    r = full_pairs_run[f"{arch}/{shape}"]
+    assert "error" not in r, r.get("error")
+    assert r["mesh"] == "16x16" and r["chips"] == 256
+    roof = r["roofline"]
+    assert roof["compute_s"] > 0 and roof["memory_s"] > 0
+    assert roof["collective_s"] > 0 and r["flops_per_device"] > 0

@@ -12,7 +12,12 @@ replicated), loss within 1e-4 relative and every gradient within 1e-3
 relative norm of ``jax.value_and_grad``.  On (1,4): the same train step
 for reduced Llama3-8B, 8 q heads split four ways and 2 kv heads
 replicated, so each rank's two q heads meet the kv head of their group.
-Weights are made once in numpy.
+Two bodies are held to the port's own unsharded functions instead (the
+JAX dry run rejects the mesh's axes): on (2,2) the RG-LRU's ``_log_a``
+(lam split on ``tp_ff``) and its gradients, and on (2,2) and (1,4)
+reduced Whisper's ``decode_step`` on a 'bskd' self-attention ring split
+on its slots (two steps, the second past the wrap) beside a cross cache
+split on batch.  Weights are made once in numpy.
 """
 import dataclasses
 import os
@@ -29,9 +34,13 @@ import pytest
 from repro.configs.base import get_config as jget_config
 from repro.configs.base import reduced as jreduced
 from repro import models as jmodels
+import torch
+
 from repro_torch.configs.base import get_config, reduced
+from repro_torch.convert import params_from_numpy
 
 from conftest import assert_close
+from test_torch_encdec import numpy_params as any_family_params
 from test_torch_transformer import numpy_params
 
 WORLD = 4
@@ -40,6 +49,15 @@ TRAIN_CASES = [("tinyllama-1.1b", 2), ("llama3-8b", 4)]
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)
 LOSS_RTOL = 1e-4
 GRAD_REL = 1e-3
+# the sharded bodies against the port's unsharded functions: the same
+# fp32 products, summed in another order (the slot split's merge)
+BODY_TOL = dict(rtol=1e-5, atol=1e-6)
+# values that are sums of many O(1) products taken in another order (a
+# weight's gradient over the split batch, then across the ranks; layer
+# 1's k/v, a 256-term product of layer 0's output): a few fp32 ulps of 10
+SUM_TOL = dict(rtol=1e-5, atol=1e-5)
+DECODE_MESHES = [2, 4]
+DECODE_POSITIONS = [5, 21]           # the second wraps the 16-slot ring
 WORKER = pathlib.Path(__file__).with_name("torch_mesh_worker.py")
 
 
@@ -57,6 +75,24 @@ def _flat(tree, prefix=""):
 def _cfgs(arch, **over):
     return (dataclasses.replace(jreduced(jget_config(arch)), **over),
             dataclasses.replace(reduced(get_config(arch)), **over))
+
+
+def _log_a_inputs(cfg, seed):
+    rng = np.random.default_rng(seed)
+    shape = (4, 8, cfg.lru_width)
+    return {k: rng.standard_normal(shape).astype(np.float32)
+            for k in ("x", "c_a", "c_i")}
+
+
+def _decode_inputs(cfg, seed, b=2, s=16):
+    rng = np.random.default_rng(seed)
+    L, kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    out = {k: rng.standard_normal((L, b, n, kv, hd)).astype(np.float32)
+           for k, n in (("k", s), ("v", s), ("xk", cfg.encoder_seq),
+                        ("xv", cfg.encoder_seq))}
+    out["token"] = rng.integers(0, cfg.vocab_size,
+                                (len(DECODE_POSITIONS), b, 1))
+    return out
 
 
 def _tokens(cfg, shape, seed):
@@ -92,6 +128,27 @@ def mesh_run(tmp_path_factory):
                       "model_axis": m, "weights": f"{name}_w.npz",
                       "tokens": f"{name}_tok.npy"})
         ref[name] = (jcfg, w, tok)
+    cfg = reduced(get_config("recurrentgemma-9b"))
+    w = any_family_params(cfg, seed=40)
+    np.savez(io / "log_a_w.npz", **_flat(w))
+    data = _log_a_inputs(cfg, seed=41)
+    np.savez(io / "log_a_x.npz", **data)
+    cases.append({"name": "log_a", "kind": "log_a",
+                  "arch": "recurrentgemma-9b", "model_axis": 2,
+                  "weights": "log_a_w.npz", "tokens": "log_a_x.npz"})
+    ref["log_a"] = (cfg, w, data)
+    cfg = reduced(get_config("whisper-medium"))
+    w = any_family_params(cfg, seed=50)
+    np.savez(io / "encdec_w.npz", **_flat(w))
+    data = _decode_inputs(cfg, seed=51)
+    np.savez(io / "encdec_in.npz", **data)
+    for m in DECODE_MESHES:
+        name = f"encdec_decode_{m}"
+        cases.append({"name": name, "kind": "encdec_decode",
+                      "arch": "whisper-medium", "model_axis": m,
+                      "positions": DECODE_POSITIONS,
+                      "weights": "encdec_w.npz", "tokens": "encdec_in.npz"})
+        ref[name] = (cfg, w, data)
     (io / "job.json").write_text(json.dumps({"cases": cases}))
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen([sys.executable, str(WORKER), str(io), str(r),
@@ -151,3 +208,49 @@ def test_sharded_train_step_matches_jax_grads(mesh_run, arch, model_axis):
         got = out["grad/" + k]
         rel = np.linalg.norm(got - g) / max(np.linalg.norm(g), 1e-30)
         assert rel <= GRAD_REL, (k, rel)
+
+
+def test_rglru_log_a_body_matches_unsharded_with_grads(mesh_run):
+    from repro_torch.models import rglru
+    ref, outs = mesh_run
+    cfg, w, data = ref["log_a"]
+    out = outs["log_a"]
+    params = params_from_numpy(w, "cpu", cfg=cfg)
+    lp = {k: params["rec"][k].requires_grad_()
+          for k in ("gate_a_w", "gate_a_b", "gate_x_w", "gate_x_b", "lam")}
+    x = torch.from_numpy(data["x"]).requires_grad_()
+    log_a, gate_i = rglru._log_a(rglru._slice(lp, 0), x)
+    loss = (log_a * torch.from_numpy(data["c_a"])).sum() + \
+        (gate_i * torch.from_numpy(data["c_i"])).sum()
+    names = sorted(lp)
+    grads = torch.autograd.grad(loss, [x] + [lp[k] for k in names])
+    assert_close(out["log_a"], log_a.detach().numpy(), **BODY_TOL)
+    assert_close(out["gate_i"], gate_i.detach().numpy(), **BODY_TOL)
+    assert_close(out["grad/x"], grads[0].numpy(), **SUM_TOL)
+    for k, g in zip(names, grads[1:]):
+        assert_close(out[f"grad/{k}"], g.numpy(), **SUM_TOL,
+                     err_msg=k)
+    assert np.abs(out["grad/lam"]).max() > 0
+
+
+@pytest.mark.parametrize("model_axis", DECODE_MESHES)
+def test_encdec_decode_on_slot_split_cache_matches_unsharded(mesh_run,
+                                                             model_axis):
+    from repro_torch.models import encdec
+    ref, outs = mesh_run
+    cfg, w, data = ref[f"encdec_decode_{model_axis}"]
+    out = outs[f"encdec_decode_{model_axis}"]
+    assert f"Shard(dim=2)" in str(out["self_placements"])
+    params = params_from_numpy(w, "cpu", cfg=cfg)
+    cache = {k: torch.from_numpy(data[k].copy())
+             for k in ("k", "v", "xk", "xv")}
+    with torch.no_grad():
+        for i, pos in enumerate(DECODE_POSITIONS):
+            logits, cache = encdec.decode_step(
+                cfg, params, torch.from_numpy(data["token"][i]), cache,
+                torch.tensor(pos))
+            assert_close(out[f"logits/{i}"], logits.numpy(), **BODY_TOL)
+    # the written slots carry the layers' rounding; a write to a wrong
+    # slot would be O(1) off
+    for k, v in cache.items():
+        assert_close(out[f"cache/{k}"], v.numpy(), **SUM_TOL, err_msg=k)

@@ -5,9 +5,11 @@
 Reads ``<io_dir>/job.json`` and the numpy weights beside it, joins a
 gloo group of ``world`` ranks through a file store in ``io_dir``, and for
 each case builds its mesh, places the weights as DTensors by the rules
-and runs the port: MoE forwards per ``moe_impl`` and the sharded train
-step of ``launch.dryrun.build_step``.  Rank 0 writes the full results to
-``<io_dir>/out_<case>.npz``.  Imports no JAX.
+and runs the port: MoE forwards per ``moe_impl``, the sharded train
+step of ``launch.dryrun.build_step``, the RG-LRU's ``_log_a`` with its
+gradients, and the encoder-decoder's decode step on a slot-split 'bskd'
+cache.  Rank 0 writes the full results to ``<io_dir>/out_<case>.npz``.
+Imports no JAX.
 """
 import json
 import pathlib
@@ -96,6 +98,69 @@ def run_train(case, io, mesh):
     return out
 
 
+def run_log_a(case, io, mesh):
+    """``rglru._log_a`` of layer 0 on DTensors (lam split on ``tp_ff``,
+    x on batch and ``ff``), and the gradients of a fixed weighted sum of
+    its outputs with respect to x and every gate leaf."""
+    from repro_torch.models import rglru
+    cfg = _config(case)
+    np_params = _nested(dict(np.load(io / case["weights"])))
+    data = np.load(io / case["tokens"])
+    rules = shd.rules_for("train")
+    with axis_rules(rules, mesh):
+        params = shd.shard_params(
+            params_from_numpy(np_params, "cpu", cfg=cfg),
+            models.param_template(cfg), rules, mesh)
+        x = shd.distribute(
+            torch.from_numpy(data["x"]),
+            shd.struct_shardings(torch.from_numpy(data["x"]),
+                                 ("batch", None, "ff"), rules, mesh), mesh)
+        x.requires_grad_()
+        lp = {k: w.requires_grad_() for k, w in params["rec"].items()
+              if k in ("gate_a_w", "gate_a_b", "gate_x_w", "gate_x_b",
+                       "lam")}
+        log_a, gate_i = rglru._log_a(rglru._slice(lp, 0), x)
+        loss = (log_a * torch.from_numpy(data["c_a"])).sum() + \
+            (gate_i * torch.from_numpy(data["c_i"])).sum()
+        names = sorted(lp)
+        grads = torch.autograd.grad(loss, [x] + [lp[k] for k in names])
+    out = {"log_a": _full(log_a), "gate_i": _full(gate_i),
+           "grad/x": _full(grads[0])}
+    out.update({f"grad/{k}": _full(g) for k, g in zip(names, grads[1:])})
+    return out
+
+
+def run_encdec_decode(case, io, mesh):
+    """``encdec.decode_step`` on DTensor caches placed by the decode rules
+    (the self-attention ring split on its slots, the cross cache on
+    batch), one step at each of ``case["positions"]`` in turn; the logits
+    of every step and the caches after the last."""
+    from repro_torch.models import encdec
+    cfg = _config(case)
+    np_params = _nested(dict(np.load(io / case["weights"])))
+    data = dict(np.load(io / case["tokens"]))
+    b, s = data["k"].shape[1:3]
+    rules = shd.rules_for("decode")
+    _, axes = encdec.cache_spec(cfg, b, s, torch.float32)
+    out = {}
+    with axis_rules(rules, mesh), torch.no_grad():
+        params = shd.shard_params(
+            params_from_numpy(np_params, "cpu", cfg=cfg),
+            models.param_template(cfg), rules, mesh)
+        cache = {k: torch.from_numpy(data[k]) for k in axes}
+        cache = shd.distribute(
+            cache, shd.struct_shardings(cache, axes, rules, mesh), mesh)
+        for i, pos in enumerate(case["positions"]):
+            tok = torch.from_numpy(data["token"][i])
+            tok = shd.distribute(tok, shd.replicated(mesh), mesh)
+            logits, cache = encdec.decode_step(cfg, params, tok, cache,
+                                               torch.tensor(pos))
+            out[f"logits/{i}"] = _full(logits)
+        out.update({f"cache/{k}": _full(v) for k, v in cache.items()})
+        out["self_placements"] = np.array(str(cache["k"].placements))
+    return out
+
+
 def _zeros_like(tree):
     if isinstance(tree, dict):
         return {k: _zeros_like(v) for k, v in tree.items()}
@@ -112,7 +177,9 @@ def main():
         job = json.loads((io / "job.json").read_text())
         for case in job["cases"]:
             mesh = make_host_mesh(model_axis=case["model_axis"])
-            run = run_moe if case["kind"] == "moe" else run_train
+            run = {"moe": run_moe, "train": run_train,
+                   "log_a": run_log_a,
+                   "encdec_decode": run_encdec_decode}[case["kind"]]
             out = run(case, io, mesh)
             if rank == 0:
                 out["jax_imported"] = np.array("jax" in sys.modules)
