@@ -72,6 +72,18 @@ its seconds:
                   device µs) at the live lanes and at 8 x 1000 of 1024
                   slots against bound, plain version and SDPA, with their
                   max and rms error against an fp64 evaluation
+  graphs          the twin of jax.jit, CUDA graphs against the same code
+                  eagerly (disable_graphs()): NIN and LeNet through
+                  InferenceEngine at batch 1, 8, 64 (a capture and two
+                  replays torch.equal eager, equal launches, three
+                  commands in flight, an evict and reload over NaN-filled
+                  memory; NIN latency and images/s eager, graph, graph,
+                  eager); TinyLlama-1.1B's captured decode step in ring
+                  fp32 and paged int8 (serve's 16 requests: tokens equal
+                  eager and ``ref``, decode_steps, host_syncs and launches
+                  equal eager; sampled tokens equal; tokens/s, TTFT, device
+                  ms a step, idle share and host launch calls over 8
+                  ticks); B6/B7's ticket counters 0 after the replays
   multimodel      TinyLlama-1.1B and Qwen3-0.6B (and its int8 artifact),
                   full width, cut to 8 layers, through MultiModelServer:
                   hits, misses, switch log
@@ -222,6 +234,7 @@ import sys
 import tempfile
 import time
 import traceback
+from contextlib import nullcontext
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 0
@@ -1730,7 +1743,7 @@ def phase_serve(run, torch, np, card):
     emit({"phase": "serve", "main_path_launches": counts})
     run.phase("serve_teacher_forced", phase_teacher_forced, run, torch, np,
               cfg, params)
-    return cfg, np_params, params, engines, path
+    return cfg, np_params, params, engines, path, results
 
 
 def parted_lane_logits(torch, kops, cfg, params, opts, make_requests, got,
@@ -1750,6 +1763,7 @@ def parted_lane_logits(torch, kops, cfg, params, opts, make_requests, got,
     if j == 0:
         out["note"] = "the first token comes from the prefill, not a decode step"
         return out
+    from repro_torch.core.jit import disable_graphs
     saved = kops.launches()
     for backend, name in ((None, "cuda"), ("ref", "ref")):
         eng = ServingEngine(cfg, params, max_batch=8,
@@ -1775,7 +1789,8 @@ def parted_lane_logits(torch, kops, cfg, params, opts, make_requests, got,
                                  "valid_len": int(sched._host_valid[slot]) + 1}
             return lg
         sched._decode_lanes = capture
-        eng.generate_batch(reqs)
+        with disable_graphs():          # capture() reads logits on the host
+            eng.generate_batch(reqs)
     for k, n in saved.items():
         kops.KERNELS[k].launches = n
     return out
@@ -1981,6 +1996,13 @@ STEP_GROUPS = tuple((key, "decode attention (B6/B7)")
     ("gemv", "matmul (cuBLAS)"), ("Memcpy", "copies"), ("Memset", "copies"))
 
 
+# the runtime calls by which the host launches device work: a kernel each,
+# or a whole captured graph
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cuGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def _profile_ticks(torch, sched, ticks):
     """Device time by part, launches and idle share over ``ticks`` decode
     ticks with every lane live (torch.profiler)."""
@@ -1993,8 +2015,10 @@ def _profile_ticks(torch, sched, ticks):
             sched.tick()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    parts, kernels = {}, 0
+    parts, kernels, calls = {}, 0, {}
     for e in prof.events():
+        if e.name in HOST_LAUNCH_CALLS:
+            calls[e.name] = calls.get(e.name, 0) + 1
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
             continue
         kernels += 1
@@ -2007,6 +2031,8 @@ def _profile_ticks(torch, sched, ticks):
             "device_idle_share": 1 - busy * ticks / wall_us if parts
             else "not measured",
             "device_kernels_per_step": kernels / ticks,
+            "host_launch_calls_per_step": {k: v / ticks
+                                           for k, v in calls.items()},
             "device_ms_by_part": {k: v / 1e3 for k, v in parts.items()}}
 
 
@@ -2223,6 +2249,189 @@ def phase_serve_times(run, torch, np, cfg, params, card):
         emit(rec)
         out[name] = rec["kernel"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# the twin of jax.jit: Graph.jit_apply behind InferenceEngine and the dense
+# family's captured decode step, against the same code run eagerly under
+# disable_graphs(), in the same run
+# ---------------------------------------------------------------------------
+
+GRAPH_FORMS = ("ring-fp32", "paged-int8")
+GRAPH_TEMP = 0.8        # every other request of the sampled runs
+
+
+def _launch_delta(kops, before):
+    after = kops.launches()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _cnn_graphs(run, torch, np, graphs, card):
+    """NIN and LeNet through ModelStore -> InferenceEngine on the kernels
+    at batch 1, 8 and 64: a capture and two replays torch.equal to eager
+    forwards with the same launches; three commands in flight, each its
+    own output; NIN evicted (max_resident=1), its graphs dropped, and
+    reloaded over freed memory filled with NaN; NIN latency and images/s
+    (nin_end_to_end) eager, graph, graph, eager."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.importer import to_caffe_json
+    from repro_torch.core.jit import disable_graphs
+    from repro_torch.core.modelstore import ModelStore
+    from repro_torch.kernels import ops as kops
+    rec = {"phase": "graphs", "part": "cnn", "card": card["nvidia_smi"],
+           "cases": []}
+    nin = "nin-cifar10"
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
+        store = ModelStore(root)
+        for name, graph in graphs.items():
+            params = params_from_numpy(numpy_params(np, graph, SEED), "cpu",
+                                       graph=graph)
+            store.publish(name, to_caffe_json(graph, params)[0], params)
+        engine = InferenceEngine(store, max_resident=1, device=DEVICE)
+        rng = np.random.default_rng(SEED + 70)
+        for name, graph in graphs.items():
+            for batch in BATCHES:
+                xs = [rng.standard_normal((batch, *graph.input_shape))
+                      .astype(np.float32) for _ in range(3)]
+                with disable_graphs():
+                    before = kops.launches()
+                    eager = [engine.predict(name, x) for x in xs]
+                    eager_launches = _launch_delta(kops, before)
+                before = kops.launches()
+                got = [engine.predict(name, x) for x in xs]
+                graph_launches = _launch_delta(kops, before)
+                cbs = [engine.enqueue(name, x) for x in xs]
+                flight = [cb.wait_until_completed() for cb in cbs]
+                engine.fence()
+                tag = f"{name} b={batch}"
+                run.check("graphs", f"{tag}: a capture and two replays "
+                          "torch.equal the eager forwards", all(
+                              torch.equal(a, b) for a, b in zip(got, eager)))
+                run.check("graphs", f"{tag}: launches equal eager's",
+                          graph_launches == eager_launches,
+                          graph=graph_launches, eager=eager_launches)
+                run.check("graphs", f"{tag}: three commands in flight each "
+                          "give their own result", all(
+                              torch.equal(a, b) for a, b in zip(flight, eager))
+                          and len({t.data_ptr() for t in flight}) == 3)
+                rec["cases"].append({"model": name, "batch": batch,
+                                     "launches": graph_launches})
+        x = rng.standard_normal((8, *graphs[nin].input_shape)) \
+            .astype(np.float32)
+        fn = engine.load(nin)[3]                     # reloaded: no graphs
+        first = engine.predict(nin, x)
+        engine.predict(nin, x)
+        held = len(fn._graphs)
+        engine.predict("lenet-mnist", rng.standard_normal(
+            (8, *graphs["lenet-mnist"].input_shape)).astype(np.float32))
+        dropped = fn._graphs == {}
+        junk = [torch.full((1 << 22,), float("nan"), device=DEVICE)
+                for _ in range(4)]
+        again = [engine.predict(nin, x) for _ in range(2)]
+        with disable_graphs():
+            eager = engine.predict(nin, x)
+        del junk
+        run.check("graphs", "evicted NIN's graph dropped, reloaded NIN "
+                  "torch.equal eager", held == 1 and dropped
+                  and all(torch.equal(y, eager) for y in (first, *again)),
+                  held=held, dropped=dropped)
+        times = []
+        for eager_turn in (True, False, False, True):
+            with disable_graphs() if eager_turn else nullcontext():
+                t = nin_end_to_end(torch, np, engine, nin,
+                                   graphs[nin].input_shape)
+            times.append({"mode": "eager" if eager_turn else "graph", **t})
+        rec["nin_times"] = times
+    emit(rec)
+
+
+def _decode_run(torch, np, cfg, params, form, eager, card):
+    """One cache form of full-width TinyLlama on a fresh ServingEngine
+    (8 lanes, cache 1024), graph or eager (disable_graphs): a warm pass,
+    then serve's 16 requests (serve_requests(SEED + 20): tokens, counters,
+    launches, decode tokens/s, TTFT), 8 profiled ticks with 8 live lanes
+    (device ms a step, idle share, launch calls a step on the host), and
+    on a fresh engine (seed SEED + 7) 8 requests with every other one
+    sampled at GRAPH_TEMP."""
+    from repro_torch.core.jit import disable_graphs
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving.engine import ServingEngine
+    opts = dict(max_batch=8, cache_len=SERVE_CACHE_LEN, device=DEVICE,
+                **SERVE_CONFIGS[form])
+    with disable_graphs() if eager else nullcontext():
+        eng = ServingEngine(cfg, params, **opts)
+        eng.generate_batch(serve_requests(np, cfg, SEED + 50, n=8, hi=50))
+        sched = eng.scheduler()
+        sched.metrics.reset()
+        reqs = serve_requests(np, cfg, SEED + 20)
+        before = kops.launches()
+        stats = eng.generate_batch(reqs)
+        torch.cuda.synchronize()
+        rec = {"phase": "graphs", "part": "decode", "config": form,
+               "mode": "eager" if eager else "graph",
+               "card": card["nvidia_smi"],
+               "graph_captured": sched._graph is not None,
+               "decode_tokens_per_s": stats.tok_per_s,
+               "decode_s": stats.decode_s, "prefill_s": stats.prefill_s,
+               "tokens": stats.tokens_out,
+               "ttft_s": sched.metrics.histogram("req.ttft_s").snapshot(),
+               "decode_steps": sched.decode_steps,
+               "host_syncs": sched.host_syncs,
+               "launches": _launch_delta(kops, before)}
+        tokens = [r.output for r in reqs]
+        for r in serve_requests(np, cfg, SEED + 52, n=8):
+            sched.submit(r)
+        sched.tick()                                # admits all 8
+        rec["step_profile"] = _profile_ticks(torch, sched, 8)
+        sched.run()
+        sampled = serve_requests(np, cfg, SEED + 53, n=8, max_new=24)
+        for i, r in enumerate(sampled):
+            r.temperature = GRAPH_TEMP if i % 2 else 0.0
+        ServingEngine(cfg, params, seed=SEED + 7, **opts).generate_batch(
+            sampled)
+    emit(rec)
+    return rec, tokens, [r.output for r in sampled]
+
+
+def phase_graphs(run, torch, np, cfg, params, serve_tokens, graphs, card):
+    """CUDA graphs against the eager steps in the same run: the CNN engine
+    (_cnn_graphs), then TinyLlama-1.1B's decode step in ring fp32 and
+    paged int8 (_decode_run, eager then graph in one form, graph then
+    eager in the other): greedy tokens equal the eager run's and
+    serve's ``ref`` run's, decode_steps, host_syncs and every kernel's
+    launches equal the eager run's, sampled tokens equal; B6/B7's ticket
+    counters at 0 after the replays."""
+    from repro_torch.kernels import decode_attention as da
+    emit({"phase": "graphs", "torch": torch.__version__,
+          "register_generator_state": hasattr(torch.cuda.CUDAGraph,
+                                              "register_generator_state")})
+    _cnn_graphs(run, torch, np, graphs, card)
+    for n, form in enumerate(GRAPH_FORMS):
+        runs = {}
+        for eager in ((True, False) if n == 0 else (False, True)):
+            runs[eager] = _decode_run(torch, np, cfg, params, form, eager,
+                                      card)
+        (g, g_tok, g_smp), (e, e_tok, e_smp) = runs[False], runs[True]
+        ref_tok = serve_tokens[f"{form}/ref"]
+        run.check("graphs", f"{form}: the step was captured (graph run) and "
+                  "not (eager run)", g["graph_captured"]
+                  and not e["graph_captured"])
+        run.check("graphs", f"{form}: greedy tokens graph == eager == ref",
+                  g_tok == e_tok == ref_tok, graph_vs_eager=sum(
+                      a == b for a, b in zip(g_tok, e_tok)),
+                  graph_vs_ref=sum(a == b for a, b in zip(g_tok, ref_tok)))
+        for key in ("decode_steps", "host_syncs", "launches"):
+            run.check("graphs", f"{form}: {key} equal eager's",
+                      g[key] == e[key], graph=g[key], eager=e[key])
+        run.check("graphs", f"{form}: sampled tokens (temperature "
+                  f"{GRAPH_TEMP}) graph == eager", g_smp == e_smp,
+                  equal=sum(a == b for a, b in zip(g_smp, e_smp)))
+    torch.cuda.synchronize()
+    counters = {str(k[2:]): int(ws[:k[2] * k[3]].abs().sum())
+                for k, ws in da._WORKSPACES.items()}
+    run.check("graphs", "B6/B7 ticket counters at 0 after the replays",
+              not any(counters.values()), counters=counters)
 
 
 def phase_b2_times(run, torch, graph, card):
@@ -5693,10 +5902,13 @@ def main() -> int:
     served = timed("serve", phase_serve, run, torch, np, card)
     serve_launches = dec = tiny_np = None
     if served is not None:
-        cfg, tiny_np, params, engines, serve_launches = served
+        cfg, tiny_np, params, engines, serve_launches, serve_tokens = served
         del engines
         dec = timed("serve_times", phase_serve_times, run, torch, np, cfg,
                     params, card)
+        # the twin of jax.jit: CUDA graphs against the eager steps
+        timed("graphs", phase_graphs, run, torch, np, cfg, params,
+              serve_tokens, graphs, card)
         del params
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as store_root:

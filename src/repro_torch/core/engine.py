@@ -3,7 +3,8 @@
 The port of ``repro.core.engine``.  The residency / pipeline-cache /
 command-queue mechanics live in ``repro_torch.runtime.base.DeviceRuntime``;
 this engine adds what is CNN-specific: building a graph pipeline from an
-imported DeepLearningKit-JSON model description.
+imported DeepLearningKit-JSON model description (``Graph.jit_apply``: a
+CUDA graph per input shape on the card).
 
 The engine runs on the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device it raises.  Kernel selection is by
@@ -36,7 +37,7 @@ class InferenceEngine(DeviceRuntime):
     def _build_pipeline(self, spec):
         if spec.get("format") == "deeplearningkit-json-v1":
             graph, _ = from_caffe_json(spec)
-            return graph.compiled_apply(backend=self.backend)
+            return graph.jit_apply(backend=self.backend)
         raise ValueError(f"unknown model format in spec: "
                          f"{spec.get('format')!r}")
 

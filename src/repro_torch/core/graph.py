@@ -4,7 +4,7 @@ The port of ``repro.core.graph``.  The paper's Swift layer builds a
 convolutional-network pipeline from an imported (Caffe->JSON) description
 and dispatches one Metal shader per layer; here
 
-    spec (list of layer dicts)  ->  Graph  ->  compiled_apply(params, x)
+    spec (list of layer dicts)  ->  Graph  ->  jit_apply()(params, x)
 
 dispatches one kernel per layer.  Op semantics live in the op registry
 (``repro_torch.core.ops``); every ``Graph`` method is a generic loop over
@@ -23,15 +23,21 @@ safe: an ``inplace`` op may write into its input when no trace was asked
 for, the input does not require grad, and its storage is neither the
 caller's input (nor a view of it) nor an activation saved for a later
 reference.  ``relu`` is the op that does so (``ApplyContext.inplace``).
+
+``jit_apply`` is the twin of the JAX package's ``jax.jit`` of ``apply``:
+on a CUDA tensor it captures the forward once per :func:`graph_key` as a
+CUDA graph (``repro_torch.core.jit``) and replays it; on a CPU tensor,
+or under ``disable_graphs()``, it runs ``apply`` under inference mode.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core.jit import capture, graphs_enabled
 from repro_torch.core.ops import REGISTRY, ApplyContext, OpSpec
 
 Backend = Union[None, str, Dict[str, str]]
@@ -163,12 +169,10 @@ class Graph:
                 trace.append(x)
         return x
 
-    def compiled_apply(self, **kw) -> Callable:
-        """The pipeline-state object: ``fn(params, x)`` under inference mode."""
-        def run(params, x):
-            with torch.inference_mode():
-                return self.apply(params, x, **kw)
-        return run
+    def jit_apply(self, **kw) -> "JitApply":
+        """The pipeline-state object: ``fn(params, x)``, ``apply`` with
+        ``kw`` compiled once per input shape (see :class:`JitApply`)."""
+        return JitApply(self, kw)
 
     # -- analysis -----------------------------------------------------------
 
@@ -251,3 +255,69 @@ class Graph:
             "num_slots": len(slots),
             "assignment": assignment,
         }
+
+
+def _leaves(tree):
+    """The tensors of a parameter tree, dict keys in sorted order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
+def _frozen(v):
+    if isinstance(v, dict):
+        return tuple(sorted((k, _frozen(x)) for k, x in v.items()))
+    if isinstance(v, (list, tuple)):
+        return tuple(_frozen(x) for x in v)
+    return v
+
+
+def graph_key(params, x: torch.Tensor, kw: Dict[str, Any]) -> tuple:
+    """What a captured forward depends on: x's shape, dtype and device,
+    ``apply``'s options (the backend), and the address of every parameter
+    leaf, so weights evicted and loaded again as new tensors never replay
+    through a graph captured on the old ones."""
+    return (tuple(x.shape), x.dtype, x.device, _frozen(kw),
+            tuple(t.data_ptr() for t in _leaves(params)))
+
+
+class JitApply:
+    """``Graph.jit_apply(**kw)``: ``fn(params, x)`` runs ``apply(params,
+    x, **kw)`` under inference mode.
+
+    On a CUDA tensor the first call of a :func:`graph_key` runs the
+    forward for real on the capture stream and captures it into a CUDA
+    graph with a static input; every later call copies ``x`` into that
+    input, replays the graph and returns a copy of its output, never the
+    static buffer, which the next replay overwrites (two commands may be
+    in flight).  A CPU tensor, or a call under ``disable_graphs()``, runs
+    ``apply`` eagerly.  :meth:`clear` drops the graphs, as the runtime
+    does when the model's weights leave the device."""
+
+    def __init__(self, graph: Graph, kw: Dict[str, Any]):
+        self.graph = graph
+        self.kw = kw
+        self._graphs: Dict[tuple, Tuple[torch.Tensor, Any]] = {}
+
+    def __call__(self, params, x: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            if not x.is_cuda or not graphs_enabled():
+                return self.graph.apply(params, x, **self.kw)
+            key = graph_key(params, x, self.kw)
+            entry = self._graphs.get(key)
+            if entry is None:
+                static_x = x.clone()
+                out, captured = capture(
+                    lambda: self.graph.apply(params, static_x, **self.kw),
+                    x.device)
+                self._graphs[key] = (static_x, captured)
+                return out
+            static_x, captured = entry
+            static_x.copy_(x)
+            return captured.replay().clone()
+
+    def clear(self) -> None:
+        """Drop every captured graph (and its memory pool)."""
+        self._graphs.clear()

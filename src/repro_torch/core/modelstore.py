@@ -22,7 +22,7 @@ import pathlib
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -189,10 +189,13 @@ class ResidentCache:
     into GPU accessible RAM')."""
 
     def __init__(self, store: ModelStore, capacity: int = 2,
-                 device: torch.device = torch.device("cpu")):
+                 device: torch.device = torch.device("cpu"),
+                 on_evict: Optional[Callable[[Tuple[str, str]], None]] = None):
         self.store = store
         self.capacity = capacity
         self.device = torch.device(device)
+        # called with (name, version) as a model's weights leave the cache
+        self.on_evict = on_evict
         self._cache: "OrderedDict[Tuple[str, str], Any]" = OrderedDict()
         self.hits = 0
         self.misses = 0
@@ -210,7 +213,9 @@ class ResidentCache:
         value = (rec, spec, params)
         self._cache[key] = value
         while len(self._cache) > self.capacity:
-            self._cache.popitem(last=False)   # evict LRU
+            evicted, _ = self._cache.popitem(last=False)   # evict LRU
+            if self.on_evict is not None:
+                self.on_evict(evicted)
         return value
 
     @property

@@ -13,6 +13,11 @@ A kernel is a :class:`CudaKernel`: one C entry point that returns
 path is lean on the host (ints for pointers, the raw current stream),
 because at the CNN's shapes the host's cost per launch is larger than
 the kernel's device time.
+
+A launch made while a CUDA graph is being captured runs nothing: the
+graph records it.  :func:`recorded_launches` takes such launches back
+out of the counts and hands them to the graph, which adds them again at
+every replay, so a count stays the number of times its kernel ran.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from contextlib import contextmanager
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,6 +43,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _library: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of the last build, None if loaded as built
+_KERNELS: List["CudaKernel"] = []       # every kernel, for recorded_launches
 
 
 def _nvcc() -> str:
@@ -148,6 +155,7 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
         self._stream = None
+        _KERNELS.append(self)
 
     def _bind(self):
         build()
@@ -173,6 +181,29 @@ class CudaKernel:
             msg = _library.dlk_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} failed to launch: {msg} ({err})")
         self.launches += 1
+
+
+@contextmanager
+def recorded_launches() -> Iterator[List[Tuple["CudaKernel", int]]]:
+    """Around a CUDA-graph capture: yields a list that, on exit, holds
+    each kernel with the launches the capture recorded, and takes those
+    launches back out of the kernels' counts (the capture ran nothing).
+    A replay of the graph adds them with :func:`add_launches`."""
+    before = [k.launches for k in _KERNELS]
+    held: List[Tuple[CudaKernel, int]] = []
+    try:
+        yield held
+    finally:
+        for k, n in zip(_KERNELS, before):
+            if k.launches != n:
+                held.append((k, k.launches - n))
+                k.launches = n
+
+
+def add_launches(held: Sequence[Tuple["CudaKernel", int]]) -> None:
+    """Count one replay of a captured graph: each kernel's launches in it."""
+    for k, n in held:
+        k.launches += n
 
 
 _SMS: Dict[int, int] = {}

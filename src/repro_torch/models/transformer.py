@@ -25,6 +25,12 @@ from repro_torch.models import common as cm
 from repro_torch.models.common import P
 from repro_torch.sharding_hints import get_rule, hint, is_dtensor
 
+# The scheduler may capture this family's batched decode step once as a
+# CUDA graph and replay it (runtime/scheduler.py): decode_step_batch and
+# everything it calls read no device value on the host, allocate nothing
+# whose shape depends on data, and write the cache in place.
+CUDA_GRAPH_SAFE = True
+
 # ---------------------------------------------------------------------------
 # Templates
 # ---------------------------------------------------------------------------

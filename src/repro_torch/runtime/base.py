@@ -9,14 +9,17 @@ Metal/OpenCL table maps here as:
                                        the device's current stream
     3 newDefaultLibrary             -> repro_torch.kernels (the CUDA library)
     4 newFunctionWithName           -> one callable per model (the graph's
-                                       compiled_apply)
+                                       jit_apply, a CUDA graph per shape)
     5 newBufferWithBytes            -> pinned host copy, non-blocking to
                                        the device
     6 commandBuffer.commit          -> dispatch(): launch, record an event
     7 waitUntilCompleted            -> synchronise that event
 
 Weights stay device-resident across calls, and the runtime counts the
-host->device bytes it avoided.
+host->device bytes it avoided.  When the resident cache evicts a model's
+weights, the runtime clears that model's pipeline (``clear()``, where the
+pipeline has one): the CUDA graphs it captured read the old weights'
+memory, and no graph may outlive the weights it reads.
 """
 from __future__ import annotations
 
@@ -67,7 +70,8 @@ class DeviceRuntime:
                  max_resident: int = 2, device="cuda"):
         self.device = resolve_device(device)               # table row 1
         self.cache = (ResidentCache(store, capacity=max_resident,
-                                    device=self.device)
+                                    device=self.device,
+                                    on_evict=self._evicted)
                       if store is not None else None)
         self.queue: List[CommandBuffer] = []                # table row 2
         self._pipelines: Dict[Any, Callable] = {}           # table row 4
@@ -91,6 +95,13 @@ class DeviceRuntime:
             self.stats["active_model"] = name
         self.switch_log.append((name, time.perf_counter() - t0))
         return rec, spec, params
+
+    def _evicted(self, key) -> None:
+        """A model's weights left the device: drop what its pipeline
+        captured on them (a reload brings new tensors)."""
+        clear = getattr(self._pipelines.get(key), "clear", None)
+        if clear is not None:
+            clear()
 
     # -- pipeline-state objects ---------------------------------------------
 

@@ -17,8 +17,11 @@ derive without reading device memory (``_host_pos``, ``_pt_host``,
 ``_host_valid`` and ``_steps_left`` decide everything), so a generated
 token costs zero host syncs; the one device->host transfer per retired
 request goes through pinned memory at retirement and is counted in
-``host_syncs``.  The JAX package's jitted programs are plain functions
-here (capturing the step in a CUDA graph is a later step).
+``host_syncs``.  The JAX package jits its programs; here the decode step
+of a family that declares itself capturable (``CUDA_GRAPH_SAFE``: the
+dense transformer) is captured once per scheduler as a CUDA graph on a
+CUDA device and replayed at every tick (``repro_torch.core.jit``), and
+every other program, and every other family's step, runs eagerly.
 
 Everything else is the JAX package's, unchanged: mid-flight admission,
 prompt-length buckets (left padding, pads attended), the ring and paged
@@ -44,6 +47,7 @@ import torch
 
 from repro_torch import models
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.jit import capture, graphs_enabled
 from repro_torch.models import common as cm
 from repro_torch.runtime.faults import FaultInjector
 from repro_torch.runtime.pagepool import GARBAGE_PAGE, PagePool
@@ -81,13 +85,16 @@ class Request:
     slo_itl_s: Optional[float] = None
 
 
-def _sample(generator: torch.Generator, logits, temp):
+def _sample(generator: torch.Generator, logits, temp, u=None):
     """Greedy where temp == 0, Gumbel-max elsewhere — per row, on the
     device, with no host read.  ``argmax`` returns the first maximal
-    index, as ``jnp.argmax`` does."""
+    index, as ``jnp.argmax`` does.  ``u``, uniform noise of ``logits``'
+    shape, is drawn from ``generator`` unless the caller drew it."""
     logits = logits.float()
     greedy = logits.argmax(dim=-1)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    if u is None:
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device)
     gumbel = -torch.log(-torch.log(u.clamp(1e-10, 1.0 - 1e-7)))
     scaled = logits / torch.clamp_min(temp, 1e-6)[:, None]
     sampled = (scaled + gumbel).argmax(dim=-1)
@@ -241,6 +248,18 @@ class ContinuousBatchingScheduler:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
         self._rows = torch.arange(max_slots, device=self.device)
+        # the decode step's sampling noise, drawn before each step and
+        # outside a captured graph, so the generator advances as it does
+        # in the eager step
+        self._noise = torch.empty((max_slots, cfg.vocab_size),
+                                  dtype=torch.float32, device=self.device)
+        # the batched step of a capturable family on a CUDA device is
+        # captured at its first call and replayed after it; every input
+        # it reads is a tensor below, written in place, never rebound
+        self._graphable = (self.device.type == "cuda"
+                           and self.decode_mode == "batched"
+                           and getattr(self.mod, "CUDA_GRAPH_SAFE", False))
+        self._graph = None
         self.state = self._init_state()
         # the one device->host transfer per retirement lands here
         self._pinned = torch.empty(
@@ -319,7 +338,6 @@ class ContinuousBatchingScheduler:
     def _decode_lanes(self, tokens, pos):
         """One decode step for every lane (cache written in place): the
         lane-major batched path (default) or the looped B=1 reference."""
-        self.decode_steps += 1
         cache = self.state["cache"]
         if self.decode_mode == "batched":
             lg, _ = self.mod.decode_step_batch(
@@ -329,9 +347,27 @@ class ContinuousBatchingScheduler:
         return self._decode_slots(tokens, cache, pos)
 
     def _step(self) -> None:
+        """Advance every lane one token.  A capturable family's batched
+        step on a CUDA device runs as one CUDA graph, captured at the
+        scheduler's first step (a real step, run on the capture stream
+        first) and replayed at every later one, as the JAX package jits
+        ``_step``; under ``disable_graphs()``, or elsewhere, it runs
+        eagerly.  Both run :meth:`_advance` on the same tensors."""
+        self.decode_steps += 1
+        self._noise.uniform_(generator=self._generator)
+        if not (self._graphable and graphs_enabled()):
+            self._advance()
+        elif self._graph is None:
+            _, self._graph = capture(self._advance, self.device)
+        else:
+            self._graph.replay()
+
+    def _advance(self) -> None:
+        """The step's device work, in place on ``self.state``: the decode
+        step, sampling with ``self._noise``, the output scatter."""
         st = self.state
         last = self._decode_lanes(st["tokens"], st["pos"])
-        nxt = _sample(self._generator, last, st["temp"])
+        nxt = _sample(self._generator, last, st["temp"], self._noise)
         write = st["active"] & (st["out_len"] < st["budget"])
         cols = st["out_len"].clamp(0, self.max_new_cap - 1).long()
         cur = st["out_buf"][self._rows, cols]
@@ -415,6 +451,7 @@ class ContinuousBatchingScheduler:
         logits.  The other lanes' writes are idempotent (each recomputes
         the KV of its current token at its current position), and only
         the cache advances."""
+        self.decode_steps += 1
         tokens = self.state["tokens"].clone()
         tokens[slot, 0].fill_(tok)
         pos_v = self.state["pos"].clone()

@@ -1454,3 +1454,201 @@ def test_encdec_train_cli_matches_ref(dev, tmp_path):
     _, want = train.train("whisper-medium", steps=2, batch=2, seq=64,
                           device=dev, backend="ref")
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs, the twin of jax.jit: Graph.jit_apply behind InferenceEngine
+# and the dense family's decode step, each against the same code run
+# eagerly under disable_graphs(): outputs and tokens bit-equal (the same
+# kernels in the same order), launch counts and counters equal.
+# ---------------------------------------------------------------------------
+
+
+def _cnn_store(tmp_path, name):
+    from repro_torch.configs import get_config
+    from repro_torch.core.importer import to_caffe_json
+    from repro_torch.core.modelstore import ModelStore
+    from repro_torch.models import cnn
+    g = cnn.graph_for(get_config(name))
+    params = g.init_params(torch.Generator().manual_seed(0))
+    store = ModelStore(tmp_path)
+    store.publish(name, to_caffe_json(g, params)[0], params)
+    return g, store
+
+
+@pytest.mark.parametrize("name", ["nin-cifar10", "lenet-mnist"])
+def test_jit_apply_graphs_equal_eager(dev, tmp_path, name):
+    """Per batch: a capture, then replays, bit-equal to the eager forwards
+    with the same launches; three commands in flight each keep their own
+    output; one graph per batch shape."""
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.jit import disable_graphs
+    g, store = _cnn_store(tmp_path, name)
+    engine = InferenceEngine(store)
+    rng = np.random.default_rng(0)
+    for n, batch in enumerate((1, 8), 1):
+        xs = [rng.standard_normal((batch, *g.input_shape))
+              .astype(np.float32) for _ in range(3)]
+        with disable_graphs():
+            kops.reset_launches()
+            eager = [engine.predict(name, x) for x in xs]
+            want = kops.launches()
+        kops.reset_launches()
+        got = [engine.predict(name, x) for x in xs]
+        assert kops.launches() == want
+        assert all(torch.equal(a, b) for a, b in zip(got, eager))
+        cbs = [engine.enqueue(name, x) for x in xs]
+        flight = [cb.wait_until_completed() for cb in cbs]
+        engine.fence()
+        assert all(torch.equal(a, b) for a, b in zip(flight, eager))
+        assert len({t.data_ptr() for t in flight}) == 3
+        assert len(engine.load(name)[3]._graphs) == n
+
+
+def test_jit_apply_after_evict_and_reload(dev, tmp_path):
+    """An evicted model's graphs go with its weights; reloaded (new
+    tensors), it captures anew and answers as before."""
+    from repro_torch.core.engine import InferenceEngine
+    g, store = _cnn_store(tmp_path, "nin-cifar10")
+    rec = store.get("nin-cifar10")
+    store.publish("other", rec.load_spec(), rec.load_params())
+    engine = InferenceEngine(store, max_resident=1)
+    x = np.random.default_rng(1).standard_normal((8, *g.input_shape)) \
+        .astype(np.float32)
+    want = engine.predict("nin-cifar10", x)
+    assert torch.equal(engine.predict("nin-cifar10", x), want)
+    fn = engine.load("nin-cifar10")[3]
+    assert len(fn._graphs) == 1
+    engine.predict("other", x)
+    assert fn._graphs == {}
+    junk = [torch.full((1 << 20,), float("nan"), device=dev)
+            for _ in range(8)]           # over the freed weights, if reused
+    assert torch.equal(engine.predict("nin-cifar10", x), want)
+    assert torch.equal(engine.predict("nin-cifar10", x), want)
+    assert len(fn._graphs) == 1
+    del junk
+
+
+def _replay_inputs(dev, paged):
+    b, kvh, g, d, cap = 8, 4, 8, 64, 1024
+    q = randn(dev, b, kvh * g, d)
+    if not paged:
+        k, v = randn(dev, b, kvh, cap, d, seed=1), randn(dev, b, kvh, cap, d,
+                                                         seed=2)
+        return q, (k, v)
+    ps, w = 16, cap // 16
+    pages = 1 + b * w
+    k = torch.randint(-127, 128, (pages, kvh, ps, d), dtype=torch.int8,
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+    v = torch.randint(-127, 128, (pages, kvh, ps, d), dtype=torch.int8,
+                      generator=torch.Generator().manual_seed(2)).to(dev)
+    ks = randn(dev, pages, kvh, ps, seed=3).abs() / 127
+    vs = randn(dev, pages, kvh, ps, seed=4).abs() / 127
+    table = (torch.randperm(pages - 1, generator=torch.Generator()
+                            .manual_seed(5)) + 1).reshape(b, w)
+    return q, (k, v, ks, vs, table.to(torch.int32).to(dev))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["ring-fp32",
+                                                      "paged-int8"])
+def test_decode_kernel_replays_bit_equal_and_leaves_counters_at_zero(dev,
+                                                                     paged):
+    """B6 / B7 captured once: 20 replays over new valid lengths each equal
+    an eager launch bit for bit, and every workspace's ticket counters
+    are 0 after them (the last CTA resets them; a replay has no memset)."""
+    from repro_torch.core.jit import capture
+    from repro_torch.kernels import decode_attention as da
+    q, cache = _replay_inputs(dev, paged)
+    valid = torch.full((8,), 1024, dtype=torch.int32, device=dev)
+    fn = kops.decode_attention_paged_q8 if paged else kops.decode_attention
+
+    def call():
+        return fn(q, *cache, valid, layout="bksd")
+    first, cap = capture(call, dev)
+    assert torch.equal(first, call())
+    gen = torch.Generator().manual_seed(6)
+    for _ in range(20):
+        valid.copy_(torch.randint(1, 1025, (8,), generator=gen))
+        got = cap.replay().clone()
+        assert torch.equal(got, call())
+    torch.cuda.synchronize()
+    for key, ws in da._WORKSPACES.items():
+        lanes = key[2] * key[3]
+        assert int(ws[:lanes].abs().sum()) == 0, key
+
+
+@pytest.mark.parametrize("opts", [{}, {"kv_layout": "paged", "page_size": 16,
+                                       "kv_dtype": "int8"}],
+                         ids=["ring-fp32", "paged-int8"])
+def test_scheduler_graph_equals_eager(dev, opts):
+    """Reduced TinyLlama through ServingEngine, 5 requests on 4 lanes
+    (mid-flight admission, prefix hits on pages), two lanes at
+    temperature > 0: the step captured once and replayed gives the eager
+    step's tokens from the same seed, decode_steps, host_syncs and
+    launches; 8 replayed ticks run under sync debug mode "error"."""
+    from contextlib import nullcontext
+
+    from repro_torch import models
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core.jit import disable_graphs
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    params = models.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                device=dev)
+
+    def run(eager):
+        reqs = [Request(uid=i, prompt=list(range(3, 3 + n)),
+                        max_new_tokens=12, temperature=t)
+                for i, (n, t) in enumerate(((5, 0.0), (17, 0.8), (1, 0.0),
+                                            (40, 1.3), (9, 0.0)))]
+        eng = ServingEngine(cfg, params, max_batch=4, cache_len=64,
+                            seed=3, device=dev, **opts)
+        with disable_graphs() if eager else nullcontext():
+            kops.reset_launches()
+            sched = eng.scheduler()
+            for r in reqs:
+                sched.submit(r)
+            sched.tick()                       # admits four, captures
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(8):
+                    sched.tick()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            sched.run()
+            launches = {k: v for k, v in kops.launches().items() if v}
+        return ([r.output for r in reqs], sched.decode_steps,
+                sched.host_syncs, launches, sched._graph is not None)
+    graph, eager = run(False), run(True)
+    assert graph[:4] == eager[:4]
+    assert graph[4] and not eager[4]
+    assert graph[3]["flash_attention"] > 0
+
+
+def test_rebuilt_scheduler_captures_its_own_graph(dev):
+    """A request that needs a larger output buffer rebuilds the engine's
+    scheduler (a new cache): the new scheduler captures a graph of its
+    own, and its tokens equal an eager run's."""
+    from repro_torch import models
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core.jit import disable_graphs
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    params = models.init_params(cfg, torch.Generator(dev).manual_seed(1),
+                                device=dev)
+
+    def serve(eng, new):
+        reqs = [Request(uid=i, prompt=list(range(5 + i, 12 + 2 * i)),
+                        max_new_tokens=new) for i in range(3)]
+        eng.generate_batch(reqs)
+        return [r.output for r in reqs]
+    eng = ServingEngine(cfg, params, max_batch=2, cache_len=96, device=dev)
+    small = serve(eng, 8)
+    first = eng.scheduler()._graph
+    large = serve(eng, 40)                      # max_new_cap 16 -> 64
+    second = eng.scheduler()._graph
+    assert first is not None and second is not None and second is not first
+    with disable_graphs():
+        eager = ServingEngine(cfg, params, max_batch=2, cache_len=96,
+                              device=dev)
+        assert serve(eager, 8) == small and serve(eager, 40) == large

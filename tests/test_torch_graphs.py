@@ -1,0 +1,283 @@
+"""The twin of ``jax.jit``: ``Graph.jit_apply`` and the scheduler's
+captured decode step, held against the JAX package on the CPU.
+
+On the CPU both run eagerly (a CPU tensor never takes a CUDA graph), so
+these tests hold what the CPU can show: ``jit_apply`` answers as JAX's
+``jit_apply`` does (rtol 1e-3, atol 1e-4, as test_torch_graph.py), the
+engines agree through one store artifact, the graph key follows the
+weights' addresses, the input shape and the backend, an evicted model's
+graphs are dropped, ``disable_graphs()`` nests, the scheduler's tokens
+and counters equal JAX's inside and outside ``disable_graphs()``, its
+state tensors are never rebound (a captured step reads them by address),
+the step's noise is drawn as it was when ``_sample`` drew it, and only
+the dense family declares itself capturable.  The captures themselves
+are held on the card by the ``cuda`` tests in test_torch_cuda.py and by
+chip_smoke.py's ``graphs`` phase.  Weights come from numpy through
+``params_from_numpy``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.engine import InferenceEngine as JInferenceEngine
+from repro.core.modelstore import ModelStore as JModelStore
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import importer
+from repro_torch.core.engine import InferenceEngine
+from repro_torch.core.graph import JitApply, graph_key
+from repro_torch.core.jit import disable_graphs, graphs_enabled
+from repro_torch.core.modelstore import ModelStore, ResidentCache
+from repro_torch.kernels import _build
+from repro_torch.models import encdec, moe, rglru, rwkv6, transformer
+from repro_torch.runtime import faults as tfaults
+from repro_torch.runtime import scheduler as tsched
+from repro_torch.runtime.scheduler import ContinuousBatchingScheduler as TSched
+from repro_torch.runtime.scheduler import Request as TRequest
+
+from conftest import assert_close
+from test_torch_graph import MODELS, graphs, inputs, numpy_params
+from test_torch_scheduler import (MIX, P0, P1, _requests, _run, assert_same,
+                                  run_both, tiny)  # noqa: F401
+from test_torch_transformer import one_torch_thread  # noqa: F401
+
+
+@pytest.fixture(scope="module", params=MODELS)
+def cnn(request):
+    jg, tg = graphs(request.param)
+    np_params = numpy_params(tg, seed=3)
+    jparams = {l: {k: jnp.asarray(v) for k, v in g.items()}
+               for l, g in np_params.items()}
+    return jg, tg, jparams, params_from_numpy(np_params, "cpu", graph=tg)
+
+
+# ---------------------------------------------------------------------------
+# Graph.jit_apply against JAX's
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_jit_apply_matches_jax_jit_apply(cnn, batch):
+    jg, tg, jparams, tparams = cnn
+    x = inputs(tg, batch, seed=batch)
+    want = np.asarray(jg.jit_apply(backend="ref")(jparams, jnp.asarray(x)))
+    for backend in ("ref", "cuda"):              # cuda: the plain versions
+        fn = tg.jit_apply(backend=backend)
+        assert isinstance(fn, JitApply)
+        got = fn(tparams, torch.from_numpy(x))
+        assert got.is_inference() and tuple(got.shape) == (batch, 10)
+        assert_close(got, want, rtol=1e-3, atol=1e-4)
+        assert fn._graphs == {}                  # a CPU tensor runs eagerly
+
+
+def _publish_nin(root, int8):
+    jg, tg = graphs("nin-cifar10")
+    tparams = params_from_numpy(numpy_params(tg, seed=5), "cpu", graph=tg)
+    doc, _ = importer.to_caffe_json(tg, tparams)
+    ModelStore(root).publish("nin", doc, tparams, int8=int8)
+    return tg
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_engines_agree_through_one_artifact(tmp_path, int8):
+    """One artifact, both engines' pipelines (JAX's jit_apply, the port's)."""
+    tg = _publish_nin(tmp_path, int8)
+    x = inputs(tg, 2, seed=9)
+    want = JInferenceEngine(JModelStore(tmp_path)).predict("nin", x)
+    eng = InferenceEngine(ModelStore(tmp_path), device="cpu")
+    got = eng.predict("nin", x)
+    assert_close(got, want, rtol=1e-3, atol=1e-4)
+    _, _, _, fn = eng.load("nin")
+    assert isinstance(fn, JitApply) and fn.kw == {"backend": "ref"}
+    assert torch.equal(eng.predict("nin", x), got)
+
+
+# ---------------------------------------------------------------------------
+# The graph key, eviction and disable_graphs()
+# ---------------------------------------------------------------------------
+
+
+def test_graph_key_follows_weights_shape_and_backend(tmp_path):
+    tg = _publish_nin(tmp_path, False)
+    eng = InferenceEngine(ModelStore(tmp_path), device="cpu")
+    _, _, params, fn = eng.load("nin")
+    x1, x2 = (torch.from_numpy(inputs(tg, b)) for b in (1, 2))
+    key = graph_key(params, x1, fn.kw)
+    same = eng.load("nin")[2]                        # the same weights
+    assert graph_key(same, x1.clone(), fn.kw) == key
+    assert graph_key(params, x2, fn.kw) != key       # a new batch shape
+    assert key[0] == (1, 3, 32, 32) and key[1] == torch.float32
+    ptrs = [params[l][k].data_ptr() for l in sorted(params)
+            for k in sorted(params[l])]
+    assert list(key[-1]) == ptrs and len(ptrs) == 18
+    assert graph_key(params, x1, {"backend": "cuda"}) != key
+    nested = {"backend": {"default": "cuda", "conv": "ref"}}
+    assert graph_key(params, x1, nested) == graph_key(
+        params, x1, {"backend": {"conv": "ref", "default": "cuda"}})
+
+
+def test_evict_and_reload_gives_new_key_and_drops_graphs(tmp_path):
+    """The resident cache evicts the model's weights: the runtime clears
+    its pipeline's graphs, and the reloaded weights (new tensors) key a
+    new graph."""
+    tg = _publish_nin(tmp_path, False)
+    store = ModelStore(tmp_path)
+    doc = store.get("nin").load_spec()
+    store.publish("other", doc, store.get("nin").load_params())
+    eng = InferenceEngine(store, device="cpu", max_resident=1)
+    x = torch.from_numpy(inputs(tg, 1))
+    _, _, old, fn = eng.load("nin")
+    key = graph_key(old, x, fn.kw)
+    fn._graphs[key] = "a graph captured on the old weights"
+    eng.predict("other", x)                          # evicts nin
+    assert eng.cache.resident == [("other", "v1")]
+    assert fn._graphs == {}
+    _, _, new, fn2 = eng.load("nin")                 # reloaded
+    assert fn2 is fn                                 # the same pipeline
+    assert graph_key(new, x, fn.kw) != key           # `old` is still alive
+    assert_close(eng.predict("nin", x), tg.apply(old, x), rtol=0, atol=0)
+
+
+def test_resident_cache_reports_evictions(tmp_path):
+    _publish_nin(tmp_path, False)
+    store = ModelStore(tmp_path)
+    store.publish("b", store.get("nin").load_spec(),
+                  store.get("nin").load_params())
+    gone = []
+    cache = ResidentCache(store, capacity=1, on_evict=gone.append)
+    cache.get("nin")
+    cache.get("nin")
+    assert gone == []
+    cache.get("b")
+    assert gone == [("nin", "v1")]
+
+
+def test_disable_graphs_nests_and_restores():
+    assert graphs_enabled()
+    with disable_graphs():
+        assert not graphs_enabled()
+        with disable_graphs():
+            assert not graphs_enabled()
+        assert not graphs_enabled()
+    assert graphs_enabled()
+    with pytest.raises(KeyError):
+        with disable_graphs():
+            raise KeyError("inside")
+    assert graphs_enabled()
+
+
+def test_recorded_launches_leave_the_counts_until_replayed():
+    """A capture's launches run nothing: they leave the counts, and each
+    replay adds them back."""
+    k1, k2 = _build._KERNELS[0], _build._KERNELS[1]
+    n1, n2 = k1.launches, k2.launches
+    try:
+        with _build.recorded_launches() as held:
+            k1.launches += 3                         # what a capture records
+            k2.launches += 1
+        assert (k1.launches, k2.launches) == (n1, n2)
+        assert held == [(k1, 3), (k2, 1)]
+        _build.add_launches(held)
+        _build.add_launches(held)
+        assert (k1.launches, k2.launches) == (n1 + 6, n2 + 2)
+    finally:
+        k1.launches, k2.launches = n1, n2
+
+
+# ---------------------------------------------------------------------------
+# The scheduler's step
+# ---------------------------------------------------------------------------
+
+
+def test_only_the_dense_family_is_capturable(tiny):
+    assert transformer.CUDA_GRAPH_SAFE is True
+    for mod in (rwkv6, moe, rglru, encdec):
+        assert not getattr(mod, "CUDA_GRAPH_SAFE", False), mod.__name__
+    _, cfg, _, tp = tiny
+    sched = TSched(cfg, tp, max_slots=2, cache_len=32, max_new_cap=8)
+    assert sched._graphable is False                 # a CPU scheduler
+
+
+@pytest.mark.parametrize("form", [
+    dict(),
+    dict(kv_layout="paged", kv_dtype="int8", page_size=4)],
+    ids=["ring-fp32", "paged-int8"])
+def test_scheduler_inside_and_outside_disable_graphs_matches_jax(tiny, form):
+    base = [7, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11]
+    mix = MIX[:3] + [dict(prompt=base + [20], max_new_tokens=6),
+                     dict(prompt=base + [30, 31], max_new_tokens=5)]
+    jreqs, treqs, js, ts = run_both(tiny, mix, **form)
+    assert_same(jreqs, treqs, js, ts)
+    _, cfg, _, tp = tiny
+    with disable_graphs():
+        inner = _requests(TRequest, mix)
+        ti = _run(TSched(cfg, tp, max_slots=2, cache_len=64, max_new_cap=16,
+                         **form), inner)
+    assert_same(jreqs, inner, js, ti)
+    assert ti.decode_steps == ts.decode_steps > 0
+    if form:
+        assert ts.prefix_hits >= 1
+
+
+def test_scheduler_state_is_written_in_place(tiny):
+    """A captured step reads the state by address: admission, prefix hits,
+    copy-on-write, preemption and retirement write every state tensor in
+    place and rebind none."""
+    _, cfg, _, tp = tiny
+    base = [7, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11]
+    mix = [dict(prompt=P0, max_new_tokens=8), dict(prompt=P1,
+                                                   max_new_tokens=8),
+           dict(prompt=base + [20, 21], max_new_tokens=6),
+           dict(prompt=base + [30], max_new_tokens=6),
+           dict(prompt=base + [40, 41, 42], max_new_tokens=6)]
+    inj = tfaults.ScriptedFaults(alloc=[tfaults.AllocFault(
+        site="first_touch", after_tick=2)])
+    sched = TSched(cfg, tp, max_slots=2, cache_len=64, max_new_cap=16,
+                   kv_layout="paged", kv_dtype="int8", page_size=4,
+                   faults=inj)
+
+    def addresses():
+        flat = {k: v for k, v in sched.state.items() if k != "cache"}
+        flat.update({"cache/" + k: v for k, v in
+                     sched.state["cache"].items()})
+        return {k: (v.data_ptr(), tuple(v.shape)) for k, v in flat.items()}
+    before = addresses()
+    noise = sched._noise.data_ptr()
+    _run(sched, _requests(TRequest, mix))
+    assert sched.preemptions >= 1 and sched.prefix_hits >= 1
+    assert sched.cow_copies >= 1
+    assert addresses() == before and sched._noise.data_ptr() == noise
+
+
+def test_step_noise_is_drawn_as_sample_drew_it(tiny):
+    """The step draws its Gumbel noise before the step into one buffer,
+    outside any graph; the tokens at temperature > 0 are those of the
+    step that drew it inside ``_sample`` after the decode."""
+    _, cfg, _, tp = tiny
+
+    def old_step(self):
+        st = self.state
+        self.decode_steps += 1
+        last = self._decode_lanes(st["tokens"], st["pos"])
+        nxt = tsched._sample(self._generator, last, st["temp"])
+        write = st["active"] & (st["out_len"] < st["budget"])
+        cols = st["out_len"].clamp(0, self.max_new_cap - 1).long()
+        cur = st["out_buf"][self._rows, cols]
+        st["out_buf"][self._rows, cols] = torch.where(write, nxt, cur)
+        stop_hit = write & (nxt[:, None] == st["stop"]).any(dim=-1)
+        st["tokens"].copy_(torch.where(write[:, None], nxt[:, None],
+                                       st["tokens"]))
+        st["pos"].add_(write.to(torch.int32))
+        st["active"].copy_(write & ~stop_hit)
+        st["out_len"].add_(write.to(torch.int32))
+
+    def outs(step=None):
+        reqs = [TRequest(uid=i, prompt=[3, 1, 4, i], max_new_tokens=8,
+                         temperature=t) for i, t in enumerate((1.5, 0.0, 0.7))]
+        sched = TSched(cfg, tp, max_slots=2, cache_len=64, max_new_cap=16,
+                       seed=11)
+        if step is not None:
+            sched._step = step.__get__(sched)
+        _run(sched, reqs)
+        return [r.output for r in reqs], sched.decode_steps
+    assert outs() == outs(old_step)
