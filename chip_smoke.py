@@ -132,14 +132,21 @@ its seconds:
                   paged and int8 asked for (ring kept, state unchanged),
                   each layer's prefill output and state within 1e-4 on
                   the same input (end to end reported beside the model's
-                  sensitivity to a 1e-7 input change); decode tokens/s,
-                  TTFT, a decode step's device time by part, and one
-                  300-token prefill's device ms with B10's part
+                  sensitivity to a 1e-7 input change); the captured
+                  decode step against the same requests under
+                  disable_graphs() (captured and not, tokens, decode_steps,
+                  host_syncs and launches equal; sampled tokens equal);
+                  decode tokens/s, TTFT, a replayed step (device ms, idle
+                  share, host launch calls <= 3), an eager step's device
+                  time by part, and one 300-token prefill's device ms with
+                  B10's part
   selector        TinyLlama-1.1B, Qwen3-0.6B and RWKV-6 3B (int8 artifact),
                   full width, cut to 8 layers, behind
                   MultiModelServer(max_resident=3) and the
                   meta-selector fitted on the card: 6 rounds, every pick
-                  its label, B10 in the RWKV rounds; switch_s per round
+                  its label, B10 in the RWKV rounds; switch_s per round;
+                  every model's step captured, the rounds again under
+                  disable_graphs() with the same picks and tokens
   slice 5, Granite-MoE serving and B11:
   serve_moe       Granite-MoE 3B-A800M at full width, depth cut to 16 of
                   its 32 layers (d 1536, 24/8 heads of 64, 40 experts
@@ -175,10 +182,13 @@ its seconds:
                   three prompts layer by layer on the same input (local
                   attention cuda vs ref, recurrent blocks vs fp64, the
                   rolled K/V window) within 1e-4; the doubling scan at T
-                  2100 x 4096 against an fp64 recurrence; decode
-                  tokens/s, TTFT, a decode step by part per cache form,
-                  B6/B7 at the live lanes and B8 at 1 x 300 and 1 x
-                  2100, beside SDPA
+                  2100 x 4096 against an fp64 recurrence; the captured
+                  decode step against the same requests under
+                  disable_graphs() per cache form (as serve_rwkv6), the
+                  wide route's workspaces at 0 after the replays; decode
+                  tokens/s, TTFT, per cache form a replayed step and an
+                  eager step by part, B6/B7 at the live lanes and B8 at
+                  1 x 300 and 1 x 2100, beside SDPA; peak device memory
   slice 13, Whisper-medium serving:
   serve_audio     Whisper-medium at full width and depth (24 encoder + 24
                   decoder layers, d 1024, 16/16 heads of 64, 1500 frames;
@@ -191,10 +201,14 @@ its seconds:
                   sync debug mode "error"; a 300-token prompt with random
                   frames layer by layer (every encoder layer, each decoder
                   layer's self- and cross-attention and the whole layer)
-                  within 1e-4 of ``ref``; decode tokens/s, TTFT, a decode
-                  step by part per cache form, B6/B7 at the live lanes,
-                  B6 at 8 x 1500 'bskd' (cross), B8 at 1 x 1500 (encoder),
-                  1 x 300 x 1500 (cross) and 1 x 300, beside SDPA
+                  within 1e-4 of ``ref``; the captured decode step
+                  against the same requests under disable_graphs() per
+                  cache form (as serve_rwkv6), B6/B7's ticket counters 0
+                  after the replays; decode tokens/s, TTFT, per cache
+                  form a replayed step and an eager step by part, B6/B7
+                  at the live lanes, B6 at 8 x 1500 'bskd' (cross), B8 at
+                  1 x 1500 (encoder), 1 x 300 x 1500 (cross) and 1 x 300,
+                  beside SDPA
   slice 14, the launch tooling on a one-rank NCCL mesh:
   mesh            TinyLlama-1.1B at full width cut to 2 layers, batch 4 x
                   2048: one step of ``launch.dryrun.build_step`` on
@@ -2005,7 +2019,8 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
 
 def _profile_ticks(torch, sched, ticks):
     """Device time by part, launches and idle share over ``ticks`` decode
-    ticks with every lane live (torch.profiler)."""
+    ticks with every lane live (torch.profiler), and the host's launch
+    calls a step with the host µs they took."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2015,10 +2030,11 @@ def _profile_ticks(torch, sched, ticks):
             sched.tick()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    parts, kernels, calls = {}, 0, {}
+    parts, kernels, calls, call_us = {}, 0, {}, 0.0
     for e in prof.events():
         if e.name in HOST_LAUNCH_CALLS:
             calls[e.name] = calls.get(e.name, 0) + 1
+            call_us += e.time_range.elapsed_us()
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
             continue
         kernels += 1
@@ -2033,6 +2049,7 @@ def _profile_ticks(torch, sched, ticks):
             "device_kernels_per_step": kernels / ticks,
             "host_launch_calls_per_step": {k: v / ticks
                                            for k, v in calls.items()},
+            "host_launch_us_per_step": call_us / ticks,
             "device_ms_by_part": {k: v / 1e3 for k, v in parts.items()}}
 
 
@@ -2402,7 +2419,6 @@ def phase_graphs(run, torch, np, cfg, params, serve_tokens, graphs, card):
     serve's ``ref`` run's, decode_steps, host_syncs and every kernel's
     launches equal the eager run's, sampled tokens equal; B6/B7's ticket
     counters at 0 after the replays."""
-    from repro_torch.kernels import decode_attention as da
     emit({"phase": "graphs", "torch": torch.__version__,
           "register_generator_state": hasattr(torch.cuda.CUDAGraph,
                                               "register_generator_state")})
@@ -2427,11 +2443,97 @@ def phase_graphs(run, torch, np, cfg, params, serve_tokens, graphs, card):
         run.check("graphs", f"{form}: sampled tokens (temperature "
                   f"{GRAPH_TEMP}) graph == eager", g_smp == e_smp,
                   equal=sum(a == b for a, b in zip(g_smp, e_smp)))
-    torch.cuda.synchronize()
-    counters = {str(k[2:]): int(ws[:k[2] * k[3]].abs().sum())
-                for k, ws in da._WORKSPACES.items()}
+    counters = ticket_counters(torch)
     run.check("graphs", "B6/B7 ticket counters at 0 after the replays",
-              not any(counters.values()), counters=counters)
+              not any(counters.values()),
+              counters={str(k): v for k, v in counters.items()})
+
+
+def ticket_counters(torch):
+    """Every B6/B7 workspace's ticket counters, summed per (B, KV,
+    splits, G, D), after a synchronise: the last CTA of a lane leaves them
+    at 0 and the wide route (G 16) takes none, so a replay needs no
+    memset."""
+    from repro_torch.kernels import decode_attention as da
+    torch.cuda.synchronize()
+    out = {}
+    for k, ws in da._WORKSPACES.items():
+        out[k[2:]] = out.get(k[2:], 0) + int(ws[:k[2] * k[3]].abs().sum())
+    return out
+
+
+def graph_against_eager(run, torch, np, kops, phase, cfg, graph_runs,
+                        make_engine, make_requests):
+    """Each cache form's graph run (``graph_runs``: form -> (its record,
+    its tokens)) against the same requests on a fresh engine under
+    ``disable_graphs()``, built once the graph engines are freed and freed
+    before the next: captured once and not, greedy tokens exactly equal,
+    decode_steps, host_syncs and every kernel's launches equal.  Then 8
+    requests of 24 new tokens, every other one at GRAPH_TEMP, on a fresh
+    ring fp32 engine seeded SEED + 7, graph and eager: the same tokens.
+    ``make_engine(form, seed)`` builds an engine; returns the eager
+    records by form."""
+    from repro_torch.core.jit import disable_graphs
+    eager = {}
+    for form, (graph, g_tok) in graph_runs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        with disable_graphs():
+            eng = make_engine(form, 0)
+            reqs = make_requests()
+            before = kops.launches()
+            t1 = time.perf_counter()
+            stats = eng.generate_batch(reqs)
+            torch.cuda.synchronize()
+            sched = eng.scheduler()
+            rec = eager[form] = {
+                "mode": "eager", "wall_s": time.perf_counter() - t1,
+                "graph_captured": sched._graph is not None,
+                "decode_steps": sched.decode_steps,
+                "host_syncs": sched.host_syncs,
+                "launches": _launch_delta(kops, before),
+                "tokens": stats.tokens_out, "prefill_s": stats.prefill_s,
+                "decode_s": stats.decode_s,
+                "decode_tokens_per_s": stats.tok_per_s}
+            e_tok = [r.output for r in reqs]
+        del eng, sched
+        emit({"phase": phase, "config": f"{form}/cuda", **rec})
+        run.check(phase, f"{form}: the step was captured (graph run) and "
+                  "not (eager run)", graph["graph_captured"]
+                  and not rec["graph_captured"])
+        run.check(phase, f"{form}: greedy tokens graph == eager",
+                  g_tok == e_tok,
+                  equal=sum(a == b for a, b in zip(g_tok, e_tok)))
+        for key in ("decode_steps", "host_syncs", "launches"):
+            run.check(phase, f"{form}: {key} equal eager's", graph[key] ==
+                      rec[key], graph=graph[key], eager=rec[key])
+    gc.collect()
+    torch.cuda.empty_cache()
+    outs = {}
+    for mode in ("graph", "eager"):
+        reqs = serve_requests(np, cfg, SEED + 53, n=8, max_new=24)
+        for i, r in enumerate(reqs):
+            r.temperature = GRAPH_TEMP if i % 2 else 0.0
+        with disable_graphs() if mode == "eager" else nullcontext():
+            make_engine("ring-fp32", SEED + 7).generate_batch(reqs)
+        outs[mode] = [r.output for r in reqs]
+    run.check(phase, f"ring-fp32: sampled tokens (every other request at "
+              f"temperature {GRAPH_TEMP}) graph == eager",
+              outs["graph"] == outs["eager"], equal=sum(
+                  a == b for a, b in zip(outs["graph"], outs["eager"])))
+    return eager
+
+
+def graph_step_record(run, torch, phase, form, sched, ticks=8):
+    """A replayed decode step with every lane live (_profile_ticks over
+    ``ticks`` ticks, one warm replay first): device ms a step, idle share
+    and the host's launch calls a step, which must be at most 3."""
+    sched.tick()
+    rec = {"mode": "graph", **_profile_ticks(torch, sched, ticks)}
+    calls = sum(rec["host_launch_calls_per_step"].values())
+    run.check(phase, f"{form}: at most 3 host launch calls a replayed step",
+              sched._graph is not None and calls <= 3, calls=calls)
+    return rec
 
 
 def phase_b2_times(run, torch, graph, card):
@@ -3720,7 +3822,10 @@ def _kernel_time_by_part(prof, ticks, wall_us):
     events = prof.events()
     total_us = gemm_us = 0.0
     kernels = 0
+    calls = {}
     for e in events:
+        if e.name in HOST_LAUNCH_CALLS:
+            calls[e.name] = calls.get(e.name, 0) + 1
         if not str(getattr(e, "device_type", "")).endswith("CUDA") \
                 or e.name == "wkv_step":
             continue
@@ -3748,6 +3853,8 @@ def _kernel_time_by_part(prof, ticks, wall_us):
             "device_ms_per_step": total_us / ticks / 1e3,
             "device_idle_share": 1 - total_us / wall_us,
             "device_kernels_per_step": kernels / ticks,
+            "host_launch_calls_per_step": {k: v / ticks
+                                           for k, v in calls.items()},
             "wkv_step_attributed": bool(wkv),
             "device_ms_by_part": {k: v / 1e3 for k, v in parts.items()}}
 
@@ -3850,15 +3957,21 @@ def phase_serve_rwkv6(run, torch, np, card):
     backends from the same input within 1e-4, and the end-to-end logits
     and state reported beside the model's own sensitivity (at full
     depth, a relative 1e-7 change of the embeddings moves the logits by
-    1e-3 to 1e-1, so no fp32 evaluation holds an end-to-end 1e-4).  Then
-    a warm run's decode tokens/s, TTFT and prefill seconds, and a decode
-    step's device time by part."""
+    1e-3 to 1e-1, so no fp32 evaluation holds an end-to-end 1e-4).  Both
+    runs replay the captured decode step; the kernels' run is held to the
+    same requests on the kernels under ``disable_graphs()``
+    (graph_against_eager), and so are 8 requests sampled at GRAPH_TEMP.
+    Then a warm run's decode tokens/s, TTFT and prefill
+    seconds, a replayed decode step (device ms, idle share, host launch
+    calls) and, eagerly, a decode step's device time by part."""
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_numpy
+    from repro_torch.core.jit import disable_graphs
     from repro_torch.kernels import ops as kops
     from repro_torch.models import rwkv6 as rw6
     from repro_torch.serving.engine import ServingEngine
     set_fp32_exact(torch)
+    torch.cuda.reset_peak_memory_stats()
     cfg = get_config(RWKV_ARCH)
     t0 = time.perf_counter()
     np_params = numpy_weights(np, cfg, SEED + 3)
@@ -3897,13 +4010,17 @@ def phase_serve_rwkv6(run, torch, np, card):
                   launches=launched)
         run.check("serve_rwkv6", f"{tag}: host_syncs == retired requests",
                   sched.host_syncs == len(reqs), host_syncs=sched.host_syncs)
+        run.check("serve_rwkv6", f"{tag}: the decode step was captured",
+                  sched._graph is not None)
         run.check("serve_rwkv6", f"{tag}: every request generated "
                   f"{SERVE_MAX_NEW} tokens", all(
                       len(r.output) == SERVE_MAX_NEW and r.done
                       and all(0 <= x < cfg.vocab_size for x in r.output)
                       for r in reqs))
-        rec = {"phase": "serve_rwkv6", "config": tag, "wall_s": wall,
+        rec = {"phase": "serve_rwkv6", "config": tag, "mode": "graph",
+               "wall_s": wall, "graph_captured": sched._graph is not None,
                "launches": launched, "decode_steps": sched.decode_steps,
+               "host_syncs": sched.host_syncs,
                "tokens": stats.tokens_out, "prefill_s": stats.prefill_s,
                "decode_s": stats.decode_s,
                "decode_tokens_per_s": stats.tok_per_s}
@@ -3920,6 +4037,13 @@ def phase_serve_rwkv6(run, torch, np, card):
     match = sum(a == b for a, b in zip(outs["cuda"], outs["ref"]))
     run.check("serve_rwkv6", "greedy tokens on cuda equal ref",
               outs["cuda"] == outs["ref"], requests_equal=match)
+    eager = graph_against_eager(
+        run, torch, np, kops, "serve_rwkv6", cfg,
+        {"ring-fp32": (recs["cuda"], outs["cuda"])},
+        lambda form, seed: ServingEngine(
+            cfg, params, max_batch=8, cache_len=SERVE_CACHE_LEN,
+            device=DEVICE, seed=seed, **MOE_CONFIGS[form]),
+        lambda: serve_requests(np, cfg, SEED + 90))["ring-fp32"]
     # a paged layout is asked for and the ring is kept; int8 leaves the
     # fp32 state as it is: the same tokens and the same final state
     for name, opts in (("paged", {"kv_layout": "paged", "page_size": 16}),
@@ -3969,7 +4093,11 @@ def phase_serve_rwkv6(run, torch, np, card):
     for r in serve_requests(np, cfg, SEED + 93, n=8):
         sched.submit(r)
     sched.tick()                                     # admits all 8
-    profile = _profile_rwkv_ticks(torch, sched, 3)
+    graph_profile = graph_step_record(run, torch, "serve_rwkv6", "ring-fp32",
+                                      sched)
+    with disable_graphs():               # the ranges run only eagerly
+        sched.tick()
+        profile = {"mode": "eager", **_profile_rwkv_ticks(torch, sched, 3)}
     sched.run()
     prompt = torch.from_numpy(np.random.default_rng(SEED + 95).integers(
         1, cfg.vocab_size, (1, PREFILL_SEQ))).to(DEVICE)
@@ -3979,7 +4107,11 @@ def phase_serve_rwkv6(run, torch, np, card):
           "decode_tokens_per_s": stats.tok_per_s, "decode_s": stats.decode_s,
           "prefill_s": stats.prefill_s, "ref_prefill_s": recs["ref"]["prefill_s"],
           "cuda_prefill_s": recs["cuda"]["prefill_s"], "ttft_s": ttft,
-          "step_profile": profile, "prefill_profile": prefill})
+          "eager_decode_tokens_per_s": eager["decode_tokens_per_s"],
+          "graph_decode_tokens_per_s": recs["cuda"]["decode_tokens_per_s"],
+          "step_profile": profile, "graph_step_profile": graph_profile,
+          "prefill_profile": prefill,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
     return params, {"rwkv6_chunked": counts["rwkv6_chunked"]}
 
 
@@ -3990,9 +4122,12 @@ def phase_selector(run, torch, np, tiny_np, rwkv_params, store_root):
     (location i prefers model i); MultiModelServer(max_resident=3,
     selector=...) serves 6 rounds of 3 requests, each context picking its
     model; every pick is its label, and the RWKV rounds launch B10
-    (layers x 3 prefills)."""
+    (layers x 3 prefills).  Every model's decode step replays a graph;
+    the 6 rounds once more under ``disable_graphs()`` give the same picks
+    and tokens."""
     from repro_torch.checkpoint.ckpt import publish_checkpoint
     from repro_torch.configs import get_config
+    from repro_torch.core.jit import disable_graphs
     from repro_torch.core.modelstore import ModelStore
     from repro_torch.core.selector import ContextSpec, MetaSelector, featurize
     from repro_torch.kernels import ops as kops
@@ -4028,13 +4163,14 @@ def phase_selector(run, torch, np, tiny_np, rwkv_params, store_root):
     server = MultiModelServer(store, max_resident=3, selector=sel,
                               max_batch=4, cache_len=96, device=DEVICE)
     rng = np.random.default_rng(SEED + 95)
-    rounds = []
+    rounds, served = [], []
     for i in range(6):
         loc = i % 3
         ctx = featurize(spec, hour=9 + i, weekday=2, location=loc,
                         history=np.eye(4)[0])
         reqs = [Request(uid=3 * i + j, prompt=rng.integers(1, 250, 12)
                         .tolist(), max_new_tokens=8) for j in range(3)]
+        served.append((ctx, reqs))
         kops.reset_launches()
         t1 = time.perf_counter()
         stats = server.serve(reqs, context_feats=ctx)
@@ -4069,6 +4205,22 @@ def phase_selector(run, torch, np, tiny_np, rwkv_params, store_root):
           "misses": server.cache.misses})
     run.check("selector", "resident cache: 3 misses, then 3 hits",
               (server.cache.hits, server.cache.misses) == (3, 3))
+    captured = {name: eng.scheduler()._graph is not None
+                for (name, _), eng in server._engines.items()}
+    run.check("selector", "every model's decode step was captured",
+              len(captured) == 3 and all(captured.values()),
+              captured=captured)
+    same = []
+    with disable_graphs():
+        for i, (ctx, reqs) in enumerate(served):
+            again = [Request(uid=r.uid, prompt=r.prompt, max_new_tokens=8)
+                     for r in reqs]
+            server.serve(again, context_feats=ctx)
+            same.append(server.switch_log[-1][0] == rounds[i]["model"]
+                        and [r.output for r in again]
+                        == [r.output for r in reqs])
+    run.check("selector", "the 6 rounds under disable_graphs(): the same "
+              "picks and tokens", all(same), rounds_equal=same)
 
 
 # ---------------------------------------------------------------------------
@@ -4156,7 +4308,10 @@ def _profile_ranged_ticks(torch, sched, ticks, module, ranges):
         if i >= 0 and e.time_range.start <= rows[i][1]:
             in_range[e.id] = rows[i][2]
     parts, total, kernels = {}, 0.0, 0
+    calls = {}
     for e in events:
+        if e.name in HOST_LAUNCH_CALLS:
+            calls[e.name] = calls.get(e.name, 0) + 1
         if not _is_device(e) or e.name in part_of:
             continue
         kernels += 1
@@ -4170,6 +4325,8 @@ def _profile_ranged_ticks(torch, sched, ticks, module, ranges):
             "device_ms_per_step": total / ticks / 1e3,
             "device_idle_share": 1 - total / wall_us,
             "device_kernels_per_step": kernels / ticks,
+            "host_launch_calls_per_step": {k: v / ticks
+                                           for k, v in calls.items()},
             "device_ms_by_part": {k: v / ticks / 1e3
                                   for k, v in parts.items()}}
 
@@ -4947,11 +5104,13 @@ def hybrid_prefill_profile(torch, cfg, params, toks):
             "other_ms": (parts[""] - parts["flash_fwd"] - mm) / 1e3}
 
 
-def _hybrid_steady(torch, np, cfg, params, name):
+def _hybrid_steady(run, torch, np, cfg, params, name):
     """One cache form with 8 live lanes, the long request among them (its
-    ring wrapped): a decode step's device time by part and the idle share
-    over 4 ticks, and B6 or B7 per launch at the live lanes against the
-    bound, the plain version and SDPA (_time_decode_kernel)."""
+    ring wrapped): a replayed decode step (graph_step_record), then
+    eagerly a decode step's device time by part and the idle share over 4
+    ticks, and B6 or B7 per launch at the live lanes against the bound,
+    the plain version and SDPA (_time_decode_kernel)."""
+    from repro_torch.core.jit import disable_graphs
     from repro_torch.models import rglru as rg
     from repro_torch.serving.engine import ServingEngine
     eng = ServingEngine(cfg, params, max_batch=8, cache_len=HYBRID_CACHE_LEN,
@@ -4962,13 +5121,17 @@ def _hybrid_steady(torch, np, cfg, params, name):
     sched.tick()                                     # admits all 8
     for _ in range(4):
         sched.tick()
-    profile = _profile_ranged_ticks(
-        torch, sched, 4, rg, {"rec_block_step": ("rec_block",
-                                                 HYBRID_REC_PART)})
+    graph = graph_step_record(run, torch, "serve_hybrid", name, sched)
+    with disable_graphs():               # the ranges run only eagerly
+        sched.tick()
+        profile = _profile_ranged_ticks(
+            torch, sched, 4, rg, {"rec_block_step": ("rec_block",
+                                                     HYBRID_REC_PART)})
     kernel = _time_decode_kernel(torch, cfg, sched, "int8" in name,
                                  "paged" in name, long=False)
     sched.run()
-    return {"config": name, "step_profile": profile, "kernel": kernel}
+    return {"config": name, "step_profile": {"mode": "eager", **profile},
+            "graph_step_profile": graph, "kernel": kernel}
 
 
 def phase_serve_hybrid(run, torch, np, card):
@@ -4990,13 +5153,21 @@ def phase_serve_hybrid(run, torch, np, card):
     TTFT; per cache form a decode step by part and B6/B7 at the live
     lanes; B6 at 8 lanes of 32, 512 and 2048 valid slots; B8 at the 1 x
     300 and 1 x 2100 prefills beside SDPA; the device ms of a 300- and a
-    2100-token prefill by part."""
+    2100-token prefill by part.  Every run replays the captured decode
+    step; each form's kernels run is held to the same requests under
+    ``disable_graphs()`` (graph_against_eager), ring fp32's to 8
+    requests sampled at GRAPH_TEMP, a replayed step is profiled per form,
+    and after the replays every B6/B7 workspace's counters read 0, the
+    wide route's (G 16) among them: its replays needed no reset.  The
+    graph engine is freed before each eager one; the phase's peak device
+    memory is reported."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as dattn
     from repro_torch.kernels import ops as kops
     from repro_torch.models import rglru as rg
     from repro_torch.serving.engine import ServingEngine
     set_fp32_exact(torch)
+    torch.cuda.reset_peak_memory_stats()
     cfg = get_config(HYBRID_ARCH)
     n_attn = kernel_layers(cfg)
     before = torch.cuda.memory_allocated()
@@ -5008,6 +5179,7 @@ def phase_serve_hybrid(run, torch, np, card):
           "weights_s": time.perf_counter() - t0,
           "device_memory_allocated_before": before,
           "device_memory_allocated": torch.cuda.memory_allocated()})
+    graph_runs = {}
     kops.reset_launches()                            # the main path starts
     for name, opts in MOE_CONFIGS.items():
         outs = {}
@@ -5044,13 +5216,17 @@ def phase_serve_hybrid(run, torch, np, card):
             run.check("serve_hybrid", f"{tag}: host_syncs == retired "
                       "requests", sched.host_syncs == len(reqs),
                       host_syncs=sched.host_syncs)
+            run.check("serve_hybrid", f"{tag}: the decode step was "
+                      "captured", sched._graph is not None)
             run.check("serve_hybrid", f"{tag}: every request generated "
                       f"{SERVE_MAX_NEW} tokens", all(
                           len(r.output) == SERVE_MAX_NEW and r.done
                           and all(0 <= x < cfg.vocab_size for x in r.output)
                           for r in reqs))
-            rec = {"phase": "serve_hybrid", "config": tag, "wall_s": wall,
+            rec = {"phase": "serve_hybrid", "config": tag, "mode": "graph",
+                   "wall_s": wall, "graph_captured": sched._graph is not None,
                    "launches": launched, "decode_steps": sched.decode_steps,
+                   "host_syncs": sched.host_syncs,
                    "full_prefills": prefills, "tokens": stats.tokens_out,
                    "prefill_s": stats.prefill_s, "decode_s": stats.decode_s,
                    "decode_tokens_per_s": stats.tok_per_s}
@@ -5068,6 +5244,8 @@ def phase_serve_hybrid(run, torch, np, card):
                 sched.audit_pages()
             emit(rec)
             outs[backend or "cuda"] = [r.output for r in reqs]
+            if backend is None:
+                graph_runs[name] = (rec, outs["cuda"])
             del eng, sched
         ok, equal, gaps = _tokens_or_near_ties(torch, cfg, params, reqs,
                                                outs["cuda"], outs["ref"])
@@ -5085,6 +5263,13 @@ def phase_serve_hybrid(run, torch, np, card):
             "decode_attention": counts["decode_attention"],
             "decode_attention_paged": counts["decode_attention_paged_q8"]}
     emit({"phase": "serve_hybrid", "main_path_launches": path})
+    eager = graph_against_eager(
+        run, torch, np, kops, "serve_hybrid", cfg, graph_runs,
+        lambda form, seed: ServingEngine(
+            cfg, params, max_batch=8, cache_len=HYBRID_CACHE_LEN,
+            device=DEVICE, seed=seed, **MOE_CONFIGS[form]),
+        lambda: hybrid_requests(np, cfg, SEED + 110))
+    serving_peak = torch.cuda.max_memory_allocated()
     # three prompts layer by layer on the same input, the long one first
     reqs = hybrid_requests(np, cfg, SEED + 110)
     layerwise = []
@@ -5115,8 +5300,15 @@ def phase_serve_hybrid(run, torch, np, card):
     stats = eng.generate_batch(hybrid_requests(np, cfg, SEED + 112))
     ttft = sched.metrics.histogram("req.ttft_s").snapshot()
     del eng, sched
-    steady = {name: _hybrid_steady(torch, np, cfg, params, name)
+    steady = {name: _hybrid_steady(run, torch, np, cfg, params, name)
               for name in MOE_CONFIGS}
+    counters = ticket_counters(torch)
+    wide = {k: v for k, v in counters.items() if k[3] == 16}
+    run.check("serve_hybrid", "after the replays every B6/B7 workspace's "
+              "counters read 0, the wide route's (G 16) among them: its "
+              "replays needed no reset", bool(wide)
+              and not any(counters.values()),
+              counters={str(k): v for k, v in counters.items()})
     prefill = [hybrid_prefill_profile(torch, cfg, params, torch.tensor(
         [r.prompt[:n]], device=DEVICE)) for r, n in
         ((reqs[2], PREFILL_SEQ), (reqs[2], HYBRID_LONG))]
@@ -5157,8 +5349,14 @@ def phase_serve_hybrid(run, torch, np, card):
           "requests": SERVE_REQUESTS + 1, "max_new": SERVE_MAX_NEW,
           "decode_tokens_per_s": stats.tok_per_s, "decode_s": stats.decode_s,
           "prefill_s": stats.prefill_s, "ttft_s": ttft, "steady": steady,
+          "graph_decode_tokens_per_s": {
+              n: graph_runs[n][0]["decode_tokens_per_s"] for n in graph_runs},
+          "eager_decode_tokens_per_s": {
+              n: e["decode_tokens_per_s"] for n, e in eager.items()},
           "b8_prefill": b8, "b6_by_valid_len": by_valid,
-          "prefill_profile": prefill})
+          "prefill_profile": prefill,
+          "serving_max_memory_allocated": serving_peak,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
     del params
     torch.cuda.empty_cache()
     return {"launches": path, "b8_prefill": b8,
@@ -5263,12 +5461,14 @@ def _time_cross_decode(torch, cfg, sched):
             "head_dim": d, "slots": cfg.encoder_seq, "layout": "bskd"}
 
 
-def _audio_steady(torch, np, cfg, params, name):
-    """One cache form with 8 live lanes: a decode step's device time by
-    part (the cross-attention's B6 apart from the self-attention's B6/B7)
-    and the idle share over 4 ticks; the self-attention's B6 or B7 at the
+def _audio_steady(run, torch, np, cfg, params, name):
+    """One cache form with 8 live lanes: a replayed decode step
+    (graph_step_record), then eagerly a decode step's device time by part
+    (the cross-attention's B6 apart from the self-attention's B6/B7) and
+    the idle share over 4 ticks; the self-attention's B6 or B7 at the
     live lanes and, ring fp32, the cross-attention's B6 at 8 x 1500,
     beside the bound, the plain version and SDPA."""
+    from repro_torch.core.jit import disable_graphs
     from repro_torch.models import encdec as ed
     from repro_torch.serving.engine import ServingEngine
     eng = ServingEngine(cfg, params, max_batch=8, cache_len=AUDIO_CACHE_LEN,
@@ -5279,10 +5479,14 @@ def _audio_steady(torch, np, cfg, params, name):
     sched.tick()                                     # admits all 8
     for _ in range(4):
         sched.tick()
-    profile = _profile_ranged_ticks(
-        torch, sched, 4, ed, {"cross_decode_attention": ("cross_attn",
-                                                         AUDIO_CROSS_PART)})
-    rec = {"config": name, "step_profile": profile,
+    graph = graph_step_record(run, torch, "serve_audio", name, sched)
+    with disable_graphs():               # the ranges run only eagerly
+        sched.tick()
+        profile = _profile_ranged_ticks(
+            torch, sched, 4, ed, {"cross_decode_attention": (
+                "cross_attn", AUDIO_CROSS_PART)})
+    rec = {"config": name, "step_profile": {"mode": "eager", **profile},
+           "graph_step_profile": graph,
            "kernel": _time_decode_kernel(torch, cfg, sched, "int8" in name,
                                          "paged" in name, long=False,
                                          layout="bskd")}
@@ -5308,11 +5512,17 @@ def phase_serve_audio(run, torch, np, card):
     decode tokens/s and TTFT; per cache form a decode step by part and
     B6/B7 at the live lanes; B6 at 8 x 1500 'bskd' (cross); B8 at the 1 x
     1500 encoder, the 1 x 300 x 1500 cross and the 1 x 300 decoder
-    shapes beside SDPA; one admission's prefill by part."""
+    shapes beside SDPA; one admission's prefill by part.  Every run
+    replays the captured decode step; each form's kernels run is held to
+    the same requests under ``disable_graphs()``
+    (graph_against_eager), ring fp32's to 8 requests sampled at
+    GRAPH_TEMP, a replayed step is profiled per form, and B6/B7's ticket
+    counters read 0 after the replays."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops as kops
     from repro_torch.serving.engine import ServingEngine
     set_fp32_exact(torch)
+    torch.cuda.reset_peak_memory_stats()
     cfg = get_config(AUDIO_ARCH)
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -5325,6 +5535,7 @@ def phase_serve_audio(run, torch, np, card):
 
     def make_requests():
         return serve_requests(np, cfg, SEED + 120)
+    graph_runs = {}
     kops.reset_launches()                            # the main path starts
     for name, opts in MOE_CONFIGS.items():
         outs = {}
@@ -5359,13 +5570,17 @@ def phase_serve_audio(run, torch, np, card):
             run.check("serve_audio", f"{tag}: host_syncs == retired "
                       "requests", sched.host_syncs == len(reqs),
                       host_syncs=sched.host_syncs)
+            run.check("serve_audio", f"{tag}: the decode step was "
+                      "captured", sched._graph is not None)
             run.check("serve_audio", f"{tag}: every request generated "
                       f"{SERVE_MAX_NEW} tokens", all(
                           len(r.output) == SERVE_MAX_NEW and r.done
                           and all(0 <= x < cfg.vocab_size for x in r.output)
                           for r in reqs))
-            rec = {"phase": "serve_audio", "config": tag, "wall_s": wall,
+            rec = {"phase": "serve_audio", "config": tag, "mode": "graph",
+                   "wall_s": wall, "graph_captured": sched._graph is not None,
                    "launches": launched, "decode_steps": sched.decode_steps,
+                   "host_syncs": sched.host_syncs,
                    "full_prefills": prefills, "tokens": stats.tokens_out,
                    "prefill_s": stats.prefill_s, "decode_s": stats.decode_s,
                    "decode_tokens_per_s": stats.tok_per_s}
@@ -5383,6 +5598,8 @@ def phase_serve_audio(run, torch, np, card):
                 sched.audit_pages()
             emit(rec)
             outs[backend or "cuda"] = [r.output for r in reqs]
+            if backend is None:
+                graph_runs[name] = (rec, outs["cuda"])
             del eng, sched
         ok, equal, gaps = _tokens_or_near_ties(torch, cfg, params, reqs,
                                                outs["cuda"], outs["ref"])
@@ -5404,6 +5621,11 @@ def phase_serve_audio(run, torch, np, card):
             "decode_attention": counts["decode_attention"],
             "decode_attention_paged": counts["decode_attention_paged_q8"]}
     emit({"phase": "serve_audio", "main_path_launches": path})
+    eager = graph_against_eager(
+        run, torch, np, kops, "serve_audio", cfg, graph_runs,
+        lambda form, seed: ServingEngine(
+            cfg, params, max_batch=8, cache_len=AUDIO_CACHE_LEN,
+            device=DEVICE, seed=seed, **MOE_CONFIGS[form]), make_requests)
     # a 300-token prompt with random frames, layer by layer
     gen = torch.Generator().manual_seed(SEED + 121)
     frames = torch.randn(1, cfg.encoder_seq, cfg.d_model,
@@ -5427,8 +5649,12 @@ def phase_serve_audio(run, torch, np, card):
                 if k in ("bytes_per_token", "mbu", "mfu",
                          "roofline_tok_per_s")}
     del eng, sched
-    steady = {name: _audio_steady(torch, np, cfg, params, name)
+    steady = {name: _audio_steady(run, torch, np, cfg, params, name)
               for name in MOE_CONFIGS}
+    counters = ticket_counters(torch)
+    run.check("serve_audio", "B6/B7 ticket counters at 0 after the replays",
+              bool(counters) and not any(counters.values()),
+              counters={str(k): v for k, v in counters.items()})
     prefill = audio_prefill_profile(torch, cfg, params, toks)
     h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
 
@@ -5457,7 +5683,12 @@ def phase_serve_audio(run, torch, np, card):
           "requests": SERVE_REQUESTS, "max_new": SERVE_MAX_NEW,
           "decode_tokens_per_s": stats.tok_per_s, "decode_s": stats.decode_s,
           "prefill_s": stats.prefill_s, "ttft_s": ttft, "roofline": roofline,
-          "steady": steady, "b8": b8, "prefill_profile": prefill})
+          "graph_decode_tokens_per_s": {
+              n: graph_runs[n][0]["decode_tokens_per_s"] for n in graph_runs},
+          "eager_decode_tokens_per_s": {
+              n: e["decode_tokens_per_s"] for n, e in eager.items()},
+          "steady": steady, "b8": b8, "prefill_profile": prefill,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
     del params
     torch.cuda.empty_cache()
     return {"launches": path, "b8": b8,

@@ -42,6 +42,17 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import P
 from repro_torch.sharding_hints import hint, is_dtensor
 
+# The scheduler captures the batched decode step once as a CUDA graph
+# (runtime/scheduler.py): decode_step_batch reads no device value on the
+# host and no shape depends on data.  Its cross-attention runs B6's ring
+# form over the lanes' dense xk/xv ('bskd', encoder_seq slots, several
+# splits merged through the ticket counters, which the last CTA resets);
+# its self-attention runs B6/B7 over the ring or the pages; the cache
+# writes and the admission splice (cache_splice_paged) are in place.
+# ``enc_valid`` is a fresh ``torch.full`` inside the step: it lands in the
+# graph's pool, and its value never changes.
+CUDA_GRAPH_SAFE = True
+
 
 def _ln(x, lp, name, eps=1e-5):
     return cm.layer_norm(x, lp[f"{name}_w"], lp[f"{name}_b"], eps)

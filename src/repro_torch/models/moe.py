@@ -44,6 +44,9 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import P
 from repro_torch.sharding_hints import get_rule, hint, is_dtensor
 
+# No CUDA_GRAPH_SAFE yet: the decode step (its sort-based dispatch) is not
+# yet shown capturable (ROADMAP A16), so the scheduler runs it eagerly.
+
 
 def param_template(cfg: ArchConfig):
     L, d, f, E = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.num_experts

@@ -47,6 +47,17 @@ LRU_C = 8.0
 # prompt + max_new_tokens wrap guard must not reject long generations here
 RING_WRAP_SAFE = True
 
+# The scheduler captures the batched decode step once as a CUDA graph
+# (runtime/scheduler.py): the recurrent blocks (rg_lru_step,
+# causal_conv_step) are plain tensor work whose conv and h states are
+# written in place (_rec_step), and the local-attention layers run
+# transformer.attn_decode_batch, whose write position and valid length
+# are computed on the device.  At 16 query heads of 256 (RecurrentGemma-9B)
+# B6/B7 take the wide route: its plan and workspace are keyed per
+# (device, stream, ...) and made by the capture's warm-up run, and its
+# separate merge kernel takes no tickets, so a replay needs no memset.
+CUDA_GRAPH_SAFE = True
+
 
 def layer_kinds(cfg: ArchConfig):
     """List of 'rec' | 'attn' per layer."""

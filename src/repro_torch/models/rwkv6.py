@@ -39,6 +39,14 @@ from repro_torch.sharding_hints import hint, is_dtensor
 # cache_len, so the scheduler's ring-wrap guard does not apply
 RING_WRAP_SAFE = True
 
+# The scheduler captures the batched decode step once as a CUDA graph
+# (runtime/scheduler.py): decode_step_batch -> decode_step and wkv_step
+# read no device value on the host, no shape depends on data, and the
+# state (wkv, shift_tm, shift_cm) is written in place with ``copy_``.
+# The step launches none of our kernels: B10 runs only in prefill, which
+# stays eager, so B10's per-stream workspace never enters a graph.
+CUDA_GRAPH_SAFE = True
+
 MIX_LORA = 32     # rank of the ddlerp mixing lora (5 targets: w,k,v,r,g)
 DECAY_LORA = 64   # rank of the decay lora
 CHUNK = 16        # intra-chunk length for the parallel scan

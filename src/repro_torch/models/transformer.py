@@ -28,7 +28,10 @@ from repro_torch.sharding_hints import get_rule, hint, is_dtensor
 # The scheduler may capture this family's batched decode step once as a
 # CUDA graph and replay it (runtime/scheduler.py): decode_step_batch and
 # everything it calls read no device value on the host, allocate nothing
-# whose shape depends on data, and write the cache in place.
+# whose shape depends on data, and write the cache in place.  A family
+# joins by declaring this flag in its own module once its step is shown
+# to hold the same three conditions (tests/test_torch_graphs.py traces
+# every flagged step on fake tensors, where a host read raises).
 CUDA_GRAPH_SAFE = True
 
 # ---------------------------------------------------------------------------

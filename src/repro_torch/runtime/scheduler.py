@@ -19,9 +19,11 @@ token costs zero host syncs; the one device->host transfer per retired
 request goes through pinned memory at retirement and is counted in
 ``host_syncs``.  The JAX package jits its programs; here the decode step
 of a family that declares itself capturable (``CUDA_GRAPH_SAFE``: the
-dense transformer) is captured once per scheduler as a CUDA graph on a
-CUDA device and replayed at every tick (``repro_torch.core.jit``), and
-every other program, and every other family's step, runs eagerly.
+dense transformer, RWKV-6, the encoder-decoder and the RG-LRU hybrid)
+is captured once per scheduler as a CUDA graph on a CUDA device and
+replayed at every tick (``repro_torch.core.jit``); the MoE family's
+step, and every other program (prefill, admission, the page-table
+programs, the prefix-hit suffix step), runs eagerly.
 
 Everything else is the JAX package's, unchanged: mid-flight admission,
 prompt-length buckets (left padding, pads attended), the ring and paged

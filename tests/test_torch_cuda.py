@@ -1529,13 +1529,23 @@ def test_jit_apply_after_evict_and_reload(dev, tmp_path):
     del junk
 
 
-def _replay_inputs(dev, paged):
-    b, kvh, g, d, cap = 8, 4, 8, 64, 1024
+# id -> (paged int8, layout, KV heads, G, head dim, capacity): TinyLlama's
+# heads on the FFMA route; RecurrentGemma-9B's (G 16, D 256) on the wide
+# route, whose merge kernel takes no tickets, over its 2048-slot window;
+# Whisper-medium's cross-attention over 1500 'bskd' encoder slots, every
+# lane's valid length the encoder's (its splits merged through tickets)
+REPLAY_CASES = {"ring-fp32": (False, "bksd", 4, 8, 64, 1024),
+                "paged-int8": (True, "bksd", 4, 8, 64, 1024),
+                "wide-ring-fp32": (False, "bksd", 1, 16, 256, 2048),
+                "wide-paged-int8": (True, "bksd", 1, 16, 256, 2048),
+                "cross-bskd-1500": (False, "bskd", 16, 1, 64, 1500)}
+
+
+def _replay_inputs(dev, paged, layout, kvh, g, d, cap, b=8):
     q = randn(dev, b, kvh * g, d)
     if not paged:
-        k, v = randn(dev, b, kvh, cap, d, seed=1), randn(dev, b, kvh, cap, d,
-                                                         seed=2)
-        return q, (k, v)
+        shape = (b, kvh, cap, d) if layout == "bksd" else (b, cap, kvh, d)
+        return q, (randn(dev, *shape, seed=1), randn(dev, *shape, seed=2))
     ps, w = 16, cap // 16
     pages = 1 + b * w
     k = torch.randint(-127, 128, (pages, kvh, ps, d), dtype=torch.int8,
@@ -1549,27 +1559,33 @@ def _replay_inputs(dev, paged):
     return q, (k, v, ks, vs, table.to(torch.int32).to(dev))
 
 
-@pytest.mark.parametrize("paged", [False, True], ids=["ring-fp32",
-                                                      "paged-int8"])
+@pytest.mark.parametrize("case", list(REPLAY_CASES))
 def test_decode_kernel_replays_bit_equal_and_leaves_counters_at_zero(dev,
-                                                                     paged):
-    """B6 / B7 captured once: 20 replays over new valid lengths each equal
-    an eager launch bit for bit, and every workspace's ticket counters
-    are 0 after them (the last CTA resets them; a replay has no memset)."""
+                                                                     case):
+    """B6 / B7 captured once: 20 replays over new queries and, but for
+    the cross-attention, new valid lengths (lane 0 at the whole capacity:
+    a wrapped ring) each equal an eager launch bit for bit, and every
+    workspace's ticket counters are 0 after them (the last CTA resets
+    them; the wide route takes none; a replay has no memset)."""
     from repro_torch.core.jit import capture
     from repro_torch.kernels import decode_attention as da
-    q, cache = _replay_inputs(dev, paged)
-    valid = torch.full((8,), 1024, dtype=torch.int32, device=dev)
+    paged, layout, kvh, g, d, cap = REPLAY_CASES[case]
+    q, cache = _replay_inputs(dev, paged, layout, kvh, g, d, cap)
+    assert da.plan(8, kvh, g, d, 4, slots=cap).wide == (g == 16)
+    valid = torch.full((8,), cap, dtype=torch.int32, device=dev)
     fn = kops.decode_attention_paged_q8 if paged else kops.decode_attention
 
     def call():
-        return fn(q, *cache, valid, layout="bksd")
-    first, cap = capture(call, dev)
+        return fn(q, *cache, valid, layout=layout)
+    first, cap_graph = capture(call, dev)
     assert torch.equal(first, call())
     gen = torch.Generator().manual_seed(6)
     for _ in range(20):
-        valid.copy_(torch.randint(1, 1025, (8,), generator=gen))
-        got = cap.replay().clone()
+        q.copy_(torch.randn(q.shape, generator=gen))
+        if case != "cross-bskd-1500":
+            valid.copy_(torch.randint(1, cap + 1, (8,), generator=gen))
+            valid[0] = cap
+        got = cap_graph.replay().clone()
         assert torch.equal(got, call())
     torch.cuda.synchronize()
     for key, ws in da._WORKSPACES.items():
@@ -1577,24 +1593,34 @@ def test_decode_kernel_replays_bit_equal_and_leaves_counters_at_zero(dev,
         assert int(ws[:lanes].abs().sum()) == 0, key
 
 
-@pytest.mark.parametrize("opts", [{}, {"kv_layout": "paged", "page_size": 16,
-                                       "kv_dtype": "int8"}],
-                         ids=["ring-fp32", "paged-int8"])
-def test_scheduler_graph_equals_eager(dev, opts):
-    """Reduced TinyLlama through ServingEngine, 5 requests on 4 lanes
-    (mid-flight admission, prefix hits on pages), two lanes at
-    temperature > 0: the step captured once and replayed gives the eager
-    step's tokens from the same seed, decode_steps, host_syncs and
-    launches; 8 replayed ticks run under sync debug mode "error"."""
+# (reduced arch, cache form): every family whose step is captured, in the
+# cache forms it serves (RWKV-6 keeps its state, no pages)
+GRAPH_FORMS = {"ring-fp32": {}, "paged-int8": {"kv_layout": "paged",
+                                               "page_size": 16,
+                                               "kv_dtype": "int8"}}
+GRAPH_CASES = [(a, f) for a in ("tinyllama-1.1b", "whisper-medium",
+                                "recurrentgemma-9b")
+               for f in GRAPH_FORMS] + [("rwkv6-3b", "ring-fp32")]
+
+
+@pytest.mark.parametrize("arch,form", GRAPH_CASES)
+def test_scheduler_graph_equals_eager(dev, arch, form):
+    """A reduced model through ServingEngine, 5 requests on 4 lanes
+    (mid-flight admission; prefix hits on TinyLlama's pages; a prompt
+    past RecurrentGemma's window of 32), two lanes at temperature > 0:
+    the step captured once and replayed gives the eager step's tokens
+    from the same seed, decode_steps, host_syncs and launches; 8
+    replayed ticks run under sync debug mode "error"."""
     from contextlib import nullcontext
 
     from repro_torch import models
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.core.jit import disable_graphs
     from repro_torch.serving.engine import Request, ServingEngine
-    cfg = reduced(get_config("tinyllama-1.1b"))
+    cfg = reduced(get_config(arch))
     params = models.init_params(cfg, torch.Generator(dev).manual_seed(0),
                                 device=dev)
+    opts = GRAPH_FORMS[form]
 
     def run(eager):
         reqs = [Request(uid=i, prompt=list(range(3, 3 + n)),
@@ -1622,7 +1648,10 @@ def test_scheduler_graph_equals_eager(dev, opts):
     graph, eager = run(False), run(True)
     assert graph[:4] == eager[:4]
     assert graph[4] and not eager[4]
-    assert graph[3]["flash_attention"] > 0
+    want = {"rwkv6_chunked"} if arch == "rwkv6-3b" else {
+        "flash_attention", "decode_attention_paged_q8" if opts
+        else "decode_attention"}
+    assert want <= set(graph[3])
 
 
 def test_rebuilt_scheduler_captures_its_own_graph(dev):

@@ -9,19 +9,39 @@ weights' addresses, the input shape and the backend, an evicted model's
 graphs are dropped, ``disable_graphs()`` nests, the scheduler's tokens
 and counters equal JAX's inside and outside ``disable_graphs()``, its
 state tensors are never rebound (a captured step reads them by address),
-the step's noise is drawn as it was when ``_sample`` drew it, and only
-the dense family declares itself capturable.  The captures themselves
-are held on the card by the ``cuda`` tests in test_torch_cuda.py and by
-chip_smoke.py's ``graphs`` phase.  Weights come from numpy through
+the step's noise is drawn as it was when ``_sample`` drew it, and which
+families declare themselves capturable (all but the MoE).  For RWKV-6,
+Whisper and RecurrentGemma (reduced) the scheduler's tokens equal JAX's
+inside and outside ``disable_graphs()`` in each cache form the family
+serves, and their state is written in place through admission,
+preemption, cancellation and retirement.  Every flagged family's step
+(``_advance``, the ``ref`` backend) runs on fake tensors, where a host
+read or a shape that depends on data raises (``FakeTensorMode``); five
+host reads are its negative controls.  The captures themselves are held
+on the card by the ``cuda`` tests in test_torch_cuda.py and by
+chip_smoke.py's serve phases.  Weights come from numpy through
 ``params_from_numpy``.
 """
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree as pytree
+from torch._subclasses.fake_tensor import (DataDependentOutputException,
+                                           DynamicOutputShapeException,
+                                           FakeTensorMode)
 
+from repro.configs.base import get_config as jget_config
+from repro.configs.base import reduced as jreduced
 from repro.core.engine import InferenceEngine as JInferenceEngine
 from repro.core.modelstore import ModelStore as JModelStore
+from repro.runtime.scheduler import ContinuousBatchingScheduler as JSched
+from repro.runtime.scheduler import Request as JRequest
+from repro_torch import models
+from repro_torch.configs.base import get_config, reduced
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import importer
 from repro_torch.core.engine import InferenceEngine
@@ -35,6 +55,9 @@ from repro_torch.runtime import scheduler as tsched
 from repro_torch.runtime.scheduler import ContinuousBatchingScheduler as TSched
 from repro_torch.runtime.scheduler import Request as TRequest
 
+import test_torch_encdec
+import test_torch_rglru
+import test_torch_rwkv6
 from conftest import assert_close
 from test_torch_graph import MODELS, graphs, inputs, numpy_params
 from test_torch_scheduler import (MIX, P0, P1, _requests, _run, assert_same,
@@ -189,10 +212,14 @@ def test_recorded_launches_leave_the_counts_until_replayed():
 # ---------------------------------------------------------------------------
 
 
-def test_only_the_dense_family_is_capturable(tiny):
-    assert transformer.CUDA_GRAPH_SAFE is True
-    for mod in (rwkv6, moe, rglru, encdec):
-        assert not getattr(mod, "CUDA_GRAPH_SAFE", False), mod.__name__
+@pytest.mark.parametrize("mod,capturable", [
+    (transformer, True), (rwkv6, True), (encdec, True), (rglru, True),
+    (moe, False)], ids=lambda v: getattr(v, "__name__", "").split(".")[-1]
+    or str(v))
+def test_capturable_families(tiny, mod, capturable):
+    """Every family but the MoE declares its step capturable; a CPU
+    scheduler never captures."""
+    assert getattr(mod, "CUDA_GRAPH_SAFE", False) is capturable
     _, cfg, _, tp = tiny
     sched = TSched(cfg, tp, max_slots=2, cache_len=32, max_new_cap=8)
     assert sched._graphable is False                 # a CPU scheduler
@@ -281,3 +308,180 @@ def test_step_noise_is_drawn_as_sample_drew_it(tiny):
         _run(sched, reqs)
         return [r.output for r in reqs], sched.decode_steps
     assert outs() == outs(old_step)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6, Whisper and RecurrentGemma: the scheduler's step, captured on a
+# card, runs eagerly here on the same code
+# ---------------------------------------------------------------------------
+
+# arch -> (its test module, whose _ragged_run and MIX these tests reuse;
+# the cache forms the family serves on the card)
+FAMILIES = {"rwkv6-3b": (test_torch_rwkv6, ("ring-fp32",)),
+            "whisper-medium": (test_torch_encdec, ("ring-fp32", "paged-int8")),
+            "recurrentgemma-9b": (test_torch_rglru,
+                                  ("ring-fp32", "paged-int8"))}
+FORMS = {"ring-fp32": {},
+         "paged-int8": dict(kv_layout="paged", page_size=16, kv_dtype="int8")}
+
+
+@functools.lru_cache(maxsize=None)
+def _family(arch):
+    """(JAX config, port config, JAX params, port params) of the reduced
+    arch, the weights made as the family's own test module makes them."""
+    cfg = reduced(get_config(arch))
+    if arch == "whisper-medium":
+        np_params = test_torch_encdec.numpy_params(cfg)
+        jp = jax.tree.map(jnp.asarray, np_params)
+        tp = params_from_numpy(np_params, "cpu", cfg=cfg)
+    else:
+        jp, tp = test_torch_rwkv6.both_params(cfg)
+    return jreduced(jget_config(arch)), cfg, jp, tp
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_tokens(arch, kv_dtype):
+    """The JAX scheduler's ring run of the family's MIX (a paged int8 run
+    is held to the ring int8 one, as the family's own tests hold it)."""
+    jcfg, _, jp, _ = _family(arch)
+    return FAMILIES[arch][0]._ragged_run(JSched, JRequest, jcfg, jp,
+                                         kv_dtype=kv_dtype)[0]
+
+
+@pytest.mark.parametrize("arch,form", [(a, f) for a, (_, forms)
+                                       in FAMILIES.items() for f in forms])
+def test_family_scheduler_inside_and_outside_disable_graphs_matches_jax(
+        arch, form):
+    """Mid-flight admission with lanes at ragged positions: greedy tokens
+    equal the JAX scheduler's inside and outside ``disable_graphs()``,
+    with the same ``decode_steps``."""
+    mod = FAMILIES[arch][0]
+    _, cfg, _, tp = _family(arch)
+    opts = FORMS[form]
+    got, sched = mod._ragged_run(TSched, TRequest, cfg, tp, **opts)
+    with disable_graphs():
+        inner, eager = mod._ragged_run(TSched, TRequest, cfg, tp, **opts)
+    assert got == inner == _jax_tokens(arch, opts.get("kv_dtype"))
+    assert sched.decode_steps == eager.decode_steps > 0
+    assert sched.kv_layout == opts.get("kv_layout", "ring")
+    assert sched._graphable is False and sched._graph is None
+
+
+# per family: the cache form, the faults and the prompts of the in-place
+# test.  Whisper pages incrementally, so a failed first-touch allocation
+# preempts a lane; RWKV-6 (no pages) and RecurrentGemma (a lane owns its
+# whole window) are preempted by a scripted call at tick 4.  RecurrentGemma's
+# 40-token prompt prefills past its window of 32 (the roll).
+IN_PLACE = {
+    "rwkv6-3b": ({}, None),
+    "whisper-medium": (FORMS["paged-int8"], tfaults.AllocFault(
+        site="first_touch", after_tick=2)),
+    "recurrentgemma-9b": (FORMS["paged-int8"], None)}
+
+
+@pytest.mark.parametrize("arch", list(IN_PLACE))
+def test_family_state_is_written_in_place(arch):
+    """A captured step reads the state by address: admission,
+    preemption, cancellation and retirement write every state and cache
+    tensor in place and rebind none; the requests that were not
+    cancelled give the tokens of a run without faults."""
+    opts, alloc = IN_PLACE[arch]
+    _, cfg, _, tp = _family(arch)
+    prompts = [[3, 1, 4, 1, 5], list(range(50, 62)), [2, 7, 1, 8],
+               list(range(7, 47)) if arch == "recurrentgemma-9b"
+               else [9, 9, 8], [6, 5, 4, 3, 2, 1]]
+
+    def run(faults):
+        sched = TSched(cfg, tp, max_slots=2, cache_len=48, max_new_cap=12,
+                       faults=faults, **opts)
+        reqs = [TRequest(uid=i, prompt=list(p), max_new_tokens=10)
+                for i, p in enumerate(prompts)]
+        return sched, reqs
+
+    at_tick = {7: lambda s: s.cancel(4)}
+    if alloc is None:
+        at_tick[4] = lambda s: s._preempt_lowest()
+    inj = tfaults.ScriptedFaults(alloc=[alloc] if alloc else [],
+                                 at_tick=at_tick)
+    sched, reqs = run(inj)
+
+    def addresses():
+        flat = {k: v for k, v in sched.state.items() if k != "cache"}
+        flat.update({"cache/" + k: v for k, v in
+                     sched.state["cache"].items()})
+        return {k: (v.data_ptr(), tuple(v.shape)) for k, v in flat.items()}
+    before = addresses()
+    noise = sched._noise.data_ptr()
+    _run(sched, reqs)
+    assert sched.preemptions >= 1 and sched.cancellations == 1
+    assert addresses() == before and sched._noise.data_ptr() == noise
+    plain, want = run(None)
+    _run(plain, want)
+    assert [r.output for r in reqs[:4]] == [r.output for r in want[:4]]
+    assert reqs[4].finish_reason == "cancelled"
+
+
+# ---------------------------------------------------------------------------
+# The step on fake tensors: a host read or a data-dependent shape raises
+# ---------------------------------------------------------------------------
+
+# every flagged family in the cache forms it serves (RWKV-6 has no pages)
+TRACED = [("tinyllama-1.1b", "ring-fp32"), ("tinyllama-1.1b", "paged-int8"),
+          ("rwkv6-3b", "ring-fp32")] + [
+    (a, f) for a in ("whisper-medium", "recurrentgemma-9b")
+    for f in ("ring-fp32", "paged-int8")]
+TRACE_FORMS = {"ring-fp32": {}, "paged-int8": dict(
+    kv_layout="paged", page_size=4, kv_dtype="int8")}
+# each raises under FakeTensorMode: the hazards a captured step must not hold
+HOST_READS = {"item": lambda t: t.sum().item(),
+              "tolist": lambda t: t.tolist(),
+              "nonzero": lambda t: t.nonzero(),
+              "bool-mask": lambda t: t[t > 0],
+              "bincount": lambda t: torch.bincount(t.long())}
+
+
+def _fake_scheduler(arch, form):
+    """A reduced scheduler on the ``ref`` backend whose parameters, state,
+    noise and lane rows are fake tensors of a FakeTensorMode (the same
+    shapes, dtypes and strides, no data): its ``_advance`` is the step a
+    card captures."""
+    cfg = reduced(get_config(arch))
+    params = models.init_params(cfg, torch.Generator().manual_seed(0))
+    sched = TSched(cfg, params, max_slots=2, cache_len=16, max_new_cap=8,
+                   attn_backend="ref", **TRACE_FORMS[form])
+    mode = FakeTensorMode()
+    sched.params, sched.state, sched._noise, sched._rows = pytree.tree_map(
+        mode.from_tensor,
+        (sched.params, sched.state, sched._noise, sched._rows))
+    return sched, mode
+
+
+@pytest.mark.parametrize("arch,form", TRACED)
+def test_flagged_step_runs_on_fake_tensors(arch, form):
+    """Every flagged family's step (the dense one as the control) runs
+    through the ``ref`` backend on fake tensors: it reads no device value
+    on the host and allocates nothing whose shape depends on data (both
+    raise in FakeTensorMode), and it leaves every state tensor's shape
+    and dtype.  Every op of these steps has a fake (meta) kernel."""
+    sched, mode = _fake_scheduler(arch, form)
+    meta = pytree.tree_map(lambda t: (tuple(t.shape), t.dtype), sched.state)
+    with mode:
+        sched._advance()
+        sched._advance()
+    assert pytree.tree_map(lambda t: (tuple(t.shape), t.dtype),
+                           sched.state) == meta
+
+
+@pytest.mark.parametrize("read", list(HOST_READS))
+def test_host_reads_in_a_step_raise_on_fake_tensors(read):
+    """The negative controls of the trace test: the same step with one
+    host read (or data-dependent shape) added raises."""
+    sched, mode = _fake_scheduler("rwkv6-3b", "ring-fp32")
+    step = sched._advance
+
+    def with_read():
+        HOST_READS[read](sched.state["pos"])
+        step()
+    with mode, pytest.raises((DataDependentOutputException,
+                              DynamicOutputShapeException)):
+        with_read()
