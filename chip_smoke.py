@@ -83,7 +83,14 @@ its seconds:
                   eager and ``ref``, decode_steps, host_syncs and launches
                   equal eager; sampled tokens equal; tokens/s, TTFT, device
                   ms a step, idle share and host launch calls over 8
-                  ticks); B6/B7's ticket counters 0 after the replays
+                  ticks); both forms again with power-of-two prefill
+                  buckets (4-128, 16 requests of prompts 5-128): admission
+                  captured once a bucket and
+                  replayed for every cold admission, the prefix hit's
+                  suffix steps and closing sample captured, tokens,
+                  counters and launches equal eager, TTFT and prefill
+                  seconds graph against eager, peak device memory;
+                  B6/B7's ticket counters 0 after the replays
   multimodel      TinyLlama-1.1B and Qwen3-0.6B (and its int8 artifact),
                   full width, cut to 8 layers, through MultiModelServer:
                   hits, misses, switch log
@@ -135,8 +142,10 @@ its seconds:
                   sensitivity to a 1e-7 input change); the captured
                   decode step against the same requests under
                   disable_graphs() (captured and not, tokens, decode_steps,
-                  host_syncs and launches equal; sampled tokens equal);
-                  decode tokens/s, TTFT, a replayed step (device ms, idle
+                  host_syncs and launches equal; sampled tokens equal),
+                  and a bucketed run of prompts 5-64 graph against eager
+                  (as the graphs phase's); decode tokens/s, TTFT, a
+                  replayed step (device ms, idle
                   share, host launch calls <= 3), an eager step's device
                   time by part, and one 300-token prefill's device ms with
                   B10's part
@@ -154,10 +163,14 @@ its seconds:
                   the kernels and on ``ref`` in ring fp32 and paged int8:
                   tokens (streams part only at near-ties), B8 16 x full
                   prefills and B6/B7 16 x decode steps, 8 ticks under sync
-                  debug mode "error"; each
+                  debug mode "error"; the captured decode step (and the
+                  prefix hits' captured suffix step) against the same
+                  requests under disable_graphs() per cache form (as
+                  serve_rwkv6); each
                   layer's prefill output on the same input within 1e-4,
-                  router flips counted; decode tokens/s, TTFT, a decode
-                  step's device time by part beside the weight bytes; then
+                  router flips counted; decode tokens/s, TTFT, a replayed
+                  step (host launch calls <= 3) and an eager step's
+                  device time by part beside the weight bytes; then
                   its int8 artifact (3.3 GB) published and served through
                   MultiModelServer on both backends
   int8_kernels    B11 bit-equal to its plain version: the JAX suite's
@@ -184,8 +197,10 @@ its seconds:
                   rolled K/V window) within 1e-4; the doubling scan at T
                   2100 x 4096 against an fp64 recurrence; the captured
                   decode step against the same requests under
-                  disable_graphs() per cache form (as serve_rwkv6), the
-                  wide route's workspaces at 0 after the replays; decode
+                  disable_graphs() per cache form (as serve_rwkv6), a
+                  bucketed paged int8 run of prompts 5-64 (as the graphs
+                  phase's), the wide route's workspaces at 0 after the
+                  replays; decode
                   tokens/s, TTFT, per cache form a replayed step and an
                   eager step by part, B6/B7 at the live lanes and B8 at
                   1 x 300 and 1 x 2100, beside SDPA; peak device memory
@@ -203,8 +218,10 @@ its seconds:
                   layer's self- and cross-attention and the whole layer)
                   within 1e-4 of ``ref``; the captured decode step
                   against the same requests under disable_graphs() per
-                  cache form (as serve_rwkv6), B6/B7's ticket counters 0
-                  after the replays; decode tokens/s, TTFT, per cache
+                  cache form (as serve_rwkv6), a bucketed paged int8 run
+                  of prompts 5-64 (as the graphs phase's), B6/B7's ticket
+                  counters 0 after the replays; decode tokens/s, TTFT, per
+                  cache
                   form a replayed step and an eager step by part, B6/B7
                   at the live lanes, B6 at 8 x 1500 'bskd' (cross), B8 at
                   1 x 1500 (encoder), 1 x 300 x 1500 (cross) and 1 x 300,
@@ -1645,6 +1662,7 @@ def phase_serve(run, torch, np, card):
     from repro_torch.kernels import ops as kops
     from repro_torch.serving.engine import ServingEngine
     cfg = get_config("tinyllama-1.1b")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     np_params = numpy_weights(np, cfg, SEED)
     t_make = time.perf_counter() - t0
@@ -1754,7 +1772,8 @@ def phase_serve(run, torch, np, card):
             "decode_attention_paged": sum(counts[k] for k in
                                           DECODE_FAMILY["decode_attention_paged"]),
             "flash_attention": counts["flash_attention"]}
-    emit({"phase": "serve", "main_path_launches": counts})
+    emit({"phase": "serve", "main_path_launches": counts,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
     run.phase("serve_teacher_forced", phase_teacher_forced, run, torch, np,
               cfg, params)
     return cfg, np_params, params, engines, path, results
@@ -2417,11 +2436,15 @@ def phase_graphs(run, torch, np, cfg, params, serve_tokens, graphs, card):
     paged int8 (_decode_run, eager then graph in one form, graph then
     eager in the other): greedy tokens equal the eager run's and
     serve's ``ref`` run's, decode_steps, host_syncs and every kernel's
-    launches equal the eager run's, sampled tokens equal; B6/B7's ticket
-    counters at 0 after the replays."""
+    launches equal the eager run's, sampled tokens equal; then both forms
+    with power-of-two prefill buckets (bucketed_against_eager: admission
+    replayed per bucket, the prefix hit's suffix step captured, TTFT and
+    prefill seconds graph against eager); B6/B7's ticket counters at 0
+    after the replays."""
     emit({"phase": "graphs", "torch": torch.__version__,
           "register_generator_state": hasattr(torch.cuda.CUDAGraph,
                                               "register_generator_state")})
+    torch.cuda.reset_peak_memory_stats()
     _cnn_graphs(run, torch, np, graphs, card)
     for n, form in enumerate(GRAPH_FORMS):
         runs = {}
@@ -2443,6 +2466,21 @@ def phase_graphs(run, torch, np, cfg, params, serve_tokens, graphs, card):
         run.check("graphs", f"{form}: sampled tokens (temperature "
                   f"{GRAPH_TEMP}) graph == eager", g_smp == e_smp,
                   equal=sum(a == b for a, b in zip(g_smp, e_smp)))
+    # admission per prefill bucket and the prefix-hit suffix step: 16
+    # requests of 48 tokens, prompts 5-128 (buckets 4-128; past 128 the
+    # pads that prompts of one bucket share make prefix hits whose long
+    # suffixes cost the eager run minutes), graph against eager
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving.engine import ServingEngine
+    bucketed_against_eager(
+        run, torch, np, kops, "graphs", cfg,
+        lambda form, buckets: ServingEngine(
+            cfg, params, max_batch=8, cache_len=SERVE_CACHE_LEN,
+            device=DEVICE, prefill_buckets=buckets, **SERVE_CONFIGS[form]),
+        GRAPH_FORMS, SEED + 20, n=SERVE_REQUESTS, max_new=SERVE_MAX_NEW,
+        hi=128)
+    emit({"phase": "graphs",
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
     counters = ticket_counters(torch)
     run.check("graphs", "B6/B7 ticket counters at 0 after the replays",
               not any(counters.values()),
@@ -2534,6 +2572,124 @@ def graph_step_record(run, torch, phase, form, sched, ticks=8):
     run.check(phase, f"{form}: at most 3 host launch calls a replayed step",
               sched._graph is not None and calls <= 3, calls=calls)
     return rec
+
+
+def bucket_requests(np, cfg, seed, n, max_new, hi):
+    """serve_requests of prompts 5..hi without the shared prefix; request
+    0 has hi - 3 tokens and request 1 is request 0 with another last
+    token, so both pad to one bucket and share all but its last slot (a
+    prefix hit on pages of 16)."""
+    reqs = serve_requests(np, cfg, seed, n=n, max_new=max_new, hi=hi,
+                          shared_prefix=0)
+    first = np.random.default_rng(seed + 1).integers(
+        1, cfg.vocab_size, hi - 3).tolist()
+    reqs[0].prompt = first
+    reqs[1].prompt = first[:-1] + [first[-1] % (cfg.vocab_size - 1) + 1]
+    return reqs
+
+
+def _replays(sched):
+    return {k: g.replays for k, g in sched._graphs.items()}
+
+
+def bucketed_run(torch, np, kops, cfg, make_engine, form, eager, seed, n,
+                 max_new, hi):
+    """One cache form with power-of-two prefill buckets up to ``hi`` on a
+    fresh engine (``make_engine(form, buckets)``), graph or eager
+    (disable_graphs): a warm pass of one prompt a bucket (every bucket's
+    admission captured; ``max_new`` tokens, so that the measured run
+    keeps the scheduler), then bucket_requests: tokens, counters,
+    launches, TTFT, prefill seconds, peak device memory, and what each
+    captured program ran in it (replays; a capture in the run counts
+    one)."""
+    from repro_torch.core.jit import disable_graphs
+    from repro_torch.launch.serve import pow2_buckets
+    from repro_torch.runtime.scheduler import Request
+    buckets = pow2_buckets(hi)
+    with disable_graphs() if eager else nullcontext():
+        eng = make_engine(form, buckets)
+        eng.generate_batch([Request(uid=1000 + i, prompt=[1 + i] * b,
+                                    max_new_tokens=max_new)
+                            for i, b in enumerate(buckets)])
+        sched = eng.scheduler()
+        sched.metrics.reset()
+        held = _replays(sched)
+        reqs = bucket_requests(np, cfg, seed, n, max_new, hi)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = kops.launches()
+        stats = eng.generate_batch(reqs)
+        torch.cuda.synchronize()
+        after = _replays(sched)
+        rec = {"config": form, "mode": "eager" if eager else "graph",
+               "scheduler_kept": sched is eng.scheduler(),
+               "buckets": buckets, "requests": n, "max_new": max_new,
+               "graphs_held": sorted(str(k) for k in after),
+               "captured_in_run": sorted(str(k) for k in after
+                                         if k not in held),
+               "program_runs": {str(k): v - held.get(k, -1)
+                                for k, v in after.items()},
+               "cold_admissions": (sched.admissions if sched._paged
+                                   else len(reqs)) - sched.prefix_hits,
+               "prefix_hits": sched.prefix_hits,
+               "ttft_s": sched.metrics.histogram("req.ttft_s").snapshot(),
+               "prefill_s": stats.prefill_s, "decode_s": stats.decode_s,
+               "decode_tokens_per_s": stats.tok_per_s,
+               "tokens": stats.tokens_out,
+               "decode_steps": sched.decode_steps,
+               "host_syncs": sched.host_syncs,
+               "launches": _launch_delta(kops, before),
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    return rec, [r.output for r in reqs]
+
+
+def bucketed_against_eager(run, torch, np, kops, phase, cfg, make_engine,
+                           forms, seed, n=8, max_new=16, hi=64):
+    """Each cache form's bucketed_run, graph then eager on fresh engines:
+    greedy tokens equal; decode_steps, host_syncs, prefix hits and every
+    kernel's launches equal; the graph run captured one admission a
+    bucket in its warm pass and replayed it for every cold admission,
+    prefix hits ran the captured suffix step and closing sample (one
+    sample a hit); the eager run captured nothing.  TTFT and prefill
+    seconds graph against eager are in the records."""
+    out = {}
+    for form in forms:
+        recs = {}
+        for eager in (False, True):
+            gc.collect()
+            torch.cuda.empty_cache()
+            recs[eager] = bucketed_run(torch, np, kops, cfg, make_engine,
+                                       form, eager, seed, n, max_new, hi)
+            emit({"phase": phase, "part": "buckets", **recs[eager][0]})
+        (g, g_tok), (e, e_tok) = recs[False], recs[True]
+        tag = f"{form} with prefill buckets"
+        run.check(phase, f"{tag}: greedy tokens graph == eager",
+                  g_tok == e_tok,
+                  equal=sum(a == b for a, b in zip(g_tok, e_tok)))
+        run.check(phase, f"{tag}: the warm pass's scheduler served the "
+                  "run", g["scheduler_kept"] and e["scheduler_kept"])
+        for key in ("decode_steps", "host_syncs", "prefix_hits",
+                    "launches"):
+            run.check(phase, f"{tag}: {key} equal eager's",
+                      g[key] == e[key], graph=g[key], eager=e[key])
+        runs = g["program_runs"]
+        admits = sum(v for k, v in runs.items() if k.startswith("('admit'"))
+        run.check(phase, f"{tag}: one admission graph a bucket, captured "
+                  "in the warm pass, replayed for every cold admission; "
+                  "nothing captured eagerly",
+                  len([k for k in g["graphs_held"] if "admit" in k])
+                  == len(g["buckets"]) and admits == g["cold_admissions"]
+                  and not any("admit" in k for k in g["captured_in_run"])
+                  and not e["graphs_held"],
+                  runs=runs, cold=g["cold_admissions"])
+        if g["prefix_hits"]:
+            run.check(phase, f"{tag}: prefix hits ran the captured suffix "
+                      "step and closing sample",
+                      runs.get("suffix", 0) >= g["prefix_hits"]
+                      and runs.get("finalize", 0) == g["prefix_hits"],
+                      runs=runs, hits=g["prefix_hits"])
+        out[form] = {"graph": g, "eager": e}
+    return out
 
 
 def phase_b2_times(run, torch, graph, card):
@@ -4044,6 +4200,12 @@ def phase_serve_rwkv6(run, torch, np, card):
             cfg, params, max_batch=8, cache_len=SERVE_CACHE_LEN,
             device=DEVICE, seed=seed, **MOE_CONFIGS[form]),
         lambda: serve_requests(np, cfg, SEED + 90))["ring-fp32"]
+    bucketed_against_eager(
+        run, torch, np, kops, "serve_rwkv6", cfg,
+        lambda form, buckets: ServingEngine(
+            cfg, params, max_batch=8, cache_len=SERVE_CACHE_LEN,
+            device=DEVICE, prefill_buckets=buckets, **MOE_CONFIGS[form]),
+        ("ring-fp32",), SEED + 96)
     # a paged layout is asked for and the ring is kept; int8 leaves the
     # fp32 state as it is: the same tokens and the same final state
     for name, opts in (("paged", {"kv_layout": "paged", "page_size": 16}),
@@ -4420,15 +4582,23 @@ def phase_serve_moe(run, torch, np, card, store_root):
     run's decode tokens/s and TTFT, a decode step's device time by part,
     the accountant's active weight bytes beside the whole bank's.  Then
     the int8 artifact (3.3 GB) published into ``store_root`` and served
-    through MultiModelServer on both backends: tokens equal."""
+    through MultiModelServer on both backends: tokens equal.  Every run
+    replays the captured decode step (and, paged, the prefix hits'
+    captured suffix step); each form's kernels run is held to the same
+    requests under ``disable_graphs()`` (graph_against_eager), ring
+    fp32's to 8 requests sampled at GRAPH_TEMP; the warm run profiles a
+    replayed step (host launch calls <= 3) and, eagerly, a step by part;
+    peak device memory."""
     from repro_torch.checkpoint.ckpt import publish_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_numpy
+    from repro_torch.core.jit import disable_graphs
     from repro_torch.core.modelstore import ModelStore
     from repro_torch.kernels import ops as kops
     from repro_torch.serving.engine import MultiModelServer, ServingEngine
     import dataclasses
     set_fp32_exact(torch)
+    torch.cuda.reset_peak_memory_stats()
     cfg = dataclasses.replace(get_config(MOE_ARCH),
                               num_layers=MOE_SERVE_LAYERS)
     t0 = time.perf_counter()
@@ -4443,7 +4613,7 @@ def phase_serve_moe(run, torch, np, card, store_root):
           "weights_make_s": t_make,
           "weights_to_device_s": time.perf_counter() - t0 - t_make})
     L = cfg.num_layers
-    path = {}
+    path, graph_runs = {}, {}
     kops.reset_launches()                            # the main path starts
     for name, opts in MOE_CONFIGS.items():
         outs = {}
@@ -4484,8 +4654,12 @@ def phase_serve_moe(run, torch, np, card, store_root):
                           len(r.output) == SERVE_MAX_NEW and r.done
                           and all(0 <= x < cfg.vocab_size for x in r.output)
                           for r in reqs))
-            rec = {"phase": "serve_moe", "config": tag, "wall_s": wall,
+            run.check("serve_moe", f"{tag}: the decode step was captured",
+                      sched._graph is not None)
+            rec = {"phase": "serve_moe", "config": tag, "mode": "graph",
+                   "wall_s": wall, "graph_captured": sched._graph is not None,
                    "launches": launched, "decode_steps": sched.decode_steps,
+                   "host_syncs": sched.host_syncs,
                    "full_prefills": prefills, "tokens": stats.tokens_out,
                    "prefill_s": stats.prefill_s, "decode_s": stats.decode_s,
                    "decode_tokens_per_s": stats.tok_per_s}
@@ -4496,11 +4670,18 @@ def phase_serve_moe(run, torch, np, card, store_root):
                           "mode 'error' with no retirement", window.done,
                           start=window.start)
             if sched._paged:
-                run.check("serve_moe", f"{tag}: prefix hits",
-                          sched.prefix_hits >= 1, hits=sched.prefix_hits)
+                run.check("serve_moe", f"{tag}: prefix hits, their suffix "
+                          "steps through the captured graph",
+                          sched.prefix_hits >= 1 and "suffix" in
+                          sched._graphs, hits=sched.prefix_hits)
                 sched.audit_pages()
+                rec["program_runs"] = {str(k): g.replays + 1 for k, g in
+                                       sched._graphs.items()}
             emit(rec)
             outs[backend or "cuda"] = [r.output for r in reqs]
+            if backend is None:
+                graph_runs[name] = (rec, outs["cuda"])
+            del eng, sched
         ok, equal, gaps = _tokens_or_near_ties(torch, cfg, params, reqs,
                                                outs["cuda"], outs["ref"])
         run.check("serve_moe", f"{name}: greedy tokens on cuda equal ref, "
@@ -4515,6 +4696,12 @@ def phase_serve_moe(run, torch, np, card, store_root):
             "decode_attention": counts["decode_attention"],
             "decode_attention_paged": counts["decode_attention_paged_q8"]}
     emit({"phase": "serve_moe", "main_path_launches": path})
+    eager = graph_against_eager(
+        run, torch, np, kops, "serve_moe", cfg, graph_runs,
+        lambda form, seed: ServingEngine(
+            cfg, params, max_batch=8, cache_len=SERVE_CACHE_LEN,
+            device=DEVICE, seed=seed, **MOE_CONFIGS[form]),
+        lambda: serve_requests(np, cfg, SEED + 100))
     # the prefill of 4 prompts, layer by layer on the same input
     layerwise = []
     for r in serve_requests(np, cfg, SEED + 100)[:4]:
@@ -4545,7 +4732,11 @@ def phase_serve_moe(run, torch, np, card, store_root):
     for r in serve_requests(np, cfg, SEED + 103, n=8):
         sched.submit(r)
     sched.tick()                                     # admits all 8
-    profile = _profile_moe_ticks(torch, sched, 4)
+    graph_profile = graph_step_record(run, torch, "serve_moe", "ring-fp32",
+                                      sched)
+    with disable_graphs():               # the ranges run only eagerly
+        sched.tick()
+        profile = {"mode": "eager", **_profile_moe_ticks(torch, sched, 4)}
     sched.run()
     bank = sum(w.numel() * w.element_size()
                for w in params["layers"].values()) + \
@@ -4558,7 +4749,12 @@ def phase_serve_moe(run, torch, np, card, store_root):
               sched.roofline.weight_bytes_per_step,
           "weight_bytes_whole_bank": bank,
           "whole_bank_stream_ms": 1e3 * bank / PEAK_HBM_BYTES,
-          "step_profile": profile})
+          "eager_decode_tokens_per_s": {
+              f: e["decode_tokens_per_s"] for f, e in eager.items()},
+          "graph_decode_tokens_per_s": {
+              f: g[0]["decode_tokens_per_s"] for f, g in graph_runs.items()},
+          "step_profile": profile, "graph_step_profile": graph_profile,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
     del eng, sched
     # the int8 artifact through MultiModelServer on both backends
     store = ModelStore(store_root)
@@ -5270,6 +5466,12 @@ def phase_serve_hybrid(run, torch, np, card):
             device=DEVICE, seed=seed, **MOE_CONFIGS[form]),
         lambda: hybrid_requests(np, cfg, SEED + 110))
     serving_peak = torch.cuda.max_memory_allocated()
+    bucketed_against_eager(
+        run, torch, np, kops, "serve_hybrid", cfg,
+        lambda form, buckets: ServingEngine(
+            cfg, params, max_batch=8, cache_len=HYBRID_CACHE_LEN,
+            device=DEVICE, prefill_buckets=buckets, **MOE_CONFIGS[form]),
+        ("paged-int8",), SEED + 118)
     # three prompts layer by layer on the same input, the long one first
     reqs = hybrid_requests(np, cfg, SEED + 110)
     layerwise = []
@@ -5626,6 +5828,12 @@ def phase_serve_audio(run, torch, np, card):
         lambda form, seed: ServingEngine(
             cfg, params, max_batch=8, cache_len=AUDIO_CACHE_LEN,
             device=DEVICE, seed=seed, **MOE_CONFIGS[form]), make_requests)
+    bucketed_against_eager(
+        run, torch, np, kops, "serve_audio", cfg,
+        lambda form, buckets: ServingEngine(
+            cfg, params, max_batch=8, cache_len=AUDIO_CACHE_LEN,
+            device=DEVICE, prefill_buckets=buckets, **MOE_CONFIGS[form]),
+        ("paged-int8",), SEED + 128)
     # a 300-token prompt with random frames, layer by layer
     gen = torch.Generator().manual_seed(SEED + 121)
     frames = torch.randn(1, cfg.encoder_seq, cfg.d_model,

@@ -12,7 +12,10 @@ stream, so that every plan and workspace the kernel wrappers cache
 (they key some on the stream) exists before the capture, then captures
 the step on that same stream.  The launches that the capture records run
 nothing, so they leave the kernels' counts and are added back at every
-replay (``kernels._build.recorded_launches``).
+replay (``kernels._build.recorded_launches``).  Graphs given one
+``pool`` (``torch.cuda.graph_pool_handle()``) share their memory: safe for
+programs that write every result into tensors outside the pool and
+return nothing from it, replayed one at a time on one stream.
 
 :func:`disable_graphs` is the twin of ``jax.disable_jit()``: inside it
 every step runs eagerly.  It is the only eager route on a CUDA device:
@@ -63,27 +66,31 @@ def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
 
 class Captured:
     """A captured step: its graph, what the step returned while it was
-    captured (static tensors that every replay writes again) and the
-    kernel launches it holds."""
+    captured (static tensors that every replay writes again), the kernel
+    launches it holds and how many times it was replayed."""
 
     def __init__(self, graph: "torch.cuda.CUDAGraph", outputs: Any,
                  launches: Tuple):
         self.graph = graph
         self.outputs = outputs
         self.launches = launches
+        self.replays = 0
 
     def replay(self) -> Any:
         """Run the graph on the current stream; return its static outputs."""
         self.graph.replay()
         add_launches(self.launches)
+        self.replays += 1
         return self.outputs
 
 
-def capture(step: Callable[[], Any], device) -> Tuple[Any, Captured]:
+def capture(step: Callable[[], Any], device,
+            pool=None) -> Tuple[Any, Captured]:
     """Run ``step()`` once on the device's capture stream, then capture
-    it there.  Returns what the run returned (valid on the current
-    stream) and the :class:`Captured` graph.  The run waits for the
-    current stream's earlier work, and the current stream for the run."""
+    it there, in memory ``pool`` when given (else a pool of its own).
+    Returns what the run returned (valid on the current stream) and the
+    :class:`Captured` graph.  The run waits for the current stream's
+    earlier work, and the current stream for the run."""
     current = torch.cuda.current_stream(device)
     side = _capture_stream(device)
     side.wait_stream(current)
@@ -91,7 +98,7 @@ def capture(step: Callable[[], Any], device) -> Tuple[Any, Captured]:
         out = step()
     graph = torch.cuda.CUDAGraph()
     with recorded_launches() as held:
-        with torch.cuda.graph(graph, stream=side):
+        with torch.cuda.graph(graph, pool=pool, stream=side):
             static = step()
     current.wait_stream(side)
     if isinstance(out, torch.Tensor):

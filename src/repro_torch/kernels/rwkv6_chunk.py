@@ -81,17 +81,23 @@ _kept = {}
 
 def _records(dev: torch.device, stream: int, nbytes: int) -> torch.Tensor:
     """The records' buffer.  Up to KEEP_BYTES (1 x 1600 tokens or 5
-    prompts of 300 at RWKV-6 3B's heads) it is kept per (device, stream)
-    and reused, sparing the launch an allocation (5-7 host µs); a larger
-    call takes its own from the caching allocator, which gets it back
-    when the launch is done.  Every launch writes what it reads, so the
-    buffer is never cleared."""
+    prompts of 300 at RWKV-6 3B's heads) it is one buffer of KEEP_BYTES
+    per (device, stream), made at the first such launch and reused,
+    sparing the launch an allocation (5-7 host µs); a larger call takes
+    its own from the caching allocator (inside a CUDA graph capture,
+    from the graph's pool), which gets it back when the launch is done.
+    The kept buffer is never replaced: a captured launch holds its
+    address, so a later and larger call (another prefill bucket's
+    capture on the same stream) must not free it.  Graphs that hold it
+    run one at a time on one stream.  Every launch writes what it reads,
+    so the buffer is never cleared."""
     if nbytes > KEEP_BYTES:
         return torch.empty(nbytes, dtype=torch.uint8, device=dev)
     key = (dev.index, stream)
     ws = _kept.get(key)
-    if ws is None or ws.numel() < nbytes:
-        ws = _kept[key] = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    if ws is None:
+        ws = _kept[key] = torch.empty(KEEP_BYTES, dtype=torch.uint8,
+                                      device=dev)
     return ws
 
 

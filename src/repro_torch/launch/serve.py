@@ -55,6 +55,18 @@ def ensure_model(store: ModelStore, arch: str, *, seed: int = 0):
     print(f"bootstrapped {rec.name}:{rec.version} (random reduced weights)")
 
 
+def pow2_buckets(prompt_len: int):
+    """Power-of-two prefill buckets from 4 up to the first that holds
+    ``prompt_len`` (the JAX driver's choice, which bounds its compiles;
+    kept so that both drivers serve the same computation).  The port's
+    scheduler captures one admission graph per bucket."""
+    buckets, b = [], 4
+    while b < prompt_len:
+        buckets.append(b)
+        b *= 2
+    return buckets + [b]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--store", default="/tmp/repro_store")
@@ -104,17 +116,10 @@ def main(argv=None):
     store = ModelStore(args.store)
     for m in model_names:
         ensure_model(store, m)
-    # power-of-two prefill buckets (the JAX driver's choice, which bounds
-    # its compiles; kept so that both drivers serve the same computation)
-    buckets, b = [], 4
-    while b < args.prompt_len:
-        buckets.append(b)
-        b *= 2
-    buckets.append(b)
     server = MultiModelServer(store, max_resident=2,
                               max_batch=args.max_batch,
                               cache_len=args.cache_len,
-                              prefill_buckets=buckets,
+                              prefill_buckets=pow2_buckets(args.prompt_len),
                               telemetry=telemetry,
                               slo_ttft_s=args.slo_ttft,
                               slo_itl_s=args.slo_itl,

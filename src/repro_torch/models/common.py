@@ -471,6 +471,31 @@ def as_device_scalar(x, device) -> torch.Tensor:
     return torch.full((), x, device=device)
 
 
+def lane_index(slot, device) -> torch.Tensor:
+    """A lane as a (1,) int64 index on ``device``: a tensor as it is (the
+    scheduler's admission writes its lane through one on the device, so
+    that a captured admission serves every lane), an int through a fill
+    on the device."""
+    if isinstance(slot, torch.Tensor):
+        return slot.reshape(1).to(device=device, dtype=torch.long)
+    return torch.full((1,), slot, dtype=torch.long, device=device)
+
+
+def splice_lane(leaf, row, lane, axis: int = 1) -> None:
+    """Write a B=1 cache ``row`` into lane ``lane`` (a (1,) index) of
+    ``leaf`` along ``axis``, in place, in ``leaf``'s dtype."""
+    leaf.index_copy_(axis, lane, row.to(leaf.dtype))
+
+
+def set_table_row(table, lane, pages) -> None:
+    """Rewrite lane ``lane``'s row of a (B, W) page ``table`` in place:
+    ``pages`` (n,) first, the garbage page 0 after them."""
+    row = torch.zeros((1, table.shape[1]), dtype=table.dtype,
+                      device=table.device)
+    row[0, :pages.shape[0]] = pages.to(table.dtype)
+    table.index_copy_(0, lane, row)
+
+
 def cache_write(cache_k, cache_v, k_new, v_new, pos, seq_axis: int = 1):
     """Write one token at ring position pos % S along ``seq_axis``, in
     place.  ``pos`` is an int or a 0-dim device tensor (no host read)."""

@@ -289,8 +289,9 @@ def paged_info(cfg: ArchConfig, cache_len: int, page_size: int):
 
 def cache_splice_paged(cfg: ArchConfig, cache, row, slot: int, pages,
                        page_size: int):
-    """Splice a prefilled B=1 cache ``row`` into lane ``slot`` of a paged
-    ``cache``, in place: dense xk/xv land in the lane's row; the first
+    """Splice a prefilled B=1 cache ``row`` into lane ``slot`` (an int or
+    a device index, see ``common.lane_index``) of a paged ``cache``, in
+    place: dense xk/xv land in the lane's row; the first
     ``len(pages)`` self-attention KV blocks go to the given pool pages
     (bskd pages reshape directly: the seq axis already leads) and the
     lane's table row is rewritten."""
@@ -298,8 +299,9 @@ def cache_splice_paged(cfg: ArchConfig, cache, row, slot: int, pages,
     ps = page_size
     table = cache["page_table"]
     pages = pages.to(device=table.device, dtype=torch.long)
+    lane = cm.lane_index(slot, table.device)
     for key in ("xk", "xv"):
-        cache[key][:, slot] = row[key][:, 0].to(cache[key].dtype)
+        cm.splice_lane(cache[key], row[key], lane)
     for key in ("k", "v"):
         src = row[key][:, 0, :n * ps]                  # (L, n*ps, KV, D)
         L = src.shape[0]
@@ -310,8 +312,7 @@ def cache_splice_paged(cfg: ArchConfig, cache, row, slot: int, pages,
             ssrc = row[skey][:, 0, :n * ps]            # (L, n*ps, KV)
             cache[skey + "_pages"][:, pages] = \
                 ssrc.reshape(L, n, ps, ssrc.shape[2])
-    table[slot].fill_(0)
-    table[slot, :n] = pages.to(table.dtype)
+    cm.set_table_row(table, lane, pages)
     return cache
 
 

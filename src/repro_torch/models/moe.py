@@ -44,8 +44,16 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import P
 from repro_torch.sharding_hints import get_rule, hint, is_dtensor
 
-# No CUDA_GRAPH_SAFE yet: the decode step (its sort-based dispatch) is not
-# yet shown capturable (ROADMAP A16), so the scheduler runs it eagerly.
+# The scheduler captures the batched decode step once as a CUDA graph
+# (runtime/scheduler.py): decode_step_batch is the dense family's with
+# _ffn, and the MoE block reads no device value on the host and shapes
+# nothing by data.  _capacity is a host int of the static token count;
+# _route's softmax and topk, and _dispatch's stable argsort, scatter_add_
+# counts, cumsum and index_put keep fixed shapes; the index_put's
+# duplicate indices all land in the drop row E*C, which is thrown away;
+# _combine gathers and sums in a fixed order.  The cache is written in
+# place by the dense family's writes.
+CUDA_GRAPH_SAFE = True
 
 
 def param_template(cfg: ArchConfig):

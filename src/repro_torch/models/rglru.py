@@ -337,8 +337,9 @@ def paged_info(cfg: ArchConfig, cache_len: int, page_size: int):
 
 def cache_splice_paged(cfg: ArchConfig, cache, row, slot: int, pages,
                        page_size: int):
-    """Splice a prefilled B=1 cache ``row`` into lane ``slot`` of a paged
-    ``cache``, in place: the dense h/conv state lands in the lane's row
+    """Splice a prefilled B=1 cache ``row`` into lane ``slot`` (an int or
+    a device index, see ``common.lane_index``) of a paged ``cache``, in
+    place: the dense h/conv state lands in the lane's row
     and the window's KV ring is scattered across the lane's ``pages``
     (all of its pages: the ring's wrap alignment is kept, since paged
     writes also wrap at W * ps == wlen)."""
@@ -349,8 +350,9 @@ def cache_splice_paged(cfg: ArchConfig, cache, row, slot: int, pages,
         raise ValueError(f"cache_splice_paged: {n} pages for a lane of "
                          f"{table.shape[1]} (full allocation)")
     pages = pages.to(device=table.device, dtype=torch.long)
-    cache["h"][:, slot] = row["h"][:, 0]
-    cache["conv"][:, slot] = row["conv"][:, 0].to(cache["conv"].dtype)
+    lane = cm.lane_index(slot, table.device)
+    cm.splice_lane(cache["h"], row["h"], lane)
+    cm.splice_lane(cache["conv"], row["conv"], lane)
     for key in ("k", "v"):
         src = row[key][:, 0]                           # (n_attn, KV, wlen, D)
         na, kv = src.shape[0], src.shape[1]
@@ -362,7 +364,7 @@ def cache_splice_paged(cfg: ArchConfig, cache, row, slot: int, pages,
             ssrc = row[skey][:, 0]                     # (n_attn, KV, wlen)
             cache[skey + "_pages"][:, pages] = \
                 ssrc.reshape(na, kv, n, ps).transpose(1, 2)
-    table[slot] = pages.to(table.dtype)
+    cm.set_table_row(table, lane, pages)
     return cache
 
 

@@ -44,7 +44,8 @@ RING_WRAP_SAFE = True
 # read no device value on the host, no shape depends on data, and the
 # state (wkv, shift_tm, shift_cm) is written in place with ``copy_``.
 # The step launches none of our kernels: B10 runs only in prefill, which
-# stays eager, so B10's per-stream workspace never enters a graph.
+# a captured admission holds (one graph per prefill bucket); B10's kept
+# records buffer is never replaced, so every such graph may hold it.
 CUDA_GRAPH_SAFE = True
 
 MIX_LORA = 32     # rank of the ddlerp mixing lora (5 targets: w,k,v,r,g)

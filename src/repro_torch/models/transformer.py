@@ -278,12 +278,14 @@ def paged_info(cfg: ArchConfig, cache_len: int, page_size: int):
 
 def cache_splice_paged(cfg: ArchConfig, cache, row, slot: int, pages,
                        page_size: int):
-    """Splice a prefilled B=1 ring cache ``row`` into lane ``slot`` of a
-    paged ``cache``, in place: its first ``len(pages)`` KV blocks go to
-    the given pool pages and the lane's table row is rewritten."""
+    """Splice a prefilled B=1 ring cache ``row`` into lane ``slot`` (an
+    int or a device index, see ``common.lane_index``) of a paged
+    ``cache``, in place: its first ``len(pages)`` KV blocks go to the
+    given pool pages and the lane's table row is rewritten."""
     n = pages.shape[0]
     ps = page_size
-    pages = pages.to(device=cache["page_table"].device, dtype=torch.long)
+    table = cache["page_table"]
+    pages = pages.to(device=table.device, dtype=torch.long)
     for key in ("k", "v"):
         src = row[key][:, 0, :, :n * ps]               # (L, KV, n*ps, D)
         L, kv = src.shape[0], src.shape[1]
@@ -295,9 +297,7 @@ def cache_splice_paged(cfg: ArchConfig, cache, row, slot: int, pages,
             ssrc = row[skey][:, 0, :, :n * ps]         # (L, KV, n*ps)
             cache[skey + "_pages"][:, pages] = \
                 ssrc.reshape(L, kv, n, ps).transpose(1, 2)
-    table = cache["page_table"]
-    table[slot].fill_(0)
-    table[slot, :n] = pages.to(table.dtype)
+    cm.set_table_row(table, cm.lane_index(slot, table.device), pages)
     return cache
 
 

@@ -17,13 +17,18 @@ derive without reading device memory (``_host_pos``, ``_pt_host``,
 ``_host_valid`` and ``_steps_left`` decide everything), so a generated
 token costs zero host syncs; the one device->host transfer per retired
 request goes through pinned memory at retirement and is counted in
-``host_syncs``.  The JAX package jits its programs; here the decode step
-of a family that declares itself capturable (``CUDA_GRAPH_SAFE``: the
-dense transformer, RWKV-6, the encoder-decoder and the RG-LRU hybrid)
-is captured once per scheduler as a CUDA graph on a CUDA device and
-replayed at every tick (``repro_torch.core.jit``); the MoE family's
-step, and every other program (prefill, admission, the page-table
-programs, the prefix-hit suffix step), runs eagerly.
+``host_syncs``.  The JAX package jits its programs; here, on a CUDA
+device and for a family that declares itself capturable
+(``CUDA_GRAPH_SAFE``: the dense transformer, the MoE, RWKV-6, the
+encoder-decoder and the RG-LRU hybrid), they are CUDA graphs
+(``repro_torch.core.jit``): the decode step is captured once per
+scheduler and replayed at every tick, the prefix-hit suffix step and
+its closing sample once per scheduler, and admission (prefill, the
+splice, the lane scalars) once per prefill bucket, as JAX compiles one
+per static ``plen``.  Every input of a captured program is staged into
+one block of device inputs before it runs (one non-blocking copy from
+pinned memory).  The page-table programs, an admission without buckets
+or past the top bucket, and ``decode_mode='vmapped'`` run eagerly.
 
 Everything else is the JAX package's, unchanged: mid-flight admission,
 prompt-length buckets (left padding, pads attended), the ring and paged
@@ -42,14 +47,14 @@ import time
 from collections import deque, namedtuple
 from contextlib import nullcontext
 from dataclasses import dataclass, field
-from typing import Any, Deque, Dict, List, Optional
+from typing import Any, Callable, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import models
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.jit import capture, graphs_enabled
+from repro_torch.core.jit import Captured, capture, graphs_enabled
 from repro_torch.models import common as cm
 from repro_torch.runtime.faults import FaultInjector
 from repro_torch.runtime.pagepool import GARBAGE_PAGE, PagePool
@@ -262,7 +267,22 @@ class ContinuousBatchingScheduler:
                            and self.decode_mode == "batched"
                            and getattr(self.mod, "CUDA_GRAPH_SAFE", False))
         self._graph = None
+        # the other captured programs (admission per bucket, the suffix
+        # step, its closing sample) share one memory pool; nothing they
+        # return lives in it
+        self._graphs: Dict[Any, Captured] = {}
+        self._pool = None
         self.state = self._init_state()
+        # the admission's first-token noise (drawn before the program, as
+        # the step's) and the suffix step's logits of its lane
+        self._first_noise = torch.empty((1, cfg.vocab_size),
+                                        dtype=torch.float32,
+                                        device=self.device)
+        self._suffix_logits = torch.empty((cfg.vocab_size,),
+                                          dtype=torch.float32,
+                                          device=self.device)
+        self._init_inputs(max(self._prefill_len,
+                              max(self.prefill_buckets or [0])))
         # the one device->host transfer per retirement lands here
         self._pinned = torch.empty(
             max_new_cap + 2, dtype=torch.int32,
@@ -302,6 +322,77 @@ class ContinuousBatchingScheduler:
                                          torch.float32, device=dev,
                                          **cache_kw),
         }
+
+    # the block of device inputs that admission, the suffix step and its
+    # closing sample read: int32 fields at fixed offsets (temp's fp32
+    # bits), then the pages row and the left-padded prompt
+    _FIELDS = ("tok", "pos", "slot", "plen", "budget", "temp")
+
+    def _init_inputs(self, prompt_room: int) -> None:
+        at = {k: i for i, k in enumerate(self._FIELDS)}
+        at["stop"] = len(self._FIELDS)
+        at["pages"] = at["stop"] + self.max_stop_tokens
+        at["toks"] = at["pages"] + (self.pages_per_lane if self._paged
+                                    else 0)
+        self._in_at = at
+        self._in_host = np.zeros(at["toks"] + prompt_room, np.int32)
+        self._in = torch.zeros(self._in_host.shape, dtype=torch.int32,
+                               device=self.device)
+
+    def _inputs(self) -> Dict[str, torch.Tensor]:
+        """Views of the input block by field (no copies)."""
+        at, blk = self._in_at, self._in
+        views = {k: blk[at[k]:at[k] + 1] for k in self._FIELDS}
+        views["temp"] = views["temp"].view(torch.float32)
+        views["stop"] = blk[at["stop"]:at["pages"]]
+        views["pages"] = blk[at["pages"]:at["toks"]]
+        views["toks"] = blk[at["toks"]:]
+        return views
+
+    def _stage(self, lo: int, hi: int) -> None:
+        """Copy ``[lo, hi)`` of the host mirror into the input block: one
+        non-blocking copy on the current stream from pinned memory that
+        the caching host allocator holds until the copy has run."""
+        src = torch.from_numpy(self._in_host[lo:hi])
+        if self.device.type == "cuda":
+            src = src.pin_memory()
+        self._in[lo:hi].copy_(src, non_blocking=True)
+
+    def _stage_lane(self, slot: int, req: "Request", plen: int,
+                    toks: Optional[np.ndarray] = None,
+                    pages: Optional[List[int]] = None) -> None:
+        """Stage an admission's inputs: the lane scalars and stop row, and
+        with ``toks`` (the left-padded prompt) the prompt and its pages."""
+        at, h = self._in_at, self._in_host
+        h[at["slot"]], h[at["plen"]] = slot, plen
+        h[at["budget"]] = req.max_new_tokens
+        h[at["temp"]] = np.float32(req.temperature).view(np.int32)
+        h[at["stop"]:at["pages"]] = self._stop_row(req)
+        hi = at["pages"]
+        if toks is not None:
+            h[at["pages"]:at["toks"]] = 0
+            if pages is not None:
+                h[at["pages"]:at["pages"] + len(pages)] = pages
+            h[at["toks"]:at["toks"] + plen] = toks
+            hi = at["toks"] + plen
+        self._stage(at["slot"], hi)
+
+    def _run(self, key, program: Callable[[], None],
+             captured: bool = True) -> None:
+        """Run ``program``: on a CUDA device of a capturable family,
+        unless ``captured`` is False or inside ``disable_graphs()``, as
+        the CUDA graph kept under ``key`` (captured at its first call,
+        in the scheduler's one pool); else eagerly."""
+        if not (captured and self._graphable and graphs_enabled()):
+            program()
+            return
+        graph = self._graphs.get(key)
+        if graph is not None:
+            graph.replay()
+            return
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        self._graphs[key] = capture(program, self.device, pool=self._pool)[1]
 
     def _upload(self, array: np.ndarray) -> torch.Tensor:
         """Host array -> the device without a blocking copy: pinned
@@ -389,83 +480,127 @@ class ContinuousBatchingScheduler:
         later masked writes stay masked."""
         self.state["active"][slot].fill_(False)
 
-    def _set_lane(self, slot: int, first, plen: int, req: "Request") -> None:
-        """Splice lane scalars after an admission: ``first`` is the
-        sampled first token (a 0-dim device tensor).  Host scalars go in
-        with ``fill_``: assigning a Python number to a CUDA element is a
-        blocking host-to-device copy, a sync."""
-        st = self.state
-        stop_row = self._upload(self._stop_row(req))
-        hit = (first == stop_row).any()
-        st["tokens"][slot, 0] = first
-        st["pos"][slot].fill_(plen)
-        st["temp"][slot].fill_(req.temperature)
-        st["active"][slot] = ~hit
-        st["budget"][slot].fill_(req.max_new_tokens)
-        st["out_buf"][slot].fill_(self.pad_id)
-        st["out_buf"][slot, 0] = first
-        st["out_len"][slot].fill_(1)
-        st["stop"][slot] = stop_row
+    def _set_lane(self, first) -> None:
+        """Splice the lane scalars of an admission from the input block:
+        ``first`` is the sampled first token (a 0-dim device tensor), the
+        lane a device index, so one program serves every lane."""
+        st, inp = self.state, self._inputs()
+        lane = inp["slot"].long()
+        hit = (first == inp["stop"]).any()
+        row = torch.full((1, self.max_new_cap), self.pad_id,
+                         dtype=torch.int32, device=self.device)
+        row[0, 0] = first
+        st["tokens"].index_copy_(0, lane, first.reshape(1, 1))
+        st["pos"].index_copy_(0, lane, inp["plen"])
+        st["temp"].index_copy_(0, lane, inp["temp"])
+        st["active"].index_copy_(0, lane, (~hit).reshape(1))
+        st["budget"].index_copy_(0, lane, inp["budget"])
+        st["out_buf"].index_copy_(0, lane, row)
+        st["out_len"].index_fill_(0, lane, 1)
+        st["stop"].index_copy_(0, lane, inp["stop"][None])
 
-    def _temp(self, req: "Request") -> torch.Tensor:
-        return torch.full((1,), req.temperature, dtype=torch.float32,
-                          device=self.device)
-
-    def _prefill_row(self, toks: np.ndarray, req: "Request"):
-        """Prefill one prompt (B=1) in fp32, sample its first token on
-        the device, and convert the row to the live cache dtype."""
+    def _prefill_row(self, plen: int):
+        """Prefill the block's prompt of ``plen`` tokens (B=1) in fp32,
+        sample its first token on the device with ``_first_noise``, and
+        convert the row to the live cache dtype."""
+        inp = self._inputs()
         logits, cache1 = self.mod.prefill(self.cfg, self.params,
-                                          self._upload(toks),
+                                          inp["toks"][:plen].view(1, plen),
                                           self._prefill_len,
                                           cache_dtype=torch.float32,
                                           backend=self._prefill_backend)
         # quantize/cast AFTER the float prefill, once per admission
         cache1 = self.mod.cache_to_kv_dtype(self.cfg, cache1, self.kv_dtype)
-        first = _sample(self._generator, logits[:, -1], self._temp(req))[0]
+        first = _sample(self._generator, logits[:, -1], inp["temp"],
+                        self._first_noise)[0]
         return first, cache1
 
-    def _admit(self, toks: np.ndarray, slot: int, req: "Request") -> None:
-        """Prefill one prompt and splice cache row + lane state into the
-        live batch."""
-        first, cache1 = self._prefill_row(toks, req)
-        for key, c in self.state["cache"].items():
-            c[:, slot] = cache1[key][:, 0]
-        self._set_lane(slot, first, toks.shape[1], req)
+    def _admission_program(self, plen: int) -> Callable[[], None]:
+        """The admission of one padded prompt length, JAX's ``_admit`` /
+        ``_admit_paged`` with static ``plen``: prefill, the splice of the
+        row into the lane (ring; or its first pages, a fixed count per
+        ``plen``, into the pool) and the lane scalars.  Every other input
+        is read from the block, so the same program serves every request
+        of that length."""
+        npages = 0
+        if self._paged:
+            npages = self.pages_per_lane if self._alloc_mode == "full" \
+                else -(-plen // self.page_size)
 
-    # -- paged programs (page table updates, COW, admission) -----------------
+        def admit() -> None:
+            first, row = self._prefill_row(plen)
+            inp = self._inputs()
+            lane = inp["slot"].long()
+            cache = self.state["cache"]
+            if self._paged:
+                self.mod.cache_splice_paged(self.cfg, cache, row, lane,
+                                            inp["pages"][:npages],
+                                            self.page_size)
+            else:
+                for key, c in cache.items():
+                    cm.splice_lane(c, row[key], lane)
+            self._set_lane(first)
+        return admit
 
-    def _admit_paged(self, toks: np.ndarray, slot: int, req: "Request",
-                     pages: List[int]) -> None:
-        """Paged cold-path admission: full prefill (B=1 ring row), its KV
-        blocks scattered into the lane's fresh ``pages``, table row
-        rewritten, lane state spliced."""
-        first, cache1 = self._prefill_row(toks, req)
-        self.mod.cache_splice_paged(self.cfg, self.state["cache"], cache1,
-                                    slot, self._upload(np.asarray(pages,
-                                                                  np.int32)),
-                                    self.page_size)
-        self._set_lane(slot, first, toks.shape[1], req)
+    def _admit(self, toks: np.ndarray, slot: int, req: "Request",
+               pages: Optional[List[int]] = None) -> None:
+        """Cold admission of the left-padded prompt ``toks`` (1, plen)
+        into lane ``slot`` (paged: onto the fresh ``pages``): stage the
+        inputs, draw the first token's noise, run the admission program
+        of this length, captured per prefill bucket (a length past the
+        top bucket, or without buckets, runs eagerly)."""
+        plen = toks.shape[1]
+        block = (self._in, self._in_host)
+        if self._in_at["toks"] + plen > self._in.numel():
+            # past the block's room, so past the top bucket and never
+            # captured: this admission reads a block of its own, and the
+            # captured programs keep theirs
+            self._init_inputs(plen)
+        try:
+            self._stage_lane(slot, req, plen, toks=toks[0], pages=pages)
+            self._first_noise.uniform_(generator=self._generator)
+            self._run(("admit", plen), self._admission_program(plen),
+                      captured=plen in (self.prefill_buckets or ()))
+        finally:
+            self._in, self._in_host = block
 
-    def _suffix_step(self, tok: int, slot: int, pos: int):
-        """One suffix-prefill step for a prefix-cache hit: feed ``tok`` at
-        ``pos`` on lane ``slot`` through the regular batched decode
-        (writing its KV through the page table) and return the lane's
-        logits.  The other lanes' writes are idempotent (each recomputes
-        the KV of its current token at its current position), and only
-        the cache advances."""
+    def _suffix_program(self) -> None:
+        """One suffix-prefill step for a prefix-cache hit: the block's
+        ``tok`` at ``pos`` on lane ``slot`` through the regular batched
+        decode (writing its KV through the page table), the lane's
+        logits into ``_suffix_logits``.  The other lanes' writes are
+        idempotent (each recomputes the KV of its current token at its
+        current position), and only the cache advances."""
+        st, inp = self.state, self._inputs()
+        lane = inp["slot"].long()
+        tokens = st["tokens"].index_copy(0, lane, inp["tok"][None])
+        pos = st["pos"].index_copy(0, lane, inp["pos"])
+        logits = self._decode_lanes(tokens, pos)
+        self._suffix_logits.copy_(logits.index_select(0, lane)[0])
+
+    def _stage_suffix(self, tok: int, slot: int, pos: int) -> None:
+        at, h = self._in_at, self._in_host
+        h[at["tok"]], h[at["pos"]], h[at["slot"]] = tok, pos, slot
+        self._stage(at["tok"], at["slot"] + 1)
+
+    def _suffix_step(self, tok: int, slot: int, pos: int) -> None:
+        """Stage ``tok``, ``pos`` and ``slot`` and run the suffix step
+        (one CUDA graph per scheduler on a card)."""
         self.decode_steps += 1
-        tokens = self.state["tokens"].clone()
-        tokens[slot, 0].fill_(tok)
-        pos_v = self.state["pos"].clone()
-        pos_v[slot].fill_(pos)
-        return self._decode_lanes(tokens, pos_v)[slot]
+        self._stage_suffix(tok, slot, pos)
+        self._run("suffix", self._suffix_program)
 
-    def _finalize_admit(self, logits, slot: int, req: "Request",
-                        plen: int) -> None:
+    def _finalize_program(self) -> None:
         """Close a prefix-hit admission: sample the first output token
-        from the last suffix-step logits, splice lane scalars."""
-        first = _sample(self._generator, logits[None], self._temp(req))[0]
-        self._set_lane(slot, first, plen, req)
+        from the last suffix step's logits, splice the lane scalars."""
+        first = _sample(self._generator, self._suffix_logits[None],
+                        self._inputs()["temp"], self._first_noise)[0]
+        self._set_lane(first)
+
+    def _finalize_admit(self, slot: int, req: "Request", plen: int) -> None:
+        self._stage_lane(slot, req, plen)
+        self._first_noise.uniform_(generator=self._generator)
+        self._run("finalize", self._finalize_program)
 
     def _set_pt_row(self, slot: int, row: Optional[np.ndarray]) -> None:
         table = self.state["cache"]["page_table"]
@@ -937,7 +1072,6 @@ class ContinuousBatchingScheduler:
             row[:span] = shared
             self._set_pt_row(slot, row)
             # suffix prefill: one batched step per remaining prompt token
-            logits = None
             aborted = None
             with self._span("suffix_prefill", uid=req.uid,
                             tokens=plen - t):
@@ -958,7 +1092,7 @@ class ContinuousBatchingScheduler:
                             break
                     if aborted:
                         break
-                    logits = self._suffix_step(int(toks[0, i]), slot, i)
+                    self._suffix_step(int(toks[0, i]), slot, i)
             if aborted:
                 # unwind: drop every ref this lane holds (shared pages
                 # it mapped AND pages the suffix loop allocated/COW'd)
@@ -971,7 +1105,7 @@ class ContinuousBatchingScheduler:
                 if aborted == "dropped":
                     self._finish_dropped(req, "cancelled")
                 return aborted
-            self._finalize_admit(logits, slot, req, plen)
+            self._finalize_admit(slot, req, plen)
         else:
             rt = self._rt(req.uid)
             if rt is not None:
@@ -983,7 +1117,7 @@ class ContinuousBatchingScheduler:
                 return "defer"
             self._pt_host[slot] = 0
             self._pt_host[slot, :npages] = pages
-            self._admit_paged(toks, slot, req, pages)
+            self._admit(toks, slot, req, pages)
         self._host_pos[slot] = plen
         if self.prefix_sharing:
             # publish this lane's page-aligned prefixes (and the full

@@ -1070,6 +1070,33 @@ def test_rwkv6_chunked_kernel(dev, b, t, h, n, w_zero):
     assert torch.equal(o2, out) and torch.equal(s2, state)
 
 
+def test_rwkv6_kept_records_survive_a_larger_capture(dev):
+    """Two prefill buckets captured small then large on one stream, both
+    within KEEP_BYTES: the larger capture must not replace the kept
+    records buffer that the small graph holds.  With freed memory filled
+    with NaN, the small graph's replay equals an eager launch bit for
+    bit, and the kept buffer is the one made at the first launch."""
+    from repro_torch.core.jit import capture
+    from repro_torch.kernels import rwkv6_chunk as rw
+    small = _wkv_inputs(dev, 1, 32, 40, 64, seed=1)
+    large = _wkv_inputs(dev, 1, 1024, 40, 64, seed=2)
+    assert rw.plan(1, 32, 40, 64).workspace < \
+        rw.plan(1, 1024, 40, 64).workspace <= rw.KEEP_BYTES
+    want = [t.clone() for t in kops.rwkv6_chunked(*small)]
+    _, g_small = capture(lambda: kops.rwkv6_chunked(*small), dev)
+    kept = dict(rw._kept)
+    _, g_large = capture(lambda: kops.rwkv6_chunked(*large), dev)
+    assert {k: v.data_ptr() for k, v in rw._kept.items()} == \
+        {k: v.data_ptr() for k, v in kept.items()}
+    junk = [torch.full((1 << 24,), float("nan"), device=dev)
+            for _ in range(4)]
+    g_large.replay()
+    got = g_small.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    del junk
+
+
 def test_rwkv6_chunked_kernel_bf16(dev):
     """bf16 r, k, v, w with fp32 arithmetic: out in bf16 within its
     rounding (2^-9 relative), the fp32 state at the fp32 bar."""
@@ -1599,7 +1626,7 @@ GRAPH_FORMS = {"ring-fp32": {}, "paged-int8": {"kv_layout": "paged",
                                                "page_size": 16,
                                                "kv_dtype": "int8"}}
 GRAPH_CASES = [(a, f) for a in ("tinyllama-1.1b", "whisper-medium",
-                                "recurrentgemma-9b")
+                                "recurrentgemma-9b", "granite-moe-3b-a800m")
                for f in GRAPH_FORMS] + [("rwkv6-3b", "ring-fp32")]
 
 
@@ -1652,6 +1679,65 @@ def test_scheduler_graph_equals_eager(dev, arch, form):
         "flash_attention", "decode_attention_paged_q8" if opts
         else "decode_attention"}
     assert want <= set(graph[3])
+
+
+# (prompt length, temperature) of the bucketed runs: the two of 20 share
+# 19 tokens in bucket 32, a whole page (a prefix hit on the paged dense
+# and MoE schedulers); 40 is past the top bucket (admitted eagerly); 5
+# and 7 share bucket 8 (a replay)
+BUCKETS = [8, 16, 32]
+BUCKET_PROMPTS = ((5, 0.0), (20, 0.8), (20, 0.0), (40, 1.3), (9, 0.0),
+                  (7, 0.0))
+
+
+@pytest.mark.parametrize("arch,form", GRAPH_CASES)
+def test_bucketed_scheduler_graphs_equal_eager(dev, arch, form):
+    """The runs of test_scheduler_graph_equals_eager with prefill buckets
+    8, 16, 32: admission is captured once per bucket it meets and
+    replayed (the 40-token prompt past the top bucket is admitted
+    eagerly), the paged dense and MoE schedulers' prefix hit runs the
+    captured suffix step and closing sample; tokens (sampled ones
+    included), decode_steps, host_syncs and launches equal the eager
+    run's under disable_graphs(), which captures nothing."""
+    from contextlib import nullcontext
+
+    from repro_torch import models
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core.jit import disable_graphs
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = reduced(get_config(arch))
+    params = models.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                device=dev)
+    opts = GRAPH_FORMS[form]
+
+    def run(eager):
+        reqs = [Request(uid=i, prompt=list(range(3, 3 + n)),
+                        max_new_tokens=12, temperature=t)
+                for i, (n, t) in enumerate(BUCKET_PROMPTS)]
+        reqs[2].prompt[-1] = 99
+        eng = ServingEngine(cfg, params, max_batch=4, cache_len=64,
+                            seed=3, prefill_buckets=BUCKETS, device=dev,
+                            **opts)
+        with disable_graphs() if eager else nullcontext():
+            kops.reset_launches()
+            sched = eng.scheduler()
+            for r in reqs:
+                sched.submit(r)
+            sched.run()
+            launches = {k: v for k, v in kops.launches().items() if v}
+        replays = {k: g.replays for k, g in sched._graphs.items()}
+        return ([r.output for r in reqs], sched.decode_steps,
+                sched.host_syncs, launches, replays, sched.prefix_hits)
+    graph, eager = run(False), run(True)
+    assert graph[:4] == eager[:4] and graph[5] == eager[5]
+    assert eager[4] == {}
+    assert {("admit", 8), ("admit", 16), ("admit", 32)} <= set(graph[4])
+    assert ("admit", 40) not in graph[4]
+    assert graph[4][("admit", 8)] >= 1
+    if graph[5]:                                # a prefix hit
+        assert graph[4]["suffix"] >= 1 and "finalize" in graph[4]
+    assert graph[5] == (arch in ("tinyllama-1.1b", "granite-moe-3b-a800m")
+                        and form == "paged-int8")
 
 
 def test_rebuilt_scheduler_captures_its_own_graph(dev):

@@ -10,15 +10,20 @@ graphs are dropped, ``disable_graphs()`` nests, the scheduler's tokens
 and counters equal JAX's inside and outside ``disable_graphs()``, its
 state tensors are never rebound (a captured step reads them by address),
 the step's noise is drawn as it was when ``_sample`` drew it, and which
-families declare themselves capturable (all but the MoE).  For RWKV-6,
-Whisper and RecurrentGemma (reduced) the scheduler's tokens equal JAX's
-inside and outside ``disable_graphs()`` in each cache form the family
-serves, and their state is written in place through admission,
-preemption, cancellation and retirement.  Every flagged family's step
-(``_advance``, the ``ref`` backend) runs on fake tensors, where a host
-read or a shape that depends on data raises (``FakeTensorMode``); five
-host reads are its negative controls.  The captures themselves are held
-on the card by the ``cuda`` tests in test_torch_cuda.py and by
+families declare themselves capturable (all five).  For RWKV-6, Whisper,
+RecurrentGemma and Granite-MoE (reduced) the scheduler's tokens equal
+JAX's inside and outside ``disable_graphs()`` in each cache form the
+family serves, and the state of the first three is written in place
+through admission, preemption, cancellation and retirement.  Every
+flagged family's step (``_advance``, the ``ref`` backend), admission
+program, suffix step and closing sample run on fake tensors, where a
+host read or a shape that depends on data raises (``FakeTensorMode``);
+five host reads are their negative controls.  One admission program and
+one suffix program, each run twice on two requests' inputs staged into
+the block, give the eager runs of the second: no host value is bound
+into a program.  Bucketed schedulers (ring, and paged with a prefix hit)
+equal JAX's with the same buckets.  The captures themselves are held on
+the card by the ``cuda`` tests in test_torch_cuda.py and by
 chip_smoke.py's serve phases.  Weights come from numpy through
 ``params_from_numpy``.
 """
@@ -56,12 +61,13 @@ from repro_torch.runtime.scheduler import ContinuousBatchingScheduler as TSched
 from repro_torch.runtime.scheduler import Request as TRequest
 
 import test_torch_encdec
+import test_torch_moe
 import test_torch_rglru
 import test_torch_rwkv6
 from conftest import assert_close
 from test_torch_graph import MODELS, graphs, inputs, numpy_params
-from test_torch_scheduler import (MIX, P0, P1, _requests, _run, assert_same,
-                                  run_both, tiny)  # noqa: F401
+from test_torch_scheduler import (MIX, P0, P1, _model, _requests, _run,
+                                  assert_same, run_both, tiny)  # noqa: F401
 from test_torch_transformer import one_torch_thread  # noqa: F401
 
 
@@ -214,11 +220,11 @@ def test_recorded_launches_leave_the_counts_until_replayed():
 
 @pytest.mark.parametrize("mod,capturable", [
     (transformer, True), (rwkv6, True), (encdec, True), (rglru, True),
-    (moe, False)], ids=lambda v: getattr(v, "__name__", "").split(".")[-1]
+    (moe, True)], ids=lambda v: getattr(v, "__name__", "").split(".")[-1]
     or str(v))
 def test_capturable_families(tiny, mod, capturable):
-    """Every family but the MoE declares its step capturable; a CPU
-    scheduler never captures."""
+    """Every family declares its programs capturable; a CPU scheduler
+    never captures."""
     assert getattr(mod, "CUDA_GRAPH_SAFE", False) is capturable
     _, cfg, _, tp = tiny
     sched = TSched(cfg, tp, max_slots=2, cache_len=32, max_new_cap=8)
@@ -311,8 +317,8 @@ def test_step_noise_is_drawn_as_sample_drew_it(tiny):
 
 
 # ---------------------------------------------------------------------------
-# RWKV-6, Whisper and RecurrentGemma: the scheduler's step, captured on a
-# card, runs eagerly here on the same code
+# RWKV-6, Whisper, RecurrentGemma and Granite-MoE: the scheduler's step,
+# captured on a card, runs eagerly here on the same code
 # ---------------------------------------------------------------------------
 
 # arch -> (its test module, whose _ragged_run and MIX these tests reuse;
@@ -320,7 +326,9 @@ def test_step_noise_is_drawn_as_sample_drew_it(tiny):
 FAMILIES = {"rwkv6-3b": (test_torch_rwkv6, ("ring-fp32",)),
             "whisper-medium": (test_torch_encdec, ("ring-fp32", "paged-int8")),
             "recurrentgemma-9b": (test_torch_rglru,
-                                  ("ring-fp32", "paged-int8"))}
+                                  ("ring-fp32", "paged-int8")),
+            "granite-moe-3b-a800m": (test_torch_moe,
+                                     ("ring-fp32", "paged-int8"))}
 FORMS = {"ring-fp32": {},
          "paged-int8": dict(kv_layout="paged", page_size=16, kv_dtype="int8")}
 
@@ -428,7 +436,8 @@ def test_family_state_is_written_in_place(arch):
 # every flagged family in the cache forms it serves (RWKV-6 has no pages)
 TRACED = [("tinyllama-1.1b", "ring-fp32"), ("tinyllama-1.1b", "paged-int8"),
           ("rwkv6-3b", "ring-fp32")] + [
-    (a, f) for a in ("whisper-medium", "recurrentgemma-9b")
+    (a, f) for a in ("whisper-medium", "recurrentgemma-9b",
+                     "granite-moe-3b-a800m")
     for f in ("ring-fp32", "paged-int8")]
 TRACE_FORMS = {"ring-fp32": {}, "paged-int8": dict(
     kv_layout="paged", page_size=4, kv_dtype="int8")}
@@ -448,11 +457,14 @@ def _fake_scheduler(arch, form):
     cfg = reduced(get_config(arch))
     params = models.init_params(cfg, torch.Generator().manual_seed(0))
     sched = TSched(cfg, params, max_slots=2, cache_len=16, max_new_cap=8,
-                   attn_backend="ref", **TRACE_FORMS[form])
+                   attn_backend="ref", prefill_buckets=[8, 24],
+                   **TRACE_FORMS[form])
     mode = FakeTensorMode()
-    sched.params, sched.state, sched._noise, sched._rows = pytree.tree_map(
+    (sched.params, sched.state, sched._noise, sched._rows, sched._in,
+     sched._first_noise, sched._suffix_logits) = pytree.tree_map(
         mode.from_tensor,
-        (sched.params, sched.state, sched._noise, sched._rows))
+        (sched.params, sched.state, sched._noise, sched._rows, sched._in,
+         sched._first_noise, sched._suffix_logits))
     return sched, mode
 
 
@@ -485,3 +497,222 @@ def test_host_reads_in_a_step_raise_on_fake_tensors(read):
     with mode, pytest.raises((DataDependentOutputException,
                               DynamicOutputShapeException)):
         with_read()
+
+
+# the scheduler's other programs, each as it is captured on a card:
+# admission of a bucket (24 prefills past RecurrentGemma's window of 16
+# here, the roll), the suffix step, its closing sample
+PROGRAMS = {"admission": lambda s: s._admission_program(8),
+            "suffix": lambda s: s._suffix_program,
+            "finalize": lambda s: s._finalize_program}
+PROGRAMS_PAST_WINDOW = {
+    "admission-24": lambda s: s._admission_program(24)}
+
+
+@pytest.mark.parametrize("arch,form,program", [
+    (a, f, p) for a, f in TRACED for p in PROGRAMS] + [
+    ("recurrentgemma-9b", f, "admission-24")
+    for f in ("ring-fp32", "paged-int8")])
+def test_flagged_programs_run_on_fake_tensors(arch, form, program):
+    """Every flagged family's admission program (prefill, cast, first
+    sample, splice, lane scalars: Whisper's encoder over its frames,
+    RecurrentGemma's roll past the window), suffix step and closing
+    sample run twice through the ``ref`` backend on fake tensors, reading
+    every input from the (fake) block: no host read, no shape that
+    depends on data, every state tensor's shape and dtype left."""
+    sched, mode = _fake_scheduler(arch, form)
+    meta = pytree.tree_map(lambda t: (tuple(t.shape), t.dtype), sched.state)
+    with mode:
+        run = {**PROGRAMS, **PROGRAMS_PAST_WINDOW}[program](sched)
+        run()
+        run()
+    assert pytree.tree_map(lambda t: (tuple(t.shape), t.dtype),
+                           sched.state) == meta
+
+
+@pytest.mark.parametrize("program", list(PROGRAMS))
+@pytest.mark.parametrize("read", list(HOST_READS))
+def test_host_reads_in_a_program_raise_on_fake_tensors(read, program):
+    """The negative controls of the programs' trace: each program with
+    one host read of its input block added raises."""
+    sched, mode = _fake_scheduler("tinyllama-1.1b", "paged-int8")
+    run = PROGRAMS[program](sched)
+
+    def with_read():
+        HOST_READS[read](sched._inputs()["slot"])
+        run()
+    with mode, pytest.raises((DataDependentOutputException,
+                              DynamicOutputShapeException)):
+        with_read()
+
+
+# ---------------------------------------------------------------------------
+# A program run again on new inputs: no host value is bound into it
+# ---------------------------------------------------------------------------
+
+REPLAY_FORMS = {"ring-fp32": {},
+                "paged-int8": dict(kv_layout="paged", page_size=4,
+                                   kv_dtype="int8")}
+
+
+def _lane(sched, lane):
+    """Lane ``lane``'s state and cache (paged: its table row and the
+    pool pages it maps), as plain tensors."""
+    st = sched.state
+    out = {k: v[lane].clone() for k, v in st.items() if k != "cache"}
+    cache = st["cache"]
+    if "page_table" in cache:
+        row = cache["page_table"][lane].long()
+        out["page_table"] = row.clone()
+        out.update({k: v[:, row].clone() for k, v in cache.items()
+                    if k.endswith("_pages")})
+    else:
+        out.update({k: v[:, lane].clone() for k, v in cache.items()})
+    return out
+
+
+@pytest.mark.parametrize("form", list(REPLAY_FORMS))
+def test_admission_program_run_again_gives_the_eager_admission(tiny, form):
+    """One admission program of padded length 8, run for request A on
+    lane 0 (sampled at 0.9, a stop token, pages 1-2) and then, with B's
+    inputs staged into the block, run again for B on lane 1 (greedy,
+    another budget, pages 3-4): lane 1 equals a fresh scheduler's eager
+    admission of B, and lane 0 keeps A's.  A slot, temperature, budget,
+    stop row, page or prompt bound into the program would show here."""
+    _, cfg, _, tp = tiny
+    opts = REPLAY_FORMS[form]
+
+    def sched():
+        return TSched(cfg, tp, max_slots=2, cache_len=32, max_new_cap=8,
+                      prefill_buckets=[8], **opts)
+
+    def padded(prompt):
+        row = np.zeros((1, 8), np.int32)
+        row[0, 8 - len(prompt):] = prompt
+        return row
+    a = TRequest(uid=0, prompt=[3, 1, 4, 1, 5], max_new_tokens=5,
+                 temperature=0.9, stop_tokens=[7])
+    b = TRequest(uid=1, prompt=[9, 2, 6, 5, 3, 5, 8], max_new_tokens=7)
+    pages = {0: [1, 2], 1: [3, 4]} if opts else {0: None, 1: None}
+    s = sched()
+    run = s._admission_program(8)
+    for lane, req in ((0, a), (1, b)):
+        s._stage_lane(lane, req, 8, toks=padded(req.prompt)[0],
+                      pages=pages[lane])
+        s._first_noise.uniform_(generator=s._generator)
+        run()
+    a_alone, b_alone = sched(), sched()
+    a_alone._admit(padded(a.prompt), 0, a, pages[0])
+    b_alone._admit(padded(b.prompt), 1, b, pages[1])
+    got, want = _lane(s, 1), _lane(b_alone, 1)
+    assert got.keys() == want.keys()
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+    assert int(got["pos"]) == 8 and int(got["budget"]) == 7
+    assert float(got["temp"]) == 0.0 and bool(got["active"])
+    kept = _lane(s, 0)
+    assert float(kept["temp"]) == pytest.approx(0.9)
+    assert kept["stop"].tolist()[0] == 7 and int(kept["budget"]) == 5
+    for k in ("tokens", "pos", "budget", "stop"):
+        assert torch.equal(kept[k], _lane(a_alone, 0)[k]), k
+
+
+def test_suffix_program_run_again_gives_the_eager_step(tiny):
+    """One suffix program run for (token 11, lane 0, its position) and
+    again, with new inputs staged, for (token 12, lane 1, its position):
+    each time the lane's logits and the cache equal the eager suffix
+    step's (the lane's token and position replaced in copies of the
+    state, the batched decode, the lane's row)."""
+    _, cfg, _, tp = tiny
+    opts = REPLAY_FORMS["paged-int8"]
+
+    def admitted():
+        s = TSched(cfg, tp, max_slots=2, cache_len=32, max_new_cap=8,
+                   **opts)
+        for i, p in enumerate(([3, 1, 4, 1, 5], [9, 2, 6])):
+            s.submit(TRequest(uid=i, prompt=p, max_new_tokens=6))
+        s.tick()
+        return s
+
+    def eager(s, tok, lane, pos):
+        tokens = s.state["tokens"].clone()
+        tokens[lane, 0] = tok
+        pos_v = s.state["pos"].clone()
+        pos_v[lane] = pos
+        return s._decode_lanes(tokens, pos_v)[lane]
+    s, ref = admitted(), admitted()
+    run = s._suffix_program
+    for tok, lane in ((11, 0), (12, 1)):
+        pos = int(s._host_pos[lane])
+        s._stage_suffix(tok, lane, pos)
+        run()
+        want = eager(ref, tok, lane, pos)
+        assert torch.equal(s._suffix_logits, want.float())
+        for k, v in s.state["cache"].items():
+            assert torch.equal(v, ref.state["cache"][k]), k
+
+
+# ---------------------------------------------------------------------------
+# Bucketed schedulers (admission captured per bucket on a card) against
+# JAX's with the same buckets
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _granite():
+    return _model("granite-moe-3b-a800m")
+
+
+@pytest.mark.parametrize("form", [
+    dict(), dict(kv_layout="paged", kv_dtype="int8", page_size=4)],
+    ids=["ring-fp32", "paged-int8"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "granite-moe-3b-a800m"])
+def test_bucketed_scheduler_inside_and_outside_disable_graphs_matches_jax(
+        tiny, arch, form):
+    """Prefill buckets 4, 8, 16, 32 on 2 lanes: two 13-token prompts that
+    share 12 tokens fall in bucket 16 (on pages of 4 a prefix hit, its
+    suffix fed through the suffix step), the rest in 4 and 8; greedy
+    tokens and counters equal the JAX scheduler's with the same buckets,
+    inside and outside ``disable_graphs()``."""
+    model = tiny if arch == "tinyllama-1.1b" else _granite()
+    base = [7, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11]
+    mix = MIX[:3] + [dict(prompt=base + [20], max_new_tokens=6),
+                     dict(prompt=base + [30], max_new_tokens=5)]
+    kw = dict(prefill_buckets=[4, 8, 16, 32], **form)
+    jreqs, treqs, js, ts = run_both(model, mix, **kw)
+    assert_same(jreqs, treqs, js, ts)
+    _, cfg, _, tp = model
+    with disable_graphs():
+        inner = _requests(TRequest, mix)
+        ti = _run(TSched(cfg, tp, max_slots=2, cache_len=64, max_new_cap=16,
+                         **kw), inner)
+    assert_same(jreqs, inner, js, ti)
+    assert ti.decode_steps == ts.decode_steps > 0
+    assert ts._graphs == {} and ti._graphs == {}
+    if form:
+        assert ts.prefix_hits >= 1
+
+
+def test_a_prompt_past_the_block_reads_a_block_of_its_own():
+    """A wrap-safe family's prompt longer than the input block's room
+    (past the top bucket, so admitted eagerly) is staged into a block of
+    its own: the scheduler's block, which captured programs read by
+    address, is kept, and the tokens equal those of a scheduler whose
+    block holds the prompt (RWKV-6's state does not depend on
+    cache_len)."""
+    _, cfg, _, tp = _family("rwkv6-3b")
+    prompts = [[3, 1, 4], list(range(5, 35)), [2, 7, 1, 8, 2]]
+
+    def run(cache_len):
+        sched = TSched(cfg, tp, max_slots=2, cache_len=cache_len,
+                       max_new_cap=8, prefill_buckets=[4, 8])
+        reqs = [TRequest(uid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        block = sched._in
+        _run(sched, reqs)
+        assert sched._in is block
+        return sched, [r.output for r in reqs]
+    sched, got = run(16)
+    assert sched._in.numel() < sched._in_at["toks"] + 30
+    roomy, want = run(64)
+    assert roomy._in.numel() >= roomy._in_at["toks"] + 30
+    assert got == want

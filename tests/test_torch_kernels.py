@@ -499,19 +499,21 @@ def test_wkv_plan_forced_blocks_and_records():
 
 
 def test_wkv_records_kept_up_to_the_cap():
-    """Up to KEEP_BYTES the records' buffer is kept per (device, stream)
-    and reused, grown when a call needs more; a larger call gets a buffer
-    of its own that is not kept."""
+    """Up to KEEP_BYTES the records' buffer is one buffer of KEEP_BYTES
+    per (device, stream), made at the first call and never replaced (a
+    captured launch holds its address), whatever a later call needs; a
+    larger call gets a buffer of its own that is not kept."""
     dev, stream = torch.device("cpu"), -12345
     try:
         small = trwc._records(dev, stream, 1000)
+        assert small.numel() == trwc.KEEP_BYTES
         assert trwc._records(dev, stream, 800) is small
-        grown = trwc._records(dev, stream, 5000)
-        assert grown.numel() == 5000 and grown is not small
-        assert trwc._records(dev, stream, 5000) is grown
+        assert trwc._records(dev, stream, 5000) is small
+        assert trwc._records(dev, stream, trwc.KEEP_BYTES) is small
         big = trwc._records(dev, stream, trwc.KEEP_BYTES + 1)
         assert big.numel() == trwc.KEEP_BYTES + 1
-        assert trwc._kept[(dev.index, stream)] is grown
+        assert trwc._kept[(dev.index, stream)] is small
+        assert trwc._records(dev, stream, 1000) is small
     finally:
         trwc._kept.pop((dev.index, stream), None)
 
