@@ -254,6 +254,7 @@ CUDA, or a directory without the repo.
 from __future__ import annotations
 
 import bisect
+import functools
 import gc
 import json
 import math
@@ -6079,15 +6080,295 @@ def _mesh_dryrun(run):
             "collectives": res.get("collectives"), "run_s": res.get("run_s")}
 
 
+# the memory check: four steps of dryrun.build_step at full width and
+# MESH_LAYERS deep in fp32, (name, arch, kind, batch, seq, the pair whose
+# rules the step takes, or None for rules_for(kind))
+MESH_MEMORY_STEPS = (
+    ("train", "tinyllama-1.1b", "train", MESH_TRAIN["batch"],
+     MESH_TRAIN["seq"], None),
+    ("prefill", "tinyllama-1.1b", "prefill", 4, 2048, None),
+    ("decode", "tinyllama-1.1b", "decode", 8, 2048, None),
+    ("moe_prefill", MOE_ARCH, "prefill", *MESH_MOE_TOKENS, "prefill_32k"),
+)
+MESH_MEMORY_TOL = 0.10           # |counted - measured peak| / measured
+# a tighter reading printed beside the bar (not a gate): a count that
+# drifts from the allocator by more shows here first
+MESH_MEMORY_WATCH = 0.01
+# a position that has wrapped a 2048-slot ring (the decode checks)
+MESH_WRAPPED_POS = 2048 + 517
+# kernel launches of each step on the card (L = MESH_LAYERS)
+MESH_MEMORY_LAUNCHES = {
+    "train": {"flash_attention_fwd": 2, "flash_attention_dq": 1,
+              "flash_attention_dkv": 1},
+    "prefill": {"flash_attention": 1},
+    "decode": {"decode_attention": 1},
+    "moe_prefill": {"flash_attention": 1},
+}
+MEMORY_COUNT = """
+import dataclasses, json, sys
+import torch
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
+dryrun.init_fake_group(1)
+mesh = make_production_mesh(shape=(1, 1))
+out = {}
+for name, arch, kind, b, s, layers, rules in json.loads(sys.argv[1]):
+    rules = {k: tuple(v) if isinstance(v, list) else v
+             for k, v in rules.items()}
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    _, out[name] = dryrun.count_step(cfg, ShapeSpec(name, s, b, kind), rules,
+                                     mesh, torch.float32)
+print("RESULT " + json.dumps(out))
+"""
+
+
+def _memory_rules(arch, kind, pair):
+    from repro_torch.launch import sharding as shd
+    rules = shd.rules_for_pair(arch, pair, kind, optimized=True) if pair \
+        else shd.rules_for(kind)
+    rules.pop("_mesh_shape", None)
+    return rules
+
+
+def _start_memory_count():
+    """The dry run's count of MESH_MEMORY_STEPS on meta tensors, in a
+    subprocess with a one-rank fake group (it runs while the card
+    measures)."""
+    steps = [(name, arch, kind, b, s, MESH_LAYERS,
+              _memory_rules(arch, kind, pair))
+             for name, arch, kind, b, s, pair in MESH_MEMORY_STEPS]
+    env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
+    return subprocess.Popen([sys.executable, "-c", MEMORY_COUNT,
+                             json.dumps(steps)], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=ROOT)
+
+
+def _on_card(torch, struct):
+    """A card tensor of a meta struct's shape and dtype, filled in place
+    (no temporary): small positive floats, ints below every vocab."""
+    t = torch.empty(struct.shape, dtype=struct.dtype, device=DEVICE)
+    return t.uniform_(0.0, 0.02) if t.is_floating_point() \
+        else t.random_(0, 1000)
+
+
+def _mesh_memory_step(torch, mesh, name, arch, kind, b, s, pair):
+    """One step of build_step on the card: the argument bytes and the
+    peak of a second call, both over memory_allocated() before the
+    arguments were made, and the second call's kernel launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.dryrun import build_step
+    from repro_torch.sharding_hints import axis_rules
+    from torch.utils._pytree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config(arch), num_layers=MESH_LAYERS)
+    rules = _memory_rules(arch, kind, pair)
+    gc.collect()
+    torch.cuda.synchronize()
+    with axis_rules(rules, mesh):
+        step, structs, placements = build_step(
+            cfg, ShapeSpec(name, s, b, kind), rules, mesh,
+            dtype=torch.float32)
+        base = torch.cuda.memory_allocated()
+        args = tuple(shd.distribute(tree_map(lambda t: _on_card(torch, t),
+                                             st), p, mesh)
+                     for st, p in zip(structs, placements))
+        gc.collect()
+        measured_args = torch.cuda.memory_allocated() - base
+        n_args = len(tree_leaves(structs))
+        out = step(*args)                        # warm: kept workspaces
+        del out
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kops.reset_launches()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = {k: v for k, v in kops.launches().items() if v}
+        del out
+        rec = {"measured_args": measured_args, "measured_peak": peak,
+               "arg_tensors": n_args, "launches": launches, "step_s": wall}
+        if kind == "decode":
+            rec["against_ref"] = _decode_step_against_ref(torch, step, args)
+        del args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _decode_step_against_ref(torch, step, args):
+    """The decode step's attention on the one-rank mesh, whose rank holds
+    the whole ring, runs B6 (``cache_attend_sharded``'s 'cuda' route):
+    its logits against the same step with the einsum route ('ref'), on
+    the same params, token and caches, at the drawn position (below the
+    2048 slots) and at one that has wrapped the ring; B6 launched once a
+    layer on the first route and never on the second.  Each pair of runs
+    writes the same token to the same slot, so both read one cache."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import common as cm
+    attend = cm.cache_attend_sharded
+    pos = _local(args[3])
+    rec = {}
+
+    def run_step():
+        kops.reset_launches()
+        logits = _local(step(*args)[0]).clone()
+        torch.cuda.synchronize()
+        return logits, kops.launches()["decode_attention"]
+
+    for label, p in (("below", int(pos.item())), ("wrapped",
+                                                 MESH_WRAPPED_POS)):
+        pos.fill_(p)
+        got, b6 = run_step()
+        cm.cache_attend_sharded = functools.partial(attend, backend="ref")
+        try:
+            want, b6_ref = run_step()
+        finally:
+            cm.cache_attend_sharded = attend
+        rtol, atol = DECODE_TOL
+        rec[label] = {"pos": p, "max_abs_err": (got - want).abs().max()
+                      .item(), "scale": want.abs().max().item(),
+                      "b6_launches": [b6, b6_ref],
+                      "ok": bool(torch.isfinite(got).all() and
+                                 torch.allclose(got, want, rtol=rtol,
+                                                atol=atol) and
+                                 [b6, b6_ref] == [MESH_LAYERS, 0])}
+    return rec
+
+
+def _mesh_ring_against_ref(run, torch, mesh):
+    """``cache_attend_sharded`` on the one-rank mesh at TinyLlama's decode
+    widths (8 lanes, 32 q heads over 4 kv heads of 64, 2048 slots, fp32):
+    its B6 route ('cuda') against its einsum route ('ref') on copies of
+    the same caches, at a position below the slots and one that has
+    wrapped the ring, in both cache layouts, and the cross form (nothing
+    written, every slot valid): outputs at DECODE_TOL, the written
+    caches equal."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.sharding_hints import axis_rules, zeros
+    from repro_torch.models import common as cm
+    b, kv, h, s, d = 8, 4, 32, 2048, 64
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    rtol, atol = DECODE_TOL
+    out = {}
+    with axis_rules(shd.rules_for("decode"), mesh):
+        def filled(shape, *axes, like=None):
+            t = zeros(shape, torch.float32, DEVICE, *axes)
+            if like is None:
+                _local(t).normal_(generator=gen)
+            else:
+                _local(t).copy_(_local(like))
+            return t
+
+        q = filled((b, 1, h, d), "batch", None, "heads", None)
+        for layout in ("bksd", "bskd"):
+            cshape = (b, kv, s, d) if layout == "bksd" else (b, s, kv, d)
+            caxes = ("batch", "tp_kv", "cache_seq", None) \
+                if layout == "bksd" else ("batch", "cache_seq", "tp_kv", None)
+            nshape = tuple(1 if n == s else n for n in cshape)
+            naxes = tuple(None if a == "cache_seq" else a for a in caxes)
+            ck0, cv0 = filled(cshape, *caxes), filled(cshape, *caxes)
+            kn, vn = filled(nshape, *naxes), filled(nshape, *naxes)
+            for pos in (s // 2 - 1, MESH_WRAPPED_POS, None):
+                got = []
+                for backend in ("cuda", "ref"):
+                    ck = filled(cshape, *caxes, like=ck0)
+                    cv = filled(cshape, *caxes, like=cv0)
+                    new = (None, None, None) if pos is None else (
+                        kn, vn, torch.tensor(pos, device=DEVICE))
+                    o = cm.cache_attend_sharded(q, new[0], new[1], ck, cv,
+                                                new[2], layout=layout,
+                                                backend=backend)
+                    got.append((_local(o), _local(ck), _local(cv)))
+                (o1, k1, v1), (o2, k2, v2) = got
+                key = f"{layout}/{'cross' if pos is None else pos}"
+                out[key] = {"max_abs_err": (o1 - o2).abs().max().item()}
+                run.check("mesh", f"ring/{key}: B6 route against the einsum "
+                          f"route at DECODE_TOL, caches written alike",
+                          bool(torch.isfinite(o1).all() and
+                               torch.allclose(o1, o2, rtol=rtol, atol=atol)
+                               and torch.equal(k1, k2) and
+                               torch.equal(v1, v2)), **out[key])
+    return out
+
+
+def _mesh_memory(run, torch, mesh, counting):
+    """The dry run's memory count held against the caching allocator:
+    each step of MESH_MEMORY_STEPS measured on the card, then counted on
+    meta tensors by the same dryrun.count_step (``counting``, started
+    before)."""
+    from repro_torch.launch.memory import ROUND
+    got = {step[0]: _mesh_memory_step(torch, mesh, *step)
+           for step in MESH_MEMORY_STEPS}
+    try:
+        stdout, stderr = counting.communicate(timeout=240)
+    except subprocess.TimeoutExpired:
+        counting.kill()
+        stdout, stderr = counting.communicate()
+    lines = [l for l in stdout.splitlines() if l.startswith("RESULT ")]
+    counted = json.loads(lines[-1][len("RESULT "):]) if lines else {}
+    run.check("mesh", "memory: the count ran", counting.returncode == 0 and
+              bool(lines), rc=counting.returncode, stderr=stderr[-1500:])
+    for name, m in got.items():
+        c = counted.get(name, {})
+        m["counted"] = c
+        args, peak = c.get("argument_bytes"), c.get("peak_bytes")
+        slack = ROUND * m["arg_tensors"]
+        m["args_ok"] = args is not None and \
+            0 <= m["measured_args"] - args < slack
+        m["peak_rel"] = abs(peak - m["measured_peak"]) / m["measured_peak"] \
+            if peak is not None and m["measured_peak"] > 0 else None
+        m["peak_within_watch"] = m["peak_rel"] is not None and \
+            m["peak_rel"] <= MESH_MEMORY_WATCH
+        run.check("mesh", f"memory/{name}: argument bytes equal the "
+                  f"measured ones to the allocator's rounding (< {ROUND} B "
+                  f"a tensor)", m["args_ok"], measured=m["measured_args"],
+                  counted=args)
+        run.check("mesh", f"memory/{name}: counted peak within "
+                  f"{MESH_MEMORY_TOL:.0%} of max_memory_allocated() - base",
+                  m["peak_rel"] is not None and
+                  m["peak_rel"] <= MESH_MEMORY_TOL,
+                  measured=m["measured_peak"], counted=peak)
+        want = {k: v * MESH_LAYERS
+                for k, v in MESH_MEMORY_LAUNCHES[name].items()}
+        run.check("mesh", f"memory/{name}: the step's kernel launches",
+                  m["launches"] == want, launches=m["launches"], want=want)
+        for label, r in m.get("against_ref", {}).items():
+            run.check("mesh", f"memory/{name}: logits through B6 against the "
+                      f"einsum route at DECODE_TOL, position {label}",
+                      r["ok"], pos=r["pos"], max_abs_err=r["max_abs_err"],
+                      scale=r["scale"], b6_launches=r["b6_launches"])
+    print(f"mesh memory: counted peak within {MESH_MEMORY_WATCH:.0%} "
+          f"(a watch, not a gate): " + ", ".join(
+              f"{n} {m['peak_within_watch']}" for n, m in got.items()),
+          flush=True)
+    return got
+
+
 def phase_mesh(run, torch, np, tiny_np, card):
     """The launch tooling on a 1 x 1 NCCL mesh (``make_host_mesh``): the
     sharded train step of ``dryrun.build_step`` (TinyLlama) and the MoE
     forward per ``moe_impl`` (Granite) on DTensors, their attention on
-    the local shards through B8/B9, against the eager paths; then the
-    full-size Granite dry run on the H100 row."""
+    the local shards through B8/B9, against the eager paths; the dry
+    run's memory count of four build_step steps against the caching
+    allocator, the decode step's B6 route against its einsum route; then
+    the full-size Granite dry run on the H100 row."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     set_fp32_exact(torch)
+    counting = _start_memory_count()
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
@@ -6099,7 +6380,16 @@ def phase_mesh(run, torch, np, tiny_np, card):
         gc.collect()
         torch.cuda.empty_cache()
         rec["moe"] = _mesh_moe(run, torch, np, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rec["memory"] = _mesh_memory(run, torch, mesh, counting)
+        rec["memory_s"] = time.perf_counter() - t0
+        rec["ring"] = _mesh_ring_against_ref(run, torch, mesh)
     finally:
+        if counting.poll() is None:
+            counting.kill()
+            counting.communicate()
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()

@@ -21,7 +21,13 @@ stream, B, KV, splits, G, D), so a call is the checks, the output's
 allocation and one ``ctypes`` call.
 
 A CPU tensor takes the plain version in ``repro_torch.kernels.ref``; a
-CUDA tensor launches the kernel or raises.  The checks read tensor
+CUDA tensor launches the kernel or raises; a meta tensor takes the CUDA
+path's checks and allocations and launches nothing (the dry run's memory
+count, ``launch.memory``).  A launch allocates its output (B, H, D) fp32
+(and a copy in q's dtype where that is not fp32), an fp32 copy of q
+where q is not contiguous fp32, and an int32 (B,) valid_len where it is
+not one already: all per launch.  The workspace is kept: made at the
+first launch of its key and live from then on.  The checks read tensor
 metadata only: ``valid_len`` stays on the device (reading it would be a
 host sync per layer), so the kernel itself clamps it to the capacity and
 writes NaN for a lane whose ``valid_len`` is below 1.  Caches are read by
@@ -236,7 +242,8 @@ def _check(q, k, v, layout, scales, table):
     idx = q.get_device()
     tensors = (q, k, v) + tuple(scales or ()) + (
         (table,) if table is not None else ())
-    if not q.is_cuda or any(x.get_device() != idx for x in tensors):
+    if not (q.is_cuda or q.is_meta) or \
+            any(x.device != q.device for x in tensors):
         raise ValueError(f"decode_attention: tensors must share one CUDA "
                          f"device, got {[str(t.device) for t in tensors]}")
     if k.stride(3) != 1:
@@ -265,19 +272,18 @@ def _check(q, k, v, layout, scales, table):
     return idx, outer, slots, kvh, h // kvh, d
 
 
-def _valid(valid_len, b, idx) -> torch.Tensor:
+def _valid(valid_len, b, device) -> torch.Tensor:
     """valid_len as a contiguous (B,) int32 device tensor, no host read."""
     if isinstance(valid_len, torch.Tensor) and valid_len.dtype is torch.int32 \
-            and valid_len.shape == (b,) and valid_len.get_device() == idx \
+            and valid_len.shape == (b,) and valid_len.device == device \
             and valid_len.is_contiguous():
         return valid_len
     if isinstance(valid_len, int):
         if valid_len < 1:
             raise ValueError(f"decode_attention: valid_len {valid_len} < 1")
-        return torch.full((b,), valid_len, dtype=torch.int32,
-                          device=torch.device("cuda", idx))
+        return torch.full((b,), valid_len, dtype=torch.int32, device=device)
     if not isinstance(valid_len, torch.Tensor) \
-            or valid_len.get_device() != idx:
+            or valid_len.device != device:
         raise ValueError("decode_attention: valid_len must be an int or a "
                          "tensor on the cache's device")
     if valid_len.dtype.is_floating_point or valid_len.numel() not in (1, b) \
@@ -312,9 +318,18 @@ def workspace(idx: int, stream: int, b: int, kvh: int, p: Split, g: int,
     key = (idx, stream, b, kvh, p.n_split, g, d)
     ws = _WORKSPACES.get(key)
     if ws is None:
-        ws = _WORKSPACES[key] = torch.zeros(
-            p.ws_words, dtype=torch.int32, device=torch.device("cuda", idx))
+        dev = torch.device("cuda", idx) if idx >= 0 else torch.device("meta")
+        ws = _WORKSPACES[key] = torch.zeros(p.ws_words, dtype=torch.int32,
+                                            device=dev)
     return ws
+
+
+def drop_meta() -> None:
+    """Forget the meta workspaces and their plans (device index -1): the
+    next meta call makes its workspace anew, as a first launch does."""
+    for cache, at in ((_WORKSPACES, 0), (_PLANS, 1)):
+        for key in [key for key in cache if key[at] == -1]:
+            del cache[key]
 
 
 def launch(kernel: CudaKernel, q, k, v, valid_len, *, layout: str,
@@ -333,13 +348,13 @@ def launch(kernel: CudaKernel, q, k, v, valid_len, *, layout: str,
             raise ValueError(f"decode_attention: {outer} cache lanes for "
                              f"{b} queries")
         pt, width = None, 1
-    vl = _valid(valid_len, b, idx)
+    vl = _valid(valid_len, b, q.device)
     qf = q if q.dtype is torch.float32 and q.is_contiguous() \
         else q.float().contiguous()
     if qf.data_ptr() % 16:
         qf = qf.clone()
     kp, vp = k.data_ptr(), v.data_ptr()
-    stream = _raw_stream_fn()(idx)
+    stream = _raw_stream_fn()(idx) if q.is_cuda else 0
     st = _strides(k.stride(), layout)
     cst = _strides(scales[0].stride(), layout) if scales else (0, 0, 0)
     key = (kernel.symbol, idx, stream, b, outer, slots, kvh, g, d, k.dtype,
@@ -353,9 +368,10 @@ def launch(kernel: CudaKernel, q, k, v, valid_len, *, layout: str,
     out = qf.new_empty(qf.shape)
     ks, vs = (scales[0].data_ptr(), scales[1].data_ptr()) if scales \
         else (None, None)
-    kernel.launch_on(stream, qf.data_ptr(), kp, vp, ks, vs,
-                     pt.data_ptr() if paged else None, vl.data_ptr(),
-                     out.data_ptr(), entry[1])
+    if not q.is_meta:
+        kernel.launch_on(stream, qf.data_ptr(), kp, vp, ks, vs,
+                         pt.data_ptr() if paged else None, vl.data_ptr(),
+                         out.data_ptr(), entry[1])
     return out if q.dtype is torch.float32 else out.to(q.dtype)
 
 

@@ -11,17 +11,25 @@ points, one count each:
   flash_attention_dq    B9's dq
   flash_attention_dkv   B9's dk and dv, summed over each KV head's group
 
-Up to head_dim 128 the forward (both entry points) runs 3xTF32 on the
-warpgroup tensor cores (``wgmma``) and dq, dk/dv 3xTF32 on ``mma.sync``;
-at 256 all four run fp32 FFMA.
+The forward (both entry points) runs 3xTF32 on the warpgroup tensor
+cores (``wgmma``): ``flash_fwd_tc`` up to head_dim 128, ``flash_fwd_tc256``
+(two warpgroups) at 256.  dq and dk/dv run 3xTF32 on ``mma.sync`` up to
+128 and fp32 FFMA at 256.
 
 q is (B, Sq, H, D), k and v (B, Sk, KV, D), fp32 or bf16, head_dim 32,
 64, 128 or 256; Sq and Sk need not be equal nor multiples of the
 kernel's tiles, and query positions start at 0 (the Pallas kernels'
 masks).  A CPU tensor takes the plain versions in
 ``repro_torch.kernels.ref``; a CUDA tensor launches the kernel or
-raises.  Inputs are made contiguous (and 16-byte aligned) before a
-launch; outputs come back in the inputs' dtypes.  The differentiable
+raises; a meta tensor takes the CUDA path's checks and allocations and
+launches nothing (the dry run's memory count, ``launch.memory``).
+Inputs are made contiguous (and 16-byte aligned) before a launch, a
+copy for the launch alone; outputs come back in the inputs' dtypes.
+
+What each entry point allocates (the memory count charges it): B8 o
+(B, Sq, H, D); B9's forward o and lse (B, H, Sq) fp32; dq (B, Sq, H,
+D); dk and dv (B, Sk, KV, D).  No kernel keeps a buffer between
+launches.  The differentiable
 entry point is
 ``repro_torch.kernels.flash_attention_bwd.flash_attention_trainable``.
 """
@@ -68,7 +76,7 @@ def _check(name, q, k, v, *more):
     tensors = (q, k, v) + more
     dev = q.get_device()
     for x in tensors:
-        if not x.is_cuda or x.get_device() != dev:
+        if not (x.is_cuda or x.is_meta) or x.get_device() != dev:
             raise ValueError(f"{name}: tensors must share one CUDA device, "
                              f"got {[str(t.device) for t in tensors]}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -96,8 +104,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     dims, dev, (q, k, v) = _check("flash_attention", q, k, v)
     c, w = _mask_args(causal, window)
     o = torch.empty_like(q)
-    FWD.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-               *dims, DTYPES[q.dtype], c, w)
+    if not q.is_meta:
+        FWD.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   o.data_ptr(), *dims, DTYPES[q.dtype], c, w)
     return o
 
 
@@ -110,14 +119,17 @@ def flash_fwd_lse(q, k, v, *, causal: bool = True, window: int = 0):
     c, w = _mask_args(causal, window)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    FWD_LSE.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   o.data_ptr(), lse.data_ptr(), *dims, DTYPES[q.dtype], c, w)
+    if not q.is_meta:
+        FWD_LSE.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       o.data_ptr(), lse.data_ptr(), *dims, DTYPES[q.dtype],
+                       c, w)
     return o, lse
 
 
 def dsum_of(o, do):
     """rowsum(dO * o) as (B, H, Sq) fp32, in torch as the reference does
-    outside its kernels."""
+    outside its kernels (a (B, Sq, H, D) fp32 product and a (B, Sq, H)
+    sum live while it runs)."""
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -148,9 +160,10 @@ def flash_dq(q, k, v, do, lse, dsum, *, causal: bool = True, window: int = 0):
         "flash_attention_dq", q, k, v, do, lse, dsum)
     c, w = _mask_args(causal, window)
     dq = torch.empty_like(q)
-    DQ.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-              lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), *dims,
-              DTYPES[q.dtype], c, w)
+    if not q.is_meta:
+        DQ.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+                  dq.data_ptr(), *dims, DTYPES[q.dtype], c, w)
     return dq
 
 
@@ -165,7 +178,9 @@ def flash_dkv(q, k, v, do, lse, dsum, *, causal: bool = True,
         "flash_attention_dkv", q, k, v, do, lse, dsum)
     c, w = _mask_args(causal, window)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    DKV.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-               lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-               *dims, DTYPES[q.dtype], c, w)
+    if not q.is_meta:
+        DKV.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+                   dk.data_ptr(), dv.data_ptr(), *dims, DTYPES[q.dtype], c,
+                   w)
     return dk, dv

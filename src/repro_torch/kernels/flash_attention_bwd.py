@@ -9,6 +9,11 @@ kernel and the dk/dv kernel, which recompute p = exp(s - lse) tile by
 tile.  On CPU tensors the same steps run the plain versions of
 ``kernels/ref.py``, so the recompute arithmetic itself is held against
 the JAX package's gradients.
+
+The memory count (``launch.memory``) replays :meth:`FlashAttention.forward`'s
+wrapper and :func:`backward_kernels` on meta tensors: the forward keeps
+q, k, v, o and lse (B, H, Sq) fp32 until the backward; the backward
+allocates dsum (B, H, Sq) fp32 (and the product it sums), dq, dk and dv.
 """
 from __future__ import annotations
 
@@ -29,13 +34,19 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        do = do.to(q.dtype)
-        kw = dict(causal=ctx.causal, window=ctx.window)
-        dsum = _fa.dsum_of(o, do)
-        dq = _fa.flash_dq(q, k, v, do, lse, dsum, **kw)
-        dk, dv = _fa.flash_dkv(q, k, v, do, lse, dsum, **kw)
+        dq, dk, dv = backward_kernels(*ctx.saved_tensors, do,
+                                      causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None
+
+
+def backward_kernels(q, k, v, o, lse, do, *, causal: bool, window: int):
+    """B9's backward from the saved tensors and dO: (dq, dk, dv)."""
+    do = do.to(q.dtype)
+    kw = dict(causal=causal, window=window)
+    dsum = _fa.dsum_of(o, do)
+    dq = _fa.flash_dq(q, k, v, do, lse, dsum, **kw)
+    dk, dv = _fa.flash_dkv(q, k, v, do, lse, dsum, **kw)
+    return dq, dk, dv
 
 
 def flash_attention_trainable(q, k, v, causal: bool = True, window: int = 0):

@@ -15,7 +15,12 @@ order (:func:`plan`).  :func:`column_emulation` repeats its arithmetic in
 plain torch for the CPU tests.
 
 A CPU tensor takes the plain version (``ref.rwkv6_chunked_ref``, the
-model's ``wkv_chunked``); a CUDA tensor launches the kernel or raises.
+model's ``wkv_chunked``); a CUDA tensor launches the kernel or raises; a
+meta tensor takes the CUDA path's checks and allocations and launches
+nothing (the dry run's memory count, ``launch.memory``).  A launch
+allocates out and state, contiguous copies of strided inputs and an fp32
+u where u is not one, and records over ``KEEP_BYTES`` (:func:`_records`),
+all per launch; the ``KEEP_BYTES`` buffer is kept from its first use on.
 There is no initial state and no backward: the model's ``wkv_named``
 takes the plain version for those.
 """
@@ -101,6 +106,23 @@ def _records(dev: torch.device, stream: int, nbytes: int) -> torch.Tensor:
     return ws
 
 
+def drop_meta() -> None:
+    """Forget the meta records' buffer: the next meta call makes it anew,
+    as a first launch does."""
+    for key in [key for key, ws in _kept.items() if ws.is_meta]:
+        del _kept[key]
+
+
+def dtype_refusal(r, k, v, w):
+    """Why the kernel refuses these inputs' dtypes (it takes float32 or
+    bfloat16 r, k, v, w of one dtype), or None: RWKV-6's decay w is fp32
+    beside bf16 r, k, v in a bf16 model, which the wrapper refuses."""
+    if r.dtype in DTYPES and k.dtype == v.dtype == w.dtype == r.dtype:
+        return None
+    return ("rwkv6_chunked: float32 or bfloat16 r, k, v, w of one dtype, "
+            f"got {[x.dtype for x in (r, k, v, w)]}")
+
+
 def _check(r, k, v, w, u):
     """Validate devices, dtypes and shapes from metadata; return
     (B, T, H, N) and the inputs ready for a launch (contiguous, u fp32)."""
@@ -116,13 +138,12 @@ def _check(r, k, v, w, u):
                          f"{tuple(u.shape)}")
     dev = r.device
     for x in (r, k, v, w, u):
-        if x.device.type != "cuda" or x.device != dev:
+        if x.device.type not in ("cuda", "meta") or x.device != dev:
             raise ValueError(f"{name}: tensors must share one CUDA device, "
                              f"got {[str(y.device) for y in (r, k, v, w, u)]}")
-    if r.dtype not in DTYPES or k.dtype != r.dtype or v.dtype != r.dtype \
-            or w.dtype != r.dtype:
-        raise TypeError(f"{name}: float32 or bfloat16 r, k, v, w of one "
-                        f"dtype, got {[x.dtype for x in (r, k, v, w)]}")
+    why = dtype_refusal(r, k, v, w)
+    if why is not None:
+        raise TypeError(why)
     if n not in HEAD_SIZES:
         raise ValueError(f"{name}: head size N {n} (the kernel takes "
                          f"{HEAD_SIZES})")
@@ -164,8 +185,10 @@ def rwkv6_chunked_into(r, k, v, w, u, out, state):
 def _launch(x, out, state, b, t, h, n):
     r, k, v, w, u = x
     p = plan(b, t, h, n)
-    stream = _raw_stream_fn()(r.get_device())
+    stream = _raw_stream_fn()(r.get_device()) if r.is_cuda else 0
     ws = _records(r.device, stream, p.workspace)
+    if r.is_meta:
+        return out, state
     pr, pk, pv, pw = r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr()
     KERNEL.launch_on(stream, pr, pk, pv, pw, u.data_ptr(), out.data_ptr(),
                      state.data_ptr(), ws.data_ptr(), b, t, h, n,

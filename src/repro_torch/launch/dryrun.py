@@ -9,14 +9,32 @@ process group (this process is rank 0; its collectives return at once).
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod --optimized
 
 The port of ``repro.launch.dryrun``.  Where the JAX package lowers and
-compiles the step and reads its HLO, this module runs the step once on
-the meta shards under ``op_costs.OpCosts``: the counts are rank 0's
-FLOPs, bytes and collective wire bytes.  The estimate is analytic: there
-is no compiler, so no fusion and no peak or temporary memory
-(``memory_analysis`` gives the argument and output bytes of the local
-shards, and None for ``temp_bytes`` and ``peak_bytes``).  On meta
-tensors attention takes its plain version (``attention_chunked``), whose
-products are the ones counted.
+compiles the step and reads its HLO and ``memory_analysis()``, this
+module runs the step once on the meta shards under ``op_costs.OpCosts``
+and ``memory.LiveBytes`` (:func:`count_step`): the counts are rank 0's
+FLOPs, bytes and collective wire bytes, and its memory as the H100 would
+allocate it.  The estimate is analytic: there is no compiler, so no
+fusion.  On meta tensors attention takes its plain version
+(``attention_chunked``), whose products are the ones counted.
+
+``memory_analysis`` holds XLA's four fields for rank 0's local shards:
+``argument_bytes`` and ``output_bytes`` (the tensors' bytes),
+``peak_bytes`` (the most bytes live at once in the step, arguments
+included) and ``temp_bytes`` (the most live at once of the storages that
+are neither arguments nor outputs); the dry run adds
+``peak_share_of_hbm`` (the peak over the ``h100-sxm`` row's 80 GB).
+Peak and temp follow every storage from the op that makes it until its
+last reference goes, autograd's saved tensors included, each rounded up
+to the caching allocator's 512-byte blocks; where the card runs a kernel
+(B6/B7, B8, B9, B10) they charge what the kernel's wrapper allocates,
+not the plain version's intermediates (``launch/memory.py``).  Where
+the kernel refuses the step's inputs (B10 on a bf16 RWKV-6, whose fp32
+decay it does not take: the card raises there), the plain version is
+charged and ``plain_charged`` names the site and the refusal.
+``chip_smoke.py``'s ``mesh`` phase holds the count against
+``torch.cuda.max_memory_allocated()`` for four steps on a one-rank mesh
+of the H100.  Not counted: NCCL's own buffers, cuBLAS's workspaces and
+the allocator's fragmentation.
 
 :func:`build_step` is the one sharded step: the dry run feeds it meta
 tensors on the fake group, a caller on cards real ones on an NCCL mesh.
@@ -36,6 +54,7 @@ import torch
 from repro_torch import models
 from repro_torch.configs.base import SHAPES, get_config
 from repro_torch.launch import sharding as shd
+from repro_torch.launch.memory import LiveBytes
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.op_costs import OpCosts
 from repro_torch.models import common as cm
@@ -49,7 +68,8 @@ from repro_torch.sharding_hints import axis_rules
 # package's are
 _ROW = HW_PEAKS["h100-sxm"]
 HW = {"name": _ROW["name"], "peak_flops": _ROW["peak_flops_bf16"],
-      "hbm_bw": _ROW["hbm_bw"], "link_bw": _ROW["link_bw"]}
+      "hbm_bw": _ROW["hbm_bw"], "hbm_bytes": _ROW["hbm_bytes"],
+      "link_bw": _ROW["link_bw"]}
 
 ARCHS = [
     "rwkv6-3b", "whisper-medium", "qwen3-8b", "chameleon-34b",
@@ -153,6 +173,27 @@ def _local_bytes(tree) -> int:
     return total
 
 
+def count_step(cfg, shape, rules, mesh, dtype=torch.bfloat16):
+    """:func:`build_step`'s step run once on meta shards under
+    ``OpCosts`` and ``LiveBytes``: (the costs, ``memory_analysis``).
+    Call under the fake group (or any group the mesh spans)."""
+    with axis_rules(rules, mesh):
+        fn, structs, shardings = build_step(cfg, shape, rules, mesh, dtype)
+        args = tuple(shd.distribute(s, p, mesh)
+                     for s, p in zip(structs, shardings))
+        with OpCosts() as oc, LiveBytes() as live:
+            live.arguments(args)
+            out = fn(*args)
+            mem = live.analysis(out)
+    return oc, {"argument_bytes": _local_bytes(args),
+                "output_bytes": _local_bytes(out),
+                "temp_bytes": mem["temp_bytes"],
+                "peak_bytes": mem["peak_bytes"],
+                "plain_charged": mem["plain_charged"],
+                "note": "local shards of rank 0, as the H100's caching "
+                        "allocator would hold them (512-byte blocks)"}
+
+
 def dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
            optimized: bool = False, save_dir=None, verbose: bool = True,
            cfg=None, mesh_shape=None):
@@ -169,15 +210,9 @@ def dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
                                 shape=mesh_shape or perf_mesh)
     chips = mesh.size()
     t0 = time.time()
-    with axis_rules(rules, mesh):
-        fn, structs, shardings = build_step(cfg, shape, rules, mesh)
-        args = tuple(shd.distribute(s, p, mesh)
-                     for s, p in zip(structs, shardings))
-        arg_bytes = _local_bytes(args)
-        with OpCosts() as oc:
-            out = fn(*args)
+    oc, memory = count_step(cfg, shape, rules, mesh)
     t_run = time.time() - t0
-    out_bytes = _local_bytes(out)
+    memory["peak_share_of_hbm"] = memory["peak_bytes"] / HW["hbm_bytes"]
 
     flops_dev = float(oc.flops)
     bytes_dev = float(oc.bytes)
@@ -204,10 +239,7 @@ def dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
         "bytes_per_device": bytes_dev,
         "wire_bytes_per_device": wire,
         "collectives": oc.summary()["collectives"],
-        "memory_analysis": {
-            "argument_bytes": arg_bytes, "output_bytes": out_bytes,
-            "temp_bytes": None, "peak_bytes": None,
-            "note": "local shards of rank 0; no compiler, no temp/peak"},
+        "memory_analysis": memory,
         "roofline": {
             "compute_s": terms["compute_s"], "memory_s": terms["memory_s"],
             "collective_s": terms["collective_s"],
@@ -224,7 +256,9 @@ def dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
               f"mem={r['memory_s']*1e3:9.3f}ms "
               f"coll={r['collective_s']*1e3:9.3f}ms -> "
               f"{r['bottleneck']:10s} useful={useful:5.1%} "
-              f"args={arg_bytes / 2**30:5.2f}G (run {t_run:.0f}s)",
+              f"args={_gib(memory['argument_bytes'])} "
+              f"temp={_gib(memory['temp_bytes'])} "
+              f"peak={_gib(memory['peak_bytes'])} (run {t_run:.0f}s)",
               flush=True)
     if save_dir:
         save_dir = pathlib.Path(save_dir)
@@ -233,6 +267,10 @@ def dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
         fp = save_dir / f"{arch}__{shape_name}__{result['mesh']}__{tag}.json"
         fp.write_text(json.dumps(result, indent=1))
     return result
+
+
+def _gib(b) -> str:
+    return f"{b / 2**30:5.2f}G"
 
 
 def main(argv=None):

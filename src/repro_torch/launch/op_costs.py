@@ -15,8 +15,8 @@ it runs, on the rank's local tensors.
   fusion, so every op is a boundary.  Views and allocations move nothing.
 * A Python loop over layers runs its body once per layer, so no trip
   count is parsed; the counts are the executed ones.  A loop whose trips
-  all have the same shapes may run one trip on meta tensors and count it
-  for all of them (:func:`trips`: the chunk loops of the plain
+  all have the same shapes may run two trips on meta tensors and count
+  the second for the rest (:func:`trips`: the chunk loops of the plain
   attention, thousands of trips at 32k tokens).
 * Collectives are counted by kind, result bytes and group size, with the
   JAX package's ring factors (:func:`wire_bytes`).
@@ -32,6 +32,7 @@ has no twin: there is no compiler to ask.
 from __future__ import annotations
 
 from collections import defaultdict
+from contextlib import contextmanager
 from typing import Dict
 
 import torch
@@ -154,22 +155,58 @@ class OpCosts(TorchDispatchMode):
             + sum(_nbytes(t) for t in outs))
 
 
-def trips(n: int, meta: bool):
+class trips:
     """``range(n)`` for a loop whose trips all have the same shapes; on
-    ``meta`` tensors (the dry run) one trip, which each active
-    :class:`OpCosts` counts ``n`` times (the JAX cost model's trip-count
-    multiplier)."""
-    return _one_trip(n) if meta else range(n)
+    ``meta`` tensors (the dry run) two trips, the first counted once and
+    the second, by each active :class:`OpCosts`, for the other ``n - 1``
+    (the JAX cost model's trip-count multiplier).  A loop that collects
+    its trips' outputs hands each to :meth:`keep` and reads them from
+    ``outs``: on meta the first trip's also stands for the ``n - 2``
+    skipped ones (empty tensors of its shape and strides), so the second
+    trip runs beside ``n - 1`` held outputs, as the last trip of the full
+    loop does, and a memory count (``launch.memory``) sees the full
+    loop's peak."""
+
+    def __init__(self, n: int, meta: bool):
+        self.n, self.meta, self.outs = n, meta, []
+
+    def __iter__(self):
+        return _two_trips(self.n) if self.meta else iter(range(self.n))
+
+    def keep(self, out) -> None:
+        self.outs.append(out)
+        if self.meta and len(self.outs) == 1:
+            self.outs += [torch.empty_like(out) for _ in range(self.n - 2)]
 
 
-def _one_trip(n: int):
+@contextmanager
+def paused():
+    """Every active :class:`OpCosts` counts nothing inside (a kernel's
+    allocations replayed on meta for the memory count)."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    modes = [m for m in _get_current_dispatch_mode_stack()
+             if isinstance(m, OpCosts)]
+    scales = [m.scale for m in modes]
+    for m in modes:
+        m.scale = 0
+    try:
+        yield
+    finally:
+        for m, s in zip(modes, scales):
+            m.scale = s
+
+
+def _two_trips(n: int):
+    yield 0
+    if n == 1:
+        return
     from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
     modes = [m for m in _get_current_dispatch_mode_stack()
              if isinstance(m, OpCosts)]
     for m in modes:
-        m.scale *= n
+        m.scale *= n - 1
     try:
-        yield 0
+        yield 1
     finally:
         for m in modes:
-            m.scale //= n
+            m.scale //= n - 1

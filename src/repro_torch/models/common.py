@@ -22,6 +22,7 @@ take plain tensors.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -301,8 +302,9 @@ def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,
     :func:`attention_full`, as there.  ``save_memory`` (the ``attn_ckpt``
     perf rule) recomputes each k chunk's scores in the backward instead
     of keeping them, and takes p.v in bf16, as the JAX package's does.
-    On meta tensors with no gradient (the dry run's prefill) one chunk
-    step runs, counted for all (``op_costs.trips``)."""
+    On meta tensors with no gradient (the dry run's prefill) two chunk
+    steps run, counted for all, with the other q chunks' outputs held
+    (``op_costs.trips``)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     kvh = k.shape[2]
@@ -315,11 +317,11 @@ def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,
     from repro_torch.launch.op_costs import trips
     scale = 1.0 / math.sqrt(d)
     remat = save_memory and torch.is_grad_enabled()
-    # one trip stands for all only where no backward replays the loop
+    # two trips stand for all only where no backward replays the loop
     nq, nk = sq // q_chunk, sk // k_chunk
     meta = q.is_meta and not (torch.is_grad_enabled() and q.requires_grad)
-    outs = []
-    for qi in trips(nq, meta):
+    q_trips = trips(nq, meta)
+    for qi in q_trips:
         qc = q[:, qi * q_chunk:(qi + 1) * q_chunk]
         m = torch.full((b, h, q_chunk), NEG_INF, device=q.device)
         l = torch.zeros((b, h, q_chunk), device=q.device)
@@ -333,10 +335,8 @@ def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,
             m, l, acc = checkpoint(_chunk_step, *args, use_reentrant=False) \
                 if remat else _chunk_step(*args)
         out = acc / torch.clamp_min(l[..., None], 1e-30)
-        outs.append(out.permute(0, 2, 1, 3))            # bhqd -> bqhd
-    if meta:                   # shapes only: one q chunk stood for all
-        outs = outs * nq
-    return torch.cat(outs, dim=1).to(q.dtype)
+        q_trips.keep(out.permute(0, 2, 1, 3))           # bhqd -> bqhd
+    return torch.cat(q_trips.outs, dim=1).to(q.dtype)
 
 
 def attention_decode(q, k_cache, v_cache, valid_len, layout="bskd"):
@@ -386,7 +386,8 @@ def prefill_cache(init_cache, cache_spec, cfg, batch: int, cache_len: int,
             for k, (shape, dt) in spec.items()}
 
 
-def cache_attend_sharded(q, k_new, v_new, ck, cv, pos, layout="bksd"):
+def cache_attend_sharded(q, k_new, v_new, ck, cv, pos, layout="bksd",
+                         backend: Optional[str] = None):
     """:func:`cache_write` then :func:`attention_decode` (one position
     ``pos`` for every lane) on DTensor caches placed by the active rules,
     each rank on its own shards: it writes the token if its ring slot
@@ -395,8 +396,14 @@ def cache_attend_sharded(q, k_new, v_new, ck, cv, pos, layout="bksd"):
     sums).  q (B, 1, H, D); caches (B, KV, S, D) ('bksd') or (B, S, KV,
     D) ('bskd'), written in place, and k_new, v_new one token in the
     same layout.  With ``k_new`` None nothing is written and every slot
-    is valid (the encoder-decoder's cross-attention cache, its slots
-    not split).  Returns (B, 1, H, D)."""
+    is valid (the encoder-decoder's cross-attention cache, its slots not
+    split).  Returns (B, 1, H, D).
+
+    ``backend``: 'ref' (the einsum split softmax above), 'cuda' (B6 over
+    the rank's ring, ``valid_len = min(pos + 1, S)``; it needs every
+    slot on the rank, else it raises), or None/'auto': B6 where a rank
+    holds every slot and the caches lie on the card, 'ref' elsewhere
+    (there a memory count charges B6, ``launch.memory``)."""
     from torch.distributed import _functional_collectives as fc
 
     from repro_torch.launch.compat import shard_map
@@ -414,13 +421,18 @@ def cache_attend_sharded(q, k_new, v_new, ck, cv, pos, layout="bksd"):
     nspec = tuple(None if i == sax else a for i, a in enumerate(cspec))
     s_total, d = ck.shape[sax], q.shape[-1]
     s0, s_loc = _shard_offset(mesh, seq_axes, s_total)
+    whole = s_loc == s_total
+    if backend not in (None, "auto", "ref", "cuda"):
+        raise ValueError(f"unknown cache attention backend {backend!r}")
+    if backend == "cuda" and not whole:
+        raise ValueError("cache_attend_sharded: the cuda backend (B6) takes "
+                         "a rank's whole ring; its slots are split "
+                         f"{s_loc} of {s_total}")
     groups = [mesh.get_group(a) for a in seq_axes]
     eq_s, eq_o = ("bkgd,bksd->bkgs", "bkgs,bksd->bkgd") if layout == "bksd" \
         else ("bkgd,bskd->bkgs", "bkgs,bskd->bkgd")
 
     def body(ql, ckl, cvl, *new):
-        dev = ckl.device
-        slots = torch.arange(s0, s0 + s_loc, device=dev)
         if new:
             kn, vn, p = new
             idx = torch.remainder(p, s_total)
@@ -430,6 +442,25 @@ def cache_attend_sharded(q, k_new, v_new, ck, cv, pos, layout="bksd"):
                 old = cache.index_select(sax, li)
                 cache.index_copy_(sax, li, torch.where(hit, t.to(cache.dtype),
                                                        old))
+        p = new[2] if new else None
+        if backend == "ref" or not whole:
+            return attend(ql, ckl, cvl, p)
+        if backend == "cuda" or ckl.is_cuda:
+            return ring(ql, ckl, cvl, p)
+        # the card would run B6: a memory count charges it
+        from repro_torch.launch.memory import as_kernel
+        return as_kernel(attend, ring, ql, ckl, cvl, p)
+
+    def ring(ql, ckl, cvl, p):
+        from repro_torch.kernels import ops as kops
+        valid = s_total if p is None else torch.clamp_max(p + 1, s_total)
+        return kops.decode_attention(ql[:, 0], ckl, cvl, valid,
+                                     layout=layout)[:, None]
+
+    def attend(ql, ckl, cvl, p):
+        dev = ckl.device
+        slots = torch.arange(s0, s0 + s_loc, device=dev)
+        if p is not None:
             valid = (slots < torch.clamp_max(p + 1, s_total))[None, None, None]
         else:
             valid = torch.ones((1, 1, 1, s_loc), dtype=torch.bool, device=dev)
@@ -627,13 +658,20 @@ def decode_attention_named(q, k_cache, v_cache, valid_len, *,
     paged = page_table is not None
     name = resolve_decode_backend(backend, quantized=quantized, paged=paged,
                                   device=q.device)
-    fn = REGISTRY.op("decode_attention").backends[name]
+    backends = REGISTRY.op("decode_attention").backends
     kw = {}
     if quantized:
         kw.update(k_scale=k_scale, v_scale=v_scale)
     if paged:
         kw.update(page_table=page_table)
-    return fn(q, k_cache, v_cache, valid_len, layout=layout, **kw)
+    if "ref" in name and backend in (None, "auto"):
+        # the card would run the name's kernel twin: a memory count
+        # charges it
+        from repro_torch.launch.memory import as_kernel
+        return as_kernel(backends[name], backends[name.replace("ref", "cuda")],
+                         q, k_cache, v_cache, valid_len, layout=layout, **kw)
+    return backends[name](q, k_cache, v_cache, valid_len, layout=layout,
+                          **kw)
 
 
 FLASH_BACKENDS = ("ref", "cuda")
@@ -668,19 +706,27 @@ def flash_attention_named(q, k, v, *, causal: bool = True, window: int = 0,
     it, else B8), or None/'auto' (cuda on a CUDA tensor, ref on a CPU
     one).  q (B, Sq, H, D); k, v (B, Sk, KV, D), query positions from 0.
     On DTensors it runs on each rank's shards (:func:`_sharded_attention`).
-    ``save_memory`` reaches the 'ref' backend only."""
+    ``save_memory`` reaches the 'ref' backend only.  Where None/'auto'
+    resolves to 'ref' (no card), a memory count charges what the kernels
+    allocate (``launch.memory.flash_attention``)."""
     if is_dtensor(q):
         return _sharded_attention(q, k, v, causal=causal, window=window,
                                   backend=backend, save_memory=save_memory)
     name = resolve_flash_backend(backend, q.device)
-    if name == "ref":
-        return attention_chunked(q, k, v, causal=causal, window=window,
-                                 save_memory=save_memory)
-    from repro_torch.kernels import ops as kops
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return kops.flash_attention_trainable(q, k, v, causal, window)
-    return kops.flash_attention(q, k, v, causal=causal, window=window)
+    if name == "cuda":
+        from repro_torch.kernels import ops as kops
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return kops.flash_attention_trainable(q, k, v, causal, window)
+        return kops.flash_attention(q, k, v, causal=causal, window=window)
+    plain = functools.partial(attention_chunked, causal=causal,
+                              window=window, save_memory=save_memory)
+    if backend in (None, "auto"):
+        # the card would run B8/B9: a memory count charges them
+        from repro_torch.launch import memory
+        return memory.flash_attention(plain, q, k, v, causal=causal,
+                                      window=window)
+    return plain(q, k, v)
 
 
 def _axes_of(entry) -> Tuple[str, ...]:

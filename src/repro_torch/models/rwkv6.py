@@ -131,10 +131,11 @@ def wkv_chunked(r, k, v, w, u, s0=None, chunk: int = CHUNK):
     ii = torch.arange(chunk, device=r.device)
     lower = (ii[:, None] > ii[None, :]).to(acc)[None, :, :, None, None]
     uf = u.to(acc)
-    # shapes only with no gradient (the dry run): one chunk stands for all
+    # shapes only with no gradient (the dry run): two chunks stand for all,
+    # the other chunks' outputs held (op_costs.trips)
     meta = r.is_meta and not (torch.is_grad_enabled() and r.requires_grad)
-    outs = []
-    for c in op_costs.trips(nc, meta):
+    chunks = op_costs.trips(nc, meta)
+    for c in chunks:
         rr, kk, vv, ww = (x[:, c].to(acc) for x in (rc, kc, vc, wc))
         lw = torch.log(torch.clamp(ww, 1e-26, 1.0))       # (B,C,H,N) <= 0
         cum = torch.cumsum(lw, dim=1)
@@ -152,10 +153,8 @@ def wkv_chunked(r, k, v, w, u, s0=None, chunk: int = CHUNK):
         out = out + torch.einsum("bihn,bhnm->bihm", rr * qdec, s)
         s = s * torch.exp(cum_last[:, 0])[..., None] + \
             torch.einsum("bjhn,bjhm->bhnm", kdec, vv)
-        outs.append(out)
-    if meta:
-        outs = outs * nc
-    out = torch.stack(outs, 1).reshape(b, nc * chunk, h, n)[:, :t]
+        chunks.keep(out)
+    out = torch.stack(chunks.outs, 1).reshape(b, nc * chunk, h, n)[:, :t]
     return out.to(r.dtype), s
 
 
@@ -188,14 +187,21 @@ def wkv_named(r, k, v, w, u, *, s0=None, backend: Optional[str] = None):
     differentiates the plain :func:`wkv_chunked` by autograd: B10 has no
     backward, as the TPU kernel has no VJP, and the JAX package trains
     through its jnp chunked scan too.  B10 starts from a zero state, as
-    the TPU kernel does, so 'cuda' raises on a non-None ``s0``.
+    the TPU kernel does, so 'cuda' raises on a non-None ``s0``.  Where
+    None/'auto' resolves to 'ref' (no card) and B10 would run, a memory
+    count charges what B10 allocates (``launch.memory.rwkv6_chunked``).
     """
     if is_dtensor(r):
         return _wkv_sharded(r, k, v, w, u, s0=s0, backend=backend)
     name = cm.resolve_flash_backend(backend, r.device)
     inputs = (r, k, v, w, u) + (() if s0 is None else (s0,))
-    if name == "ref" or (torch.is_grad_enabled()
-                         and any(x.requires_grad for x in inputs)):
+    if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
+        return wkv_chunked(r, k, v, w, u, s0=s0)
+    if name == "ref":
+        if backend in (None, "auto") and s0 is None:
+            # the card would run B10: a memory count charges it
+            from repro_torch.launch import memory
+            return memory.rwkv6_chunked(wkv_chunked, r, k, v, w, u)
         return wkv_chunked(r, k, v, w, u, s0=s0)
     if s0 is not None:
         raise ValueError("wkv_named: the cuda backend (B10) starts from a "

@@ -30,14 +30,15 @@ __all__ = ["HW_PEAKS", "HWSpec", "RooflineAccountant", "roofline_terms"]
 
 # Published peaks.  h100-sxm: NVIDIA's data sheet for the SXM part, dense
 # rates (fp32 outside the tensor cores, bf16 and int8 on them), HBM3
-# bandwidth and NVLink 4 (450 GB/s each way of the 900 GB/s total), at the
-# full 700 W power limit; the int8 rate is B11's compute bound.  cpu: an
+# bandwidth and size (80 GB) and NVLink 4 (450 GB/s each way of the 900
+# GB/s total), at the full 700 W power limit; the int8 rate is B11's
+# compute bound.  cpu: an
 # indicative host figure, for the CPU tests only (it shows the shape of
 # MBU, not a measured peak).
 HW_PEAKS: Dict[str, Dict[str, Any]] = {
     "h100-sxm": {"name": "h100-sxm", "peak_flops_fp32": 67e12,
                  "peak_flops_bf16": 989e12, "peak_ops_int8": 1979e12,
-                 "hbm_bw": 3.35e12, "link_bw": 450e9},
+                 "hbm_bw": 3.35e12, "hbm_bytes": 80e9, "link_bw": 450e9},
     "cpu": {"name": "cpu-host", "peak_flops_fp32": 2.0e11,
             "peak_flops_bf16": 2.0e11, "hbm_bw": 5.0e10},
 }

@@ -142,11 +142,12 @@ def test_plain_versions_match_jax_oracles(layout):
 
 def test_wrappers_raise_off_the_cpu():
     """A tensor that is not on the CPU launches the kernel or raises: a
-    meta tensor is neither, so each wrapper must raise."""
+    meta q (which takes the CUDA path's checks and allocations, for the
+    memory count) beside CPU caches must raise, never fall back."""
     q = torch.empty(2, 8, 32, device="meta")
-    k = torch.empty(2, 2, 16, 32, device="meta")
-    s = torch.empty(2, 2, 16, device="meta")
-    pt = torch.zeros(2, 1, dtype=torch.int32, device="meta")
+    k = torch.empty(2, 2, 16, 32)
+    s = torch.empty(2, 2, 16)
+    pt = torch.zeros(2, 1, dtype=torch.int32)
     k8 = k.to(torch.int8)
     for call in (lambda: tops.decode_attention(q, k, k, 4, layout="bksd"),
                  lambda: tops.decode_attention_q8(q, k8, k8, s, s, 4,

@@ -606,14 +606,17 @@ def test_cpu_flash_calls_count_no_launch():
 
 
 @pytest.mark.parametrize("call", [
-    lambda x: tops.flash_attention(x, x, x),
-    lambda x: tfa.flash_fwd_lse(x, x, x),
-    lambda x: tfa.flash_dq(x, x, x, x, x[..., 0].transpose(1, 2),
-                           x[..., 0].transpose(1, 2)),
-    lambda x: tfa.flash_dkv(x, x, x, x, x[..., 0].transpose(1, 2),
-                            x[..., 0].transpose(1, 2)),
+    lambda x, y: tops.flash_attention(x, y, y),
+    lambda x, y: tfa.flash_fwd_lse(x, y, y),
+    lambda x, y: tfa.flash_dq(x, y, y, x, x[..., 0].transpose(1, 2),
+                              x[..., 0].transpose(1, 2)),
+    lambda x, y: tfa.flash_dkv(x, y, y, x, x[..., 0].transpose(1, 2),
+                               x[..., 0].transpose(1, 2)),
 ])
 def test_flash_wrappers_never_fall_back(call):
-    """A tensor that is not on the CPU launches the kernel or raises."""
+    """A tensor that is not on the CPU launches the kernel or raises: a
+    meta q (which takes the CUDA path's checks and allocations, for the
+    memory count) beside CPU k and v must raise."""
     with pytest.raises(ValueError, match="CUDA device"):
-        call(torch.empty(1, 8, 2, 64, device="meta"))
+        call(torch.empty(1, 8, 2, 64, device="meta"),
+             torch.empty(1, 8, 2, 64))

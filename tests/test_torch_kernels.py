@@ -591,13 +591,15 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     lambda x: tops.softmax(x.reshape(2, 8)),
     lambda x: tops.matmul(x.reshape(4, 4), x.reshape(4, 4)),
     lambda x: tops.rwkv6_chunked(*[x.reshape(1, 1, 1, 16)] * 4,
-                                 x.reshape(1, 16)),
+                                 torch.empty(1, 16)),
     lambda x: tops.int8_matmul(*[x.reshape(4, 4).to(torch.int8)] * 2,
                                x[:4], x[4:8]),
     lambda x: tops.conv2d(x.reshape(1, 1, 4, 4), x[:9].reshape(1, 1, 3, 3)),
 ])
 def test_non_cpu_tensor_never_falls_back(call):
     """A tensor that is not on the CPU launches the kernel or raises: a
-    meta tensor is neither CPU nor CUDA, so the wrapper must raise."""
+    meta tensor is neither CPU nor CUDA, so the wrapper must raise (B10,
+    whose wrapper takes meta tensors for the memory count, where one
+    meets a CPU tensor)."""
     with pytest.raises(ValueError, match="CUDA device"):
         call(torch.empty(16, device="meta"))
