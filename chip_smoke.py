@@ -84,7 +84,8 @@ its seconds:
                   equal eager; sampled tokens equal; tokens/s, TTFT, device
                   ms a step, idle share and host launch calls over 8
                   ticks); both forms again with power-of-two prefill
-                  buckets (4-128, 16 requests of prompts 5-128): admission
+                  buckets (4-128, 8 requests of prompts 5-128, 24 new
+                  tokens): admission
                   captured once a bucket and
                   replayed for every cold admission, the prefix hit's
                   suffix steps and closing sample captured, tokens,
@@ -129,10 +130,14 @@ its seconds:
                   (0, 1) and w = 0; nothing written past T; the kernel's
                   and the fp32 plain version's max and rms error beside
                   each other; every column block, a rerun, a lone lane
-                  and unaligned inputs bit-equal at T 15 to 33 and 300
-  wkv_times       B10 per launch at 1 x 300 and 8 x 2048 (40 x 64): events,
-                  device µs of both passes and of each, CTAs, against its
-                  bound and its plain version (no library call)
+                  and unaligned inputs bit-equal at T 15 to 33 and 300;
+                  bf16 r, k, v beside an fp32 decay (a bf16 RWKV-6's) at
+                  1 x 300 and 8 x 2048 (40 x 64), out at the bf16 bar, the
+                  state at the fp32 one, a rerun bit-equal
+  wkv_times       B10 per launch at 1 x 300 and 8 x 2048 (40 x 64), fp32
+                  and bf16 r, k, v with an fp32 w: events, device µs of
+                  both passes and of each, CTAs, against its bound and
+                  its plain version (no library call)
   serve_rwkv6     RWKV-6 Finch 3B at full width through ServingEngine,
                   batch 8, on the kernels and on ``ref``: tokens, B10 32 x
                   full prefills, 8 ticks under sync debug mode "error",
@@ -148,7 +153,13 @@ its seconds:
                   replayed step (device ms, idle
                   share, host launch calls <= 3), an eager step's device
                   time by part, and one 300-token prefill's device ms with
-                  B10's part
+                  B10's part; then the model in bf16 (6.2 GB): a 300-token
+                  prompt's every layer (B10 on bf16 r, k, v and the fp32
+                  decay) against ``ref`` on the same input (output at the
+                  bf16 bar, state within 1e-4), B10 32 x a full prefill;
+                  the end-to-end logits and state no farther from
+                  ``ref`` than ``ref`` moves under a one-bf16-step change
+                  of its embeddings; 8 greedy tokens reported
   selector        TinyLlama-1.1B, Qwen3-0.6B and RWKV-6 3B (int8 artifact),
                   full width, cut to 8 layers, behind
                   MultiModelServer(max_resident=3) and the
@@ -226,6 +237,15 @@ its seconds:
                   at the live lanes, B6 at 8 x 1500 'bskd' (cross), B8 at
                   1 x 1500 (encoder), 1 x 300 x 1500 (cross) and 1 x 300,
                   beside SDPA
+  slice 21, the examples:
+  examples        examples/quickstart_torch.py, compress_models_torch.py,
+                  train_publish_serve_torch.py and serve_batched_torch.py,
+                  each one's function in this process on the card at its
+                  defaults: quickstart's class ids equal ``ref``'s, the
+                  compression report finite, train_publish_serve's loss
+                  drop > 0.3 in 150 steps and its served tokens, every
+                  serve_batched pick its location's model; their printed
+                  lines and launches recorded
   slice 14, the launch tooling on a one-rank NCCL mesh:
   mesh            TinyLlama-1.1B at full width cut to 2 layers, batch 4 x
                   2048: one step of ``launch.dryrun.build_step`` on
@@ -256,6 +276,8 @@ from __future__ import annotations
 import bisect
 import functools
 import gc
+import io
+import itertools
 import json
 import math
 import pathlib
@@ -266,7 +288,7 @@ import sys
 import tempfile
 import time
 import traceback
-from contextlib import nullcontext
+from contextlib import nullcontext, redirect_stdout
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 0
@@ -2431,6 +2453,10 @@ def _decode_run(torch, np, cfg, params, form, eager, card):
     return rec, tokens, [r.output for r in sampled]
 
 
+GRAPH_BUCKET_REQUESTS = 8        # the graphs phase's bucketed runs
+GRAPH_BUCKET_NEW = 24
+
+
 def phase_graphs(run, torch, np, cfg, params, serve_tokens, graphs, card):
     """CUDA graphs against the eager steps in the same run: the CNN engine
     (_cnn_graphs), then TinyLlama-1.1B's decode step in ring fp32 and
@@ -2467,10 +2493,11 @@ def phase_graphs(run, torch, np, cfg, params, serve_tokens, graphs, card):
         run.check("graphs", f"{form}: sampled tokens (temperature "
                   f"{GRAPH_TEMP}) graph == eager", g_smp == e_smp,
                   equal=sum(a == b for a, b in zip(g_smp, e_smp)))
-    # admission per prefill bucket and the prefix-hit suffix step: 16
-    # requests of 48 tokens, prompts 5-128 (buckets 4-128; past 128 the
+    # admission per prefill bucket and the prefix-hit suffix step: 8
+    # requests of 24 tokens, prompts 5-128 (buckets 4-128; past 128 the
     # pads that prompts of one bucket share make prefix hits whose long
-    # suffixes cost the eager run minutes), graph against eager
+    # suffixes cost the eager run minutes), graph against eager; 16 of 48
+    # until the examples phase came, which this cut pays for
     from repro_torch.kernels import ops as kops
     from repro_torch.serving.engine import ServingEngine
     bucketed_against_eager(
@@ -2478,8 +2505,8 @@ def phase_graphs(run, torch, np, cfg, params, serve_tokens, graphs, card):
         lambda form, buckets: ServingEngine(
             cfg, params, max_batch=8, cache_len=SERVE_CACHE_LEN,
             device=DEVICE, prefill_buckets=buckets, **SERVE_CONFIGS[form]),
-        GRAPH_FORMS, SEED + 20, n=SERVE_REQUESTS, max_new=SERVE_MAX_NEW,
-        hi=128)
+        GRAPH_FORMS, SEED + 20, n=GRAPH_BUCKET_REQUESTS,
+        max_new=GRAPH_BUCKET_NEW, hi=128)
     emit({"phase": "graphs",
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     counters = ticket_counters(torch)
@@ -3787,6 +3814,16 @@ WKV_HEADS = ((40, 64), (8, 32))      # RWKV-6 3B's (H, N), the reduced one's
 WKV_TOL = (1e-4, 1e-5)
 # B10 timed at the serving prefill's shape and at a long batched one
 WKV_TIMES = ((1, 300, 40, 64), (8, 2048, 40, 64))
+# B10 on a bf16 RWKV-6's inputs, bf16 r, k, v beside the fp32 decay: out
+# (bf16, rounded once) against the fp64 plain version at the all-bf16 bar
+# of tests/test_torch_cuda.py, the fp32 state at WKV_TOL
+WKV_BF16_OUT_TOL = (4e-3, 1e-3)
+# a bf16 RWKV-6 layer's time-mix output, cuda against ref on the same
+# input (its fp32 state at RWKV_TOL): the bf16 bar of the serve phases
+# (FLASH_TOL["bfloat16"])
+RWKV_BF16_TOL = (2e-2, 3e-2)
+RWKV_BF16_PROMPT = 300
+RWKV_BF16_NEW = 8          # greedy tokens after the bf16 prefill
 RWKV_ARCH = "rwkv6-3b"
 RWKV_TOL = 1e-4             # a layer's prefill output and state, cuda vs ref
 SELECTOR_MODELS = ("tinyllama-1.1b", "qwen3-0.6b", RWKV_ARCH)
@@ -3818,10 +3855,19 @@ def wkv_flops(b, t, h, n, c=16):
     return b * h * (-(-t // c)) * per_chunk
 
 
-def wkv_bytes(b, t, h, n, elem=4):
-    """Bytes B10 must move: r, k, v, w and u read once, out and the fp32
-    state written once."""
-    return elem * (5 * b * t * h * n + h * n) + 4 * b * h * n * n
+def wkv_bytes(b, t, h, n, elem=4, w_elem=None):
+    """Bytes B10 must move: r, k, v (``elem`` bytes an element), w
+    (``w_elem``, default ``elem``) and the fp32 u read once, out (in r's
+    dtype) and the fp32 state written once."""
+    bthn = b * t * h * n
+    return (4 * elem * bthn + (w_elem or elem) * bthn + 4 * h * n
+            + 4 * b * h * n * n)
+
+
+def wkv_mixed_inputs(torch, gen, b, t, h, n):
+    """wkv_inputs with r, k, v in bf16 and w in fp32: a bf16 RWKV-6's."""
+    x = wkv_inputs(torch, gen, b, t, h, n)
+    return [y.bfloat16() for y in x[:3]] + x[3:]
 
 
 def phase_wkv_kernels(run, torch):
@@ -3881,8 +3927,39 @@ def phase_wkv_kernels(run, torch):
                     del x, buf, out, state, want, plain
     s["rms_err_fp64"] = {k: math.sqrt(v[0] / v[1]) for k, v in sq.items()}
     s["bit_checks"] = wkv_bit_checks(run, torch, gen)
+    s["bf16_fp32_decay"] = wkv_mixed_checks(run, torch, gen)
     run.max_err["rwkv6_chunked"] = s["max_abs_err"]
     emit({"phase": "wkv_kernels", "result": s})
+
+
+def wkv_mixed_checks(run, torch, gen):
+    """B10 on bf16 r, k, v beside an fp32 decay at WKV_TIMES' shapes:
+    out (bf16) at WKV_BF16_OUT_TOL and the state at WKV_TOL against the
+    plain version in fp64 on the same inputs, and a rerun bit-equal."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    out = {}
+    for b, t, h, n in WKV_TIMES:
+        x = wkv_mixed_inputs(torch, gen, b, t, h, n)
+        o, st = kops.rwkv6_chunked(*x)
+        o2, st2 = kops.rwkv6_chunked(*x)
+        want = ref.rwkv6_chunked_ref(*(y.double() for y in x))
+        torch.cuda.synchronize()
+        case = f"bf16 r, k, v beside fp32 w, B={b} T={t} H={h} N={n}"
+        errs = {}
+        for what, got, w64, dtype, (rtol, atol) in (
+                ("out", o, want[0], torch.bfloat16, WKV_BF16_OUT_TOL),
+                ("state", st, want[1], torch.float32, WKV_TOL)):
+            err, bad = compare(torch, got, w64, rtol, atol)
+            errs[what] = err
+            run.check("wkv_kernels", f"{case}: {what} in {dtype} (rtol "
+                      f"{rtol}, atol {atol})", bad == 0 and got.dtype == dtype,
+                      max_abs_err=err, mismatches=bad)
+        run.check("wkv_kernels", f"{case}: a rerun bit-equal",
+                  torch.equal(o, o2) and torch.equal(st, st2))
+        out[f"{b}x{t}x{h}x{n}"] = errs
+        del x, o, st, o2, st2, want
+    return out
 
 
 def wkv_bit_checks(run, torch, gen):
@@ -3925,8 +4002,9 @@ def phase_wkv_times(run, torch, card):
     from repro_torch.kernels import rwkv6_chunk as rw
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 81)
     out = {}
-    for b, t, h, n in WKV_TIMES:
-        x = wkv_inputs(torch, gen, b, t, h, n)
+    for (b, t, h, n), mixed in itertools.product(WKV_TIMES, (False, True)):
+        x = (wkv_mixed_inputs if mixed else wkv_inputs)(torch, gen, b, t, h,
+                                                         n)
         ms = time_ms(torch, lambda: kops.rwkv6_chunked(*x))
         plain_ms = time_ms(torch, lambda: ref.rwkv6_chunked_ref(*x), iters=2,
                            reps=3)
@@ -3934,20 +4012,22 @@ def phase_wkv_times(run, torch, card):
                              ("wkv_prepare", "wkv_scan", ""))
         us = parts and parts.pop("")
         p = rw.plan(b, t, h, n)
-        b_s = wkv_bytes(b, t, h, n) / PEAK_HBM_BYTES
+        nbytes = wkv_bytes(b, t, h, n, *((2, 4) if mixed else ()))
+        b_s = nbytes / PEAK_HBM_BYTES
         o_s = wkv_flops(b, t, h, n) / PEAK_FP32_FLOPS
         rec = {"shape": [b, t, h, n], "ms": ms, "plain_ms": plain_ms,
+               "dtypes": "bf16 r, k, v, fp32 w" if mixed else "fp32",
                "device_us": us, "device_us_by_pass": parts, "mb": p.mb,
                "ctas": {"prepare": p.prep_grid[0] * h * b,
                         "scan": p.grid[0] * h * b},
                "workspace_bytes": p.workspace,
-               "bytes": wkv_bytes(b, t, h, n), "flops": wkv_flops(b, t, h, n),
+               "bytes": nbytes, "flops": wkv_flops(b, t, h, n),
                "bound_ms": 1e3 * max(b_s, o_s),
                "bound_by": "bytes" if b_s >= o_s else "operations",
                "library_ms": None}
         rec["ms_over_bound"] = ms / rec["bound_ms"]
         rec["share_of_bound"] = us and rec["bound_ms"] * 1e3 / us
-        out[f"{b}x{t}x{h}x{n}"] = rec
+        out[f"{b}x{t}x{h}x{n}" + ("_bf16_w32" if mixed else "")] = rec
         del x
     emit({"phase": "wkv_times", "card": card["nvidia_smi"], "times": out})
     return out
@@ -4065,11 +4145,12 @@ def _prefill_layerwise(torch, cfg, params, toks):
     return out
 
 
-def _prefill_end_to_end(torch, cfg, params, toks):
+def _prefill_end_to_end(torch, cfg, params, toks, noise=1e-7):
     """Relative distance of the full prefill's logits and wkv state, cuda
     against ref, beside the distance of two ``ref`` prefills whose
-    embeddings differ by a relative 1e-7 (fp32 rounding): the model's own
-    sensitivity, which a kernel cannot undercut."""
+    embeddings differ by a relative ``noise`` (1e-7: fp32 rounding; 2^-8
+    for bf16 weights): the model's own sensitivity, which a kernel cannot
+    undercut."""
     from repro_torch.models import common as cm
     from repro_torch.models import rwkv6 as rw6
 
@@ -4091,16 +4172,112 @@ def _prefill_end_to_end(torch, cfg, params, toks):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 94)
     with torch.inference_mode():
         x0 = params["embed"][toks]
-        noisy = x0 * (1 + 1e-7 * torch.randn(x0.shape, generator=gen,
-                                              device=DEVICE))
+        noisy = (x0 * (1 + noise * torch.randn(x0.shape, generator=gen,
+                                                device=DEVICE))).to(x0.dtype)
         lg, st = run_layers(x0, None)
         lg_ref, st_ref = run_layers(x0, "ref")
         lg_noisy, st_noisy = run_layers(noisy, "ref")
-    return {"logits_rel_cuda_vs_ref": rel(lg, lg_ref),
-            "logits_rel_ref_1e-7_noise": rel(lg_noisy, lg_ref),
+    return {"noise": noise, "logits_rel_cuda_vs_ref": rel(lg, lg_ref),
+            "logits_rel_ref_noise": rel(lg_noisy, lg_ref),
             "wkv_rel_cuda_vs_ref": rel(st, st_ref),
-            "wkv_rel_ref_1e-7_noise": rel(st_noisy, st_ref),
+            "wkv_rel_ref_noise": rel(st_noisy, st_ref),
             "logits_max_abs_cuda_vs_ref": float((lg - lg_ref).abs().max())}
+
+
+def rwkv_bf16_prefill(run, torch, np, cfg, params):
+    """RWKV-6 Finch 3B at full width in bf16 (the fp32 weights cast, 6.2
+    GB), a RWKV_BF16_PROMPT-token prompt: B10 takes bf16 r, k, v beside
+    the fp32 decay.  Each layer's time mix on the ``ref`` trajectory's
+    input, cuda against ref: the bf16 output within RWKV_BF16_TOL, the
+    fp32 wkv state within RWKV_TOL as in the fp32 prefill (its largest
+    magnitude recorded); a full prefill launches B10 once a layer (none
+    on ``ref``).  End to end, the logits and the state, cuda against
+    ref, must lie no farther apart than ``ref`` lies from itself after a
+    one-bf16-step (2^-8) change of its embeddings (_prefill_end_to_end):
+    the kernels may not move the model more than its own bf16 rounding
+    does.  Reported, not held: RWKV_BF16_NEW greedy tokens on each
+    backend (the first parting and ref's fp32 logit gap there); at full
+    depth a random bf16 model parts at its first token however the WKV
+    rounds (PERF.md §6)."""
+    from torch.utils._pytree import tree_leaves, tree_map
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import common as cm
+    from repro_torch.models import rwkv6 as rw6
+    bf = tree_map(lambda t: t.to(torch.bfloat16), params)
+    L = cfg.num_layers
+    toks = torch.from_numpy(np.random.default_rng(SEED + 97).integers(
+        1, cfg.vocab_size, (1, RWKV_BF16_PROMPT))).to(DEVICE)
+    tols = {"time_mix_out": RWKV_BF16_TOL, "wkv": (RWKV_TOL, RWKV_TOL)}
+    worst = {"time_mix_out": 0.0, "wkv": 0.0}
+    state_max = 0.0
+    bad_layers = []
+    out = {"prompt": RWKV_BF16_PROMPT, "weights_bytes": sum(
+        t.numel() * t.element_size() for t in tree_leaves(bf))}
+    with torch.inference_mode():
+        x = bf["embed"][toks]
+        for l in range(L):
+            lp = rw6._layer(bf, l)
+            xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            a, _, st = rw6.time_mix(cfg, lp, xn)
+            a_ref, _, st_ref = rw6.time_mix(cfg, lp, xn, backend="ref")
+            state_max = max(state_max, float(st_ref.abs().max()))
+            for key, got, want in (("time_mix_out", a, a_ref),
+                                   ("wkv", st, st_ref)):
+                err, bad = compare(torch, got, want, *tols[key])
+                worst[key] = max(worst[key], err)
+                if bad:
+                    bad_layers.append([l, key, bad, err])
+            x = x + a_ref
+            x = x + rw6.channel_mix(cfg, lp, cm.rms_norm(
+                x, lp["ln2"], cfg.norm_eps))[0]
+        run.check("serve_rwkv6", f"bf16 prefill of {RWKV_BF16_PROMPT}: every "
+                  "layer's time-mix output (rtol, atol "
+                  f"{tols['time_mix_out']}) and wkv state ({tols['wkv']}) on "
+                  "the same input, cuda vs ref", not bad_layers,
+                  worst=worst, state_max_abs=state_max, bad=bad_layers[:8])
+        streams = {}
+        for backend in (None, "ref"):
+            before = kops.launches()["rwkv6_chunked"]
+            lg, cache = rw6.prefill(cfg, bf, toks, SERVE_CACHE_LEN,
+                                    backend=backend)
+            launched = kops.launches()["rwkv6_chunked"] - before
+            tag = backend or "cuda"
+            run.check("serve_rwkv6", f"bf16 prefill on {tag}: B10 launched "
+                      f"{L if backend is None else 0} times",
+                      launched == (L if backend is None else 0),
+                      launches=launched)
+            out[f"{tag}_launches"] = launched
+            tokens, logits = [], []
+            pos = RWKV_BF16_PROMPT
+            for _ in range(RWKV_BF16_NEW):
+                last = lg[0, -1].float()
+                tokens.append(int(last.argmax()))
+                logits.append(last)
+                lg, cache = rw6.decode_step(
+                    cfg, bf, torch.tensor([[tokens[-1]]], device=DEVICE),
+                    cache, pos)
+                pos += 1
+            streams[tag] = (tokens, logits)
+    (got, _), (want, ref_logits) = streams["cuda"], streams["ref"]
+    part = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                None)
+    gap = None if part is None else float(
+        ref_logits[part][want[part]] - ref_logits[part][got[part]])
+    e2e = _prefill_end_to_end(torch, cfg, bf, toks, noise=2.0 ** -8)
+    for what in ("logits", "wkv"):
+        run.check("serve_rwkv6", f"bf16 prefill end to end: the {what}, "
+                  "cuda vs ref, no farther apart than ref from itself after "
+                  "a 2^-8 change of the embeddings",
+                  e2e[f"{what}_rel_cuda_vs_ref"]
+                  <= e2e[f"{what}_rel_ref_noise"],
+                  cuda_vs_ref=e2e[f"{what}_rel_cuda_vs_ref"],
+                  ref_noise=e2e[f"{what}_rel_ref_noise"])
+    out.update({"layerwise_max_abs": worst, "tolerances": tols,
+                "state_max_abs": state_max,
+                "tokens_cuda": got, "tokens_ref": want,
+                "first_parting": part, "gap": gap, "end_to_end": e2e})
+    del bf
+    return out
 
 
 def phase_serve_rwkv6(run, torch, np, card):
@@ -4120,7 +4297,8 @@ def phase_serve_rwkv6(run, torch, np, card):
     (graph_against_eager), and so are 8 requests sampled at GRAPH_TEMP.
     Then a warm run's decode tokens/s, TTFT and prefill
     seconds, a replayed decode step (device ms, idle share, host launch
-    calls) and, eagerly, a decode step's device time by part."""
+    calls) and, eagerly, a decode step's device time by part.  Last, the
+    same weights in bf16 (rwkv_bf16_prefill)."""
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_numpy
     from repro_torch.core.jit import disable_graphs
@@ -4275,6 +4453,9 @@ def phase_serve_rwkv6(run, torch, np, card):
           "step_profile": profile, "graph_step_profile": graph_profile,
           "prefill_profile": prefill,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    # the same model in bf16: B10 on bf16 r, k, v beside the fp32 decay
+    emit({"phase": "serve_rwkv6", "bf16_prefill": rwkv_bf16_prefill(
+        run, torch, np, cfg, params)})
     return params, {"rwkv6_chunked": counts["rwkv6_chunked"]}
 
 
@@ -5909,6 +6090,110 @@ def phase_serve_audio(run, torch, np, card):
 # slice 14: the launch tooling -- the sharded step on a one-rank NCCL mesh
 # ---------------------------------------------------------------------------
 
+# the four torch examples the examples phase runs, and the models
+# serve_batched_torch's selector must pick, one a location
+EXAMPLES = ("quickstart_torch", "compress_models_torch",
+            "train_publish_serve_torch", "serve_batched_torch")
+EXAMPLE_MODELS = ("tinyllama-1.1b", "qwen3-0.6b", "rwkv6-3b")
+
+
+def _example(name):
+    """examples/<name>.py as a module (its command line not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_example(torch, kops, name, fn):
+    """``fn()`` with its printed lines kept: (its result, the kernel
+    launches it made, its seconds, the lines)."""
+    before = kops.launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        res = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    after = kops.launches()
+    launched = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    emit({"phase": "examples", "example": name, "seconds": seconds,
+          "launches": launched, "printed": buf.getvalue().splitlines()})
+    return res, launched
+
+
+def phase_examples(run, torch, np):
+    """The four torch examples (examples/*_torch.py), each one's function
+    called in this process on the card at its defaults, its printed
+    lines and kernel launches recorded: quickstart_torch's class ids
+    equal ``ref``'s on the weights its int8 artifact holds (its default
+    draws, passed in), on the kernels; compress_models_torch's int8
+    ratio, agreement and stage report finite; train_publish_serve_torch
+    (150 steps) drops its loss by more than 0.3 (its own check) and
+    serves 3 requests of 12 tokens from the store; serve_batched_torch's
+    6 rounds pick each location's model, 3 requests of 8 tokens each."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize import dequantize_tree, quantize_tree
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import cnn
+    set_fp32_exact(torch)
+    mods = {name: _example(name) for name in EXAMPLES}
+    graph = cnn.graph_for(get_config("nin-cifar10"))
+    params = graph.init_params(torch.Generator().manual_seed(0))
+    images = torch.randn((8, 3, 32, 32),
+                         generator=torch.Generator().manual_seed(1))
+    preds, launched = _run_example(
+        torch, kops, "quickstart_torch", lambda: mods["quickstart_torch"].run(
+            DEVICE, params={k: {n: t.numpy() for n, t in v.items()}
+                            for k, v in params.items()},
+            images=images.numpy()))
+    with torch.no_grad():
+        stored = {k: {n: t.to(DEVICE) for n, t in v.items()}
+                  for k, v in dequantize_tree(quantize_tree(params)).items()}
+        want = graph.apply(stored, images.to(DEVICE),
+                           backend="ref").argmax(-1).tolist()
+    run.check("examples", "quickstart_torch: class ids equal ref's on the "
+              "int8 artifact's weights", preds == want, got=preds, ref=want)
+    run.check("examples", "quickstart_torch: NIN ran on the kernels",
+              launched.get("conv2d", 0) > 0, launches=launched)
+    rep, launched = _run_example(
+        torch, kops, "compress_models_torch",
+        lambda: mods["compress_models_torch"].run(DEVICE))
+    numbers = [rep["ratio"], rep["agree"], rep["max_dprob"]] + [
+        rep["report"][k][f] for k in ("int8", "pruned", "lowrank",
+                                      "lowrank+int8")
+        for f in ("ratio", "error")]
+    run.check("examples", "compress_models_torch: int8 ratio > 1, agreement "
+              "in [0, 1], the stage report finite, NIN on the kernels",
+              rep["ratio"] > 1 and 0 <= rep["agree"] <= 1
+              and all(math.isfinite(x) for x in numbers)
+              and launched.get("conv2d", 0) > 0,
+              ratio=rep["ratio"], agree=rep["agree"], launches=launched)
+    (losses, reqs), launched = _run_example(
+        torch, kops, "train_publish_serve_torch",
+        lambda: mods["train_publish_serve_torch"].run(DEVICE))
+    drop = losses[0] - losses[-1]
+    run.check("examples", "train_publish_serve_torch: loss drop > 0.3, 3 "
+              "requests of 12 tokens served from the store, B9 and B8 "
+              "launched", drop > 0.3 and [len(r.output) for r in reqs]
+              == [12] * 3 and launched.get("flash_attention_dq", 0) > 0
+              and launched.get("flash_attention", 0) > 0,
+              drop=drop, steps=len(losses), launches=launched)
+    served, launched = _run_example(
+        torch, kops, "serve_batched_torch",
+        lambda: mods["serve_batched_torch"].run(DEVICE))
+    picks = [m for _, m, _ in served]
+    run.check("examples", "serve_batched_torch: every round picks its "
+              "location's model, every request 8 tokens",
+              picks == [EXAMPLE_MODELS[loc] for loc, _, _ in served]
+              and len(served) == 6 and all(
+                  len(t) == 8 for _, _, toks in served for t in toks),
+              picks=picks, launches=launched)
+
+
 MESH_LAYERS = 2                  # depth of both models of the mesh phase
 MESH_TRAIN = dict(batch=4, seq=2048)
 MESH_MOE_TOKENS = (4, 512)
@@ -6535,6 +6820,11 @@ def kernel_rows(totals, b2, dec, flash, wkv, cnn_launches, serve_launches,
         "long": {k: (wkv or {}).get("8x2048x40x64", {}).get(k) for k in (
             "ms", "device_us", "device_us_by_pass", "bound_ms",
             "share_of_bound", "ctas")},
+        "bf16_fp32_decay": {shape: {k: (wkv or {}).get(
+            shape + "_bf16_w32", {}).get(k) for k in (
+                "ms", "plain_ms", "device_us", "device_us_by_pass",
+                "bound_ms", "share_of_bound")}
+            for shape in ("1x300x40x64", "8x2048x40x64")},
         "ms_per": "one launch (one layer; both passes), RWKV-6 3B prefill, "
                   "1 x 300 x 40 x 64, fp32"})
     times = (int8 or {}).get("times", {})
@@ -6689,6 +6979,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     audio = timed("serve_audio", phase_serve_audio, run, torch, np, card)
+    # slice 21: the four torch examples at their defaults
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("examples", phase_examples, run, torch, np)
     # slice 14: the sharded step and the MoE bodies on a one-rank NCCL
     # mesh, and the analytic dry run on the H100 row
     gc.collect()

@@ -1,7 +1,10 @@
 // B10: the chunked RWKV-6 WKV from a zero state (prefill, and the forward
-// without grad): r, k, v, w (B, T, H, N) fp32 or bf16 and the bonus u
-// (H, N) fp32 -> out (B, T, H, N) in the inputs' dtype and the final state
-// (B, H, N, N) fp32, for head sizes N 32 and 64.
+// without grad): r, k, v (B, T, H, N) of one dtype, fp32 or bf16, the
+// decay w (B, T, H, N) fp32 or in r's dtype (a bf16 RWKV-6 keeps w in
+// fp32: bf16 would round a decay near 1 to 1), and the bonus u (H, N)
+// fp32 -> out (B, T, H, N) in r's dtype and the final state (B, H, N, N)
+// fp32, for head sizes N 32 and 64.  Each input is read in its own dtype
+// and widened to fp32, as the Pallas kernel casts each to fp32.
 //
 // Replaces repro/kernels/rwkv6_chunk.py::rwkv6_chunked (body _wkv_kernel).
 // On the TPU the grid (B, H, T/16) walks the chunks of one head in order
@@ -103,10 +106,11 @@ struct alignas(16) Rec {
 // pass 1: one CTA of 8N threads a (chunk, head, batch)
 // ---------------------------------------------------------------------------
 
-template <int N, typename T>
+template <int N, typename T, typename TW>
 struct PrepSmem {
   static constexpr int SLICES = N / 4;
-  alignas(16) T tile[4][C][N];      // r, k, w, v
+  alignas(16) T tile[3][C][N];      // r, k, v
+  alignas(16) TW wt[C][N];          // w, in its own dtype
   alignas(16) float hi[C + 1][N];   // cumx[i] = cum_{i-1}, as hi + lo
   alignas(16) float lo[C + 1][N];
   alignas(16) double kd[C][N];      // k in fp64
@@ -117,13 +121,13 @@ struct PrepSmem {
   double att[PAIRS];                // att over all N columns
 };
 
-template <int N, typename T>
+template <int N, typename T, typename TW>
 __global__ void __launch_bounds__(8 * N, 65536 / (8 * N * 64))
 wkv_prepare(const T* __restrict__ r, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ w,
+            const T* __restrict__ v, const TW* __restrict__ w,
             const float* __restrict__ u, Rec<N>* __restrict__ ws, int Tlen,
             int H, int vec) {
-  using Sm = PrepSmem<N, T>;
+  using Sm = PrepSmem<N, T, TW>;
   constexpr int THREADS = 8 * N;
   constexpr int SLICES = Sm::SLICES;
   constexpr int ROWS = C * N / THREADS;   // 2 rows a thread in the cumsum
@@ -137,27 +141,41 @@ wkv_prepare(const T* __restrict__ r, const T* __restrict__ k,
                       static_cast<size_t>(h) * N;             // (b, t0, h, 0)
   Rec<N>& rec = ws[(static_cast<size_t>(b) * H + h) * nc + c];
 
-  // stage r, k, w, v of the chunk; rows past T land as zeros
+  // stage r, k, v and w of the chunk, each row in its own dtype (16-byte
+  // copies: 16 / sizeof elements); rows past T land as zeros
   if (vec) {
     constexpr int EPC = 16 / sizeof(T), CPR = N / EPC;
-    for (int idx = tid; idx < 4 * C * CPR; idx += THREADS) {
+    for (int idx = tid; idx < 3 * C * CPR; idx += THREADS) {
       const int x = idx / (C * CPR), rem = idx % (C * CPR);
       const int i = rem / CPR, cp = rem % CPR;
-      const T* src = x == 0 ? r : x == 1 ? k : x == 2 ? w : v;
+      const T* src = x == 0 ? r : x == 1 ? k : v;
       const bool ok = t0 + i < Tlen;
       dlk_cp_async16(reinterpret_cast<float*>(&s.tile[x][i][cp * EPC]),
                      reinterpret_cast<const float*>(
                          src + base + static_cast<size_t>(ok ? i : 0) * row + cp * EPC), ok);
     }
+    constexpr int WEPC = 16 / sizeof(TW), WCPR = N / WEPC;
+    for (int idx = tid; idx < C * WCPR; idx += THREADS) {
+      const int i = idx / WCPR, cp = idx % WCPR;
+      const bool ok = t0 + i < Tlen;
+      dlk_cp_async16(reinterpret_cast<float*>(&s.wt[i][cp * WEPC]),
+                     reinterpret_cast<const float*>(
+                         w + base + static_cast<size_t>(ok ? i : 0) * row + cp * WEPC), ok);
+    }
     dlk_cp_async_commit();
     dlk_cp_async_wait<0>();
   } else {
-    for (int idx = tid; idx < 4 * C * N; idx += THREADS) {
+    for (int idx = tid; idx < 3 * C * N; idx += THREADS) {
       const int x = idx / (C * N), rem = idx % (C * N);
       const int i = rem / N, n = rem % N;
-      const T* src = x == 0 ? r : x == 1 ? k : x == 2 ? w : v;
+      const T* src = x == 0 ? r : x == 1 ? k : v;
       s.tile[x][i][n] = t0 + i < Tlen ? src[base + static_cast<size_t>(i) * row + n]
                                       : from_f<T>(0.0f);
+    }
+    for (int idx = tid; idx < C * N; idx += THREADS) {
+      const int i = idx / N, n = idx % N;
+      s.wt[i][n] = t0 + i < Tlen ? w[base + static_cast<size_t>(i) * row + n]
+                                 : from_f<TW>(0.0f);
     }
   }
   __syncthreads();
@@ -165,7 +183,7 @@ wkv_prepare(const T* __restrict__ r, const T* __restrict__ k,
   for (int idx = tid; idx < C * N; idx += THREADS) {
     const int i = idx / N, n = idx % N;
     s.lwd[i][n] = t0 + i < Tlen
-        ? static_cast<double>(log2f(fminf(fmaxf(to_f(s.tile[2][i][n]), 1e-26f), 1.0f)))
+        ? static_cast<double>(log2f(fminf(fmaxf(to_f(s.wt[i][n]), 1e-26f), 1.0f)))
         : 0.0;
   }
   __syncthreads();
@@ -274,7 +292,7 @@ wkv_prepare(const T* __restrict__ r, const T* __restrict__ k,
     static_assert(THREADS / N == C / 2, "rows a thread");
     double vd[C];
 #pragma unroll
-    for (int j = 0; j < C; ++j) vd[j] = to_f(s.tile[3][j][m]);
+    for (int j = 0; j < C; ++j) vd[j] = to_f(s.tile[2][j][m]);
 #pragma unroll
     for (int oo = 0; oo < 2; ++oo) {
       const int io = i + oo * (C / 2);
@@ -436,22 +454,23 @@ wkv_scan(const T* __restrict__ v, const Rec<N>* __restrict__ ws,
   for (int e = 0; e < NG; ++e) st[static_cast<size_t>(nb + e) * N] = S[e];
 }
 
-template <int N, typename T>
+template <int N, typename T, typename TW>
 int launch(const void* r, const void* k, const void* v, const void* w,
            const float* u, void* out, float* state, void* ws, int B, int Tlen,
            int H, int vec, cudaStream_t stream) {
   constexpr int MB = N / 2;             // value columns a scan CTA
   const int nc = (Tlen + C - 1) / C;
-  auto prep = wkv_prepare<N, T>;
+  auto prep = wkv_prepare<N, T, TW>;
   auto scan = wkv_scan<N, MB, T>;
   static DlkSmemOnce prep_once, scan_once;
-  const size_t prep_smem = sizeof(PrepSmem<N, T>), scan_smem = sizeof(ScanSmem<N, MB, T>);
+  const size_t prep_smem = sizeof(PrepSmem<N, T, TW>),
+               scan_smem = sizeof(ScanSmem<N, MB, T>);
   if (int err = dlk_prepare_smem(prep, prep_smem, prep_once)) return err;
   if (int err = dlk_prepare_smem(scan, scan_smem, scan_once)) return err;
   Rec<N>* recs = static_cast<Rec<N>*>(ws);
   prep<<<dim3(nc, H, B), 8 * N, prep_smem, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(w), u, recs, Tlen, H, vec);
+      static_cast<const TW*>(w), u, recs, Tlen, H, vec);
   if (int err = dlk_last_error()) return err;
   scan<<<dim3(N / MB, H, B), G * MB, scan_smem, stream>>>(
       static_cast<const T*>(v), recs, static_cast<T*>(out), state, Tlen, H, vec);
@@ -459,34 +478,43 @@ int launch(const void* r, const void* k, const void* v, const void* w,
 }
 
 template <int N>
-int by_dtype(int dtype, const void* r, const void* k, const void* v,
+int by_dtype(int dtype, int wdtype, const void* r, const void* k, const void* v,
              const void* w, const float* u, void* out, float* state, void* ws,
              int B, int Tlen, int H, int vec, cudaStream_t stream) {
-  if (dtype == 0)
-    return launch<N, float>(r, k, v, w, u, out, state, ws, B, Tlen, H, vec, stream);
-  if (dtype == 1)
-    return launch<N, __nv_bfloat16>(r, k, v, w, u, out, state, ws, B, Tlen, H, vec,
-                                    stream);
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0 && wdtype == 0)
+    return launch<N, float, float>(r, k, v, w, u, out, state, ws, B, Tlen, H, vec,
+                                   stream);
+  if (dtype == 1 && wdtype == 1)
+    return launch<N, bf16, bf16>(r, k, v, w, u, out, state, ws, B, Tlen, H, vec,
+                                 stream);
+  if (dtype == 1 && wdtype == 0)
+    return launch<N, bf16, float>(r, k, v, w, u, out, state, ws, B, Tlen, H, vec,
+                                  stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16 (r, k, v, w and out); u and state are fp32.  ws:
-// B * H * ceil(T / 16) records of dlk_rwkv6_record_bytes(N) bytes, 16-byte
-// aligned (written before they are read: no memset).  vec: 1 when r, k, v
-// and w start on 16 bytes (16-byte copies).
+// dtype: 0 fp32, 1 bf16 (r, k, v and out); wdtype: w's, 0 fp32 or dtype
+// itself; u and state are fp32.  ws: B * H * ceil(T / 16) records of
+// dlk_rwkv6_record_bytes(N) bytes (fp32 and fp64 fields whatever the
+// inputs' dtypes), 16-byte aligned (written before they are read: no
+// memset).  vec: 1 when r, k, v and w start on 16 bytes (16-byte copies,
+// 16 / sizeof elements of each input's own dtype).
 extern "C" int dlk_rwkv6_chunked(const void* r, const void* k, const void* v,
                                  const void* w, const float* u, void* out,
                                  float* state, void* ws, int B, int T, int H,
-                                 int N, int dtype, int vec,
+                                 int N, int dtype, int wdtype, int vec,
                                  cudaStream_t stream) {
   if (B < 1 || T < 1 || H < 1 || B > 65535 || H > 65535 || !ws)
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 32)
-    return by_dtype<32>(dtype, r, k, v, w, u, out, state, ws, B, T, H, vec, stream);
+    return by_dtype<32>(dtype, wdtype, r, k, v, w, u, out, state, ws, B, T, H, vec,
+                        stream);
   if (N == 64)
-    return by_dtype<64>(dtype, r, k, v, w, u, out, state, ws, B, T, H, vec, stream);
+    return by_dtype<64>(dtype, wdtype, r, k, v, w, u, out, state, ws, B, T, H, vec,
+                        stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,10 +1,12 @@
 """B10: the chunked RWKV-6 WKV from a zero state.
 
 Kernel: ``csrc/rwkv6_chunk.cu`` (replaces repro/kernels/rwkv6_chunk.py
-``rwkv6_chunked``, body ``_wkv_kernel``).  r, k, v, w are (B, T, H, N)
-fp32 or bf16 (fp32 arithmetic, fp64 sums where the bar needs them), u is
-(H, N); the result is out (B, T, H, N) in the inputs' dtype and the final
-state (B, H, N, N) fp32.  Head sizes 32 and 64; T need not be a multiple
+``rwkv6_chunked``, body ``_wkv_kernel``).  r, k, v are (B, T, H, N) of
+one dtype, fp32 or bf16, and w is (B, T, H, N) fp32 or in r's dtype (a
+bf16 RWKV-6 keeps its decay in fp32); each is read in its own dtype
+(fp32 arithmetic, fp64 sums where the bar needs them); u is (H, N).  The
+result is out (B, T, H, N) in r's dtype and the final state (B, H, N, N)
+fp32.  Head sizes 32 and 64; T need not be a multiple
 of the 16-token chunk (the kernel masks the ragged end, where the TPU
 wrapper pads by a copy).
 
@@ -44,7 +46,7 @@ KEEP_BYTES = 64 << 20            # records kept between launches, a stream
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-KERNEL = CudaKernel("dlk_rwkv6_chunked", [_P] * 8 + [_I] * 6)
+KERNEL = CudaKernel("dlk_rwkv6_chunked", [_P] * 8 + [_I] * 7)
 
 
 class Plan(NamedTuple):
@@ -114,13 +116,15 @@ def drop_meta() -> None:
 
 
 def dtype_refusal(r, k, v, w):
-    """Why the kernel refuses these inputs' dtypes (it takes float32 or
-    bfloat16 r, k, v, w of one dtype), or None: RWKV-6's decay w is fp32
-    beside bf16 r, k, v in a bf16 model, which the wrapper refuses."""
-    if r.dtype in DTYPES and k.dtype == v.dtype == w.dtype == r.dtype:
+    """Why the kernel refuses these inputs' dtypes, or None.  It takes r,
+    k, v of one dtype, float32 or bfloat16, and w in float32 or r's
+    dtype: RWKV-6's decay is fp32 beside bf16 r, k, v in a bf16 model
+    (bf16 would round a decay near 1 to 1)."""
+    if r.dtype in DTYPES and k.dtype == v.dtype == r.dtype \
+            and w.dtype in (torch.float32, r.dtype):
         return None
-    return ("rwkv6_chunked: float32 or bfloat16 r, k, v, w of one dtype, "
-            f"got {[x.dtype for x in (r, k, v, w)]}")
+    return ("rwkv6_chunked: r, k, v of one dtype, float32 or bfloat16, and "
+            f"w float32 or r's dtype, got {[x.dtype for x in (r, k, v, w)]}")
 
 
 def _check(r, k, v, w, u):
@@ -192,7 +196,8 @@ def _launch(x, out, state, b, t, h, n):
     pr, pk, pv, pw = r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr()
     KERNEL.launch_on(stream, pr, pk, pv, pw, u.data_ptr(), out.data_ptr(),
                      state.data_ptr(), ws.data_ptr(), b, t, h, n,
-                     DTYPES[r.dtype], int((pr | pk | pv | pw) % 16 == 0))
+                     DTYPES[r.dtype], DTYPES[w.dtype],
+                     int((pr | pk | pv | pw) % 16 == 0))
     return out, state
 
 

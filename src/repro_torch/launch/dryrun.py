@@ -28,9 +28,9 @@ last reference goes, autograd's saved tensors included, each rounded up
 to the caching allocator's 512-byte blocks; where the card runs a kernel
 (B6/B7, B8, B9, B10) they charge what the kernel's wrapper allocates,
 not the plain version's intermediates (``launch/memory.py``).  Where
-the kernel refuses the step's inputs (B10 on a bf16 RWKV-6, whose fp32
-decay it does not take: the card raises there), the plain version is
-charged and ``plain_charged`` names the site and the refusal.
+a kernel refuses the step's inputs (the card raises there), the plain
+version is charged and ``plain_charged`` names the site and the refusal;
+no pair reaches one.
 ``chip_smoke.py``'s ``mesh`` phase holds the count against
 ``torch.cuda.max_memory_allocated()`` for four steps on a one-rank mesh
 of the H100.  Not counted: NCCL's own buffers, cuBLAS's workspaces and

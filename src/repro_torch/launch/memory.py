@@ -31,10 +31,10 @@ up to :data:`ROUND`.
   :func:`flash_attention`), ``decode_attention_named`` and
   ``cache_attend_sharded`` (B6/B7) and ``models.rwkv6.wkv_named`` (B10:
   through :func:`rwkv6_chunked`): the kernels a dry-run pair reaches.
-* Where the card's kernel refuses what the step gives it (B10 on fp32
-  decay beside bf16 r, k, v: the card raises), the plain version is
-  charged as it runs and the count names the site and the refusal in
-  ``plain_charged`` (:meth:`LiveBytes.note_plain`).
+* Where the card's kernel refuses what the step gives it (B10 on fp16
+  inputs: the card raises), the plain version is charged as it runs and
+  the count names the site and the refusal in ``plain_charged``
+  (:meth:`LiveBytes.note_plain`).  No dry-run pair reaches a refusal.
 
 The kernels' buffers, as their wrappers allocate them:
 

@@ -163,7 +163,8 @@ def embed_lookup(table, tokens):
     ``compat.shard_map`` body: the table's rows split on its
     ``tp_vocab`` axes (its ``fsdp`` split gathered), each rank gathers
     the tokens in its rows and zeros the rest, and the partial sums meet
-    at the next redistribute."""
+    in the (batch, seq, embed) placement, so that no matmul after it runs
+    at the global batch."""
     if not is_dtensor(table):
         return table[tokens]
     from torch.distributed.tensor import Partial
@@ -193,7 +194,7 @@ def embed_lookup(table, tokens):
 
     fn = shard_map(body, mesh=mesh, in_specs=(tspec, kspec),
                    out_specs=out_pl, in_grad_specs=(grad_pl, kspec))
-    return fn(table, tokens)
+    return hint(fn(table, tokens), *("batch", "seq")[:tokens.ndim], "embed")
 
 
 def split_heads(x, n: int, name: str = "heads"):
@@ -802,14 +803,80 @@ def _sharded_attention(q, k, v, *, causal, window, backend, save_memory):
 
 def softmax_xent(logits, labels, mask=None):
     """Mean next-token cross entropy. logits (B, S, V), labels (B, S);
-    with ``mask`` (B, S) the mean over the unmasked positions."""
-    logits = logits.float()
-    # the trailing unit dim is dropped after the difference: a vocab-split
-    # DTensor's gathered labels cannot be indexed before their reduction
-    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
-    ll = torch.gather(logits, -1, labels[..., None].long())
-    nll = (logz - ll)[..., 0]
+    with ``mask`` (B, S) the mean over the unmasked positions.  On
+    DTensors each rank keeps its own vocab shard (:func:`_sharded_nll`)."""
+    if is_dtensor(logits):
+        nll = _sharded_nll(logits, labels)
+    else:
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+        ll = torch.gather(logits, -1, labels[..., None].long())
+        nll = (logz - ll)[..., 0]
     if mask is None:
         return nll.mean()
     mask = mask.float()
     return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+class _VocabShardNll(torch.autograd.Function):
+    """Per-position cross entropy over a vocab split across ranks
+    (Megatron's vocab-parallel cross entropy): x (B, S, Vl) this rank's
+    logits for vocab rows [v0, v0 + Vl), labels (B, S) global ids.  The
+    max, the sum of exponentials and the label's logit (0 on a rank that
+    lacks the label) are all-reduced over ``groups``; the gradient is the
+    local softmax minus the local one-hot, with no collective.  Only the
+    input and logz are saved: the backward forms the softmax again."""
+
+    @staticmethod
+    def forward(ctx, x, labels, v0, groups):
+        from torch.distributed import _functional_collectives as fc
+        vl = x.shape[-1]
+        idx = labels.long() - v0
+        hit = (idx >= 0) & (idx < vl)
+        idx = torch.clamp(idx, 0, vl - 1)[..., None]
+        m = x.amax(dim=-1, keepdim=True).float()
+        for g in groups:
+            m = fc.all_reduce(m, "max", g)
+        e = x.to(torch.float32, copy=True)
+        e.sub_(m).exp_()
+        se = e.sum(dim=-1, keepdim=True)
+        del e
+        ll = torch.where(hit, torch.gather(x, -1, idx)[..., 0].float(), 0.0)
+        for g in groups:
+            se = fc.all_reduce(se, "sum", g)
+            ll = fc.all_reduce(ll, "sum", g)
+        logz = m + torch.log(se)
+        ctx.save_for_backward(x, logz, idx, hit)
+        return logz[..., 0] - ll
+
+    @staticmethod
+    def backward(ctx, g):
+        x, logz, idx, hit = ctx.saved_tensors
+        p = x.to(torch.float32, copy=True)
+        p.sub_(logz).exp_()
+        p.scatter_add_(-1, idx, -hit[..., None].float())
+        p.mul_(g[..., None])
+        return p.to(x.dtype), None, None, None
+
+
+def _sharded_nll(logits, labels):
+    """:func:`softmax_xent`'s per-position losses on DTensor logits placed
+    (batch, seq, vocab_act) by the active rules: each rank takes its own
+    vocab shard in a ``compat.shard_map`` body (:class:`_VocabShardNll`)
+    and gets the (B, S) losses of its batch shard, the same on every rank
+    of the vocab axes; no rank forms the whole (B, S, V) logits or their
+    gradient.  Labels meet the logits' batch and seq placements."""
+    from repro_torch.launch.compat import shard_map
+    from repro_torch.sharding_hints import logical_to_spec
+    mesh = logits.device_mesh
+    spec = logical_to_spec(("batch", "seq", "vocab_act"), shape=logits.shape)
+    v_axes = _axes_of(spec[2])
+    v0, _ = _shard_offset(mesh, v_axes, logits.shape[-1])
+    groups = [mesh.get_group(a) for a in v_axes]
+
+    def body(xl, ll):
+        return _VocabShardNll.apply(xl, ll, v0, groups)
+
+    fn = shard_map(body, mesh=mesh, in_specs=(spec, spec[:2]),
+                   out_specs=spec[:2])
+    return fn(logits, labels)

@@ -215,8 +215,7 @@ def forward(cfg: ArchConfig, params, tokens, frames, *, window: int = 0,
     decoder layers in the JAX package; the encoder is not
     rematerialized, as there)."""
     enc_out = encode(cfg, params, frames, backend=backend)
-    x = hint(cm.embed_lookup(params["embed"], tokens), "batch", "seq",
-             "embed")
+    x = cm.embed_lookup(params["embed"], tokens)
     grad = torch.is_grad_enabled()
     for lp in _layers(params["dec"], unbind=grad):
         if remat and grad:
@@ -473,8 +472,7 @@ def prefill(cfg: ArchConfig, params, tokens, cache_len: int, frames=None, *,
                              dtype=params["embed"].dtype,
                              device=tokens.device)
     enc_out = encode(cfg, params, frames, backend=backend)
-    x = hint(cm.embed_lookup(params["embed"], tokens), "batch", "seq",
-             "embed")
+    x = cm.embed_lookup(params["embed"], tokens)
     cache = cm.prefill_cache(init_cache, cache_spec, cfg, b, cache_len,
                              cache_dtype, x)
     keep = min(s, cache_len)

@@ -388,7 +388,7 @@ def forward(cfg: ArchConfig, params, tokens, *, window: int = 0,
     """tokens (B, S) -> (logits (B, S, V), aux summed over layers).  With
     ``remat`` and grad on, each layer runs again in the backward (as
     ``jax.checkpoint`` there)."""
-    x = tfm._embed(cfg, params, tokens)
+    x = cm.embed_lookup(params["embed"], tokens)
     layers = {k: w.unbind(0) for k, w in params["layers"].items()}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l in range(cfg.num_layers):

@@ -258,8 +258,7 @@ def forward(cfg: ArchConfig, params, tokens, *, window: int = 0,
     again there (``jax.checkpoint`` in the JAX package).  The stacked
     weights are unbound once, so their gradients are stacked once."""
     del window
-    x = hint(cm.embed_lookup(params["embed"], tokens), "batch", "seq",
-             "embed")
+    x = cm.embed_lookup(params["embed"], tokens)
     stacks = {n: {k: w.unbind(0) for k, w in params[n].items()}
               for n in ("rec", "attn", "mlp")}
     for kind, i, li in _layers(cfg):

@@ -360,8 +360,7 @@ def forward(cfg: ArchConfig, params, tokens, *, window: int = 0,
     there (``jax.checkpoint`` in the JAX package).  ``window`` is
     accepted for API parity: the model is attention-free."""
     del window
-    x = hint(cm.embed_lookup(params["embed"], tokens), "batch", "seq",
-             "embed")
+    x = cm.embed_lookup(params["embed"], tokens)
     layers = {k: w.unbind(0) for k, w in params["layers"].items()}
     for l in range(cfg.num_layers):
         lp = {k: w[l] for k, w in layers.items()}

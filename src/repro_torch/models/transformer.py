@@ -183,11 +183,6 @@ def _logits(cfg: ArchConfig, params, x):
     return hint(x @ w.to(x.dtype), "batch", "seq", "vocab_act")
 
 
-def _embed(cfg: ArchConfig, params, tokens):
-    return hint(cm.embed_lookup(params["embed"], tokens), "batch", "seq",
-                "embed")
-
-
 # ---------------------------------------------------------------------------
 # Forward / decode
 # ---------------------------------------------------------------------------
@@ -204,7 +199,7 @@ def forward(cfg: ArchConfig, params, tokens, *, window: int = 0,
     each layer keeps only its input for the backward and runs again
     there (``jax.checkpoint`` in the JAX package).  The stacked layer
     weights are unbound once, so their gradients are stacked once."""
-    x = _embed(cfg, params, tokens)
+    x = cm.embed_lookup(params["embed"], tokens)
     layers = {k: w.unbind(0) for k, w in params["layers"].items()}
     for l in range(cfg.num_layers):
         lp = {k: w[l] for k, w in layers.items()}
@@ -333,7 +328,7 @@ def decode_step(cfg: ArchConfig, params, token, cache, pos, *,
     lanes.  Writes the ring cache in place; returns (logits, cache).
     ``ffn(cfg, lp, x)`` is the block after attention (the MoE family
     passes its own)."""
-    x = _embed(cfg, params, token)
+    x = cm.embed_lookup(params["embed"], token)
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
         x = x + attn_decode(cfg, lp, x, cache["k"][l], cache["v"][l], pos,
@@ -351,7 +346,7 @@ def decode_step_batch(cfg: ArchConfig, params, tokens, cache, pos, *,
     attention; a paged cache (``page_table``) the pools.  ``ffn`` as in
     :func:`decode_step`.  Writes the cache in place; returns (logits
     (B, 1, V), cache)."""
-    x = _embed(cfg, params, tokens)
+    x = cm.embed_lookup(params["embed"], tokens)
     if "page_table" in cache:
         return _decode_step_batch_paged(cfg, params, x, cache, pos,
                                         window=window,
@@ -395,7 +390,7 @@ def prefill(cfg: ArchConfig, params, tokens, cache_len: int,
     ``backend`` names the flash attention backend (see :func:`attn`),
     ``ffn`` the block after attention (see :func:`decode_step`)."""
     b, s = tokens.shape
-    x = _embed(cfg, params, tokens)
+    x = cm.embed_lookup(params["embed"], tokens)
     cache = cm.prefill_cache(init_cache, cache_spec, cfg, b, cache_len,
                              cache_dtype, x)
     keep = min(s, cache_len)

@@ -180,6 +180,11 @@ def zeros(shape, dtype, device, *axes: Optional[str]):
         if isinstance(p, Shard):
             local[p.dim] //= mesh.shape[i]
     t = torch.zeros(local, dtype=dtype, device=device)
+    # the global strides of a contiguous tensor, by arithmetic: a meta
+    # tensor of the global shape would be charged by a memory count
+    stride, step = [], 1
+    for n in reversed(shape):
+        stride.insert(0, step)
+        step *= max(n, 1)
     return DTensor.from_local(t, mesh, placements, run_check=False,
-                              shape=torch.Size(shape),
-                              stride=torch.empty(shape, device="meta").stride())
+                              shape=torch.Size(shape), stride=tuple(stride))

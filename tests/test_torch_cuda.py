@@ -1108,6 +1108,65 @@ def test_rwkv6_chunked_kernel_bf16(dev):
     close(state.double(), want_s, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("w_zero", [False, True], ids=["w", "w0"])
+@pytest.mark.parametrize("b,t,h,n", [(2, 45, 8, 64), (1, 300, 40, 64),
+                                     (3, 33, 8, 32)])
+def test_rwkv6_chunked_kernel_bf16_with_fp32_decay(dev, b, t, h, n, w_zero):
+    """bf16 r, k, v beside an fp32 decay (a bf16 RWKV-6's): out in bf16
+    at the all-bf16 bar, the fp32 state at the fp32 bar, against the
+    plain version in fp64 on the same inputs; a rerun and inputs that do
+    not start on 16 bytes (the plain-load path) give the same bits."""
+    x = _wkv_inputs(dev, b, t, h, n, w_zero=w_zero, seed=5 + t)
+    x = [y.bfloat16() for y in x[:3]] + x[3:]
+    assert x[3].dtype == torch.float32
+    want_o, want_s = ref.rwkv6_chunked_ref(*(y.double() for y in x))
+    out, state = kops.rwkv6_chunked(*x)
+    assert out.dtype == torch.bfloat16 and state.dtype == torch.float32
+    close(out.double(), want_o, rtol=4e-3, atol=1e-3)
+    close(state.double(), want_s, rtol=1e-4, atol=1e-5)
+    o2, s2 = kops.rwkv6_chunked(*x)
+    shifted = [torch.cat([y.new_zeros(1), y.flatten()])[1:].view(y.shape)
+               for y in x[:4]]
+    odd = kops.rwkv6_chunked(*shifted, x[4])
+    torch.cuda.synchronize()
+    assert torch.equal(o2, out) and torch.equal(s2, state)
+    assert torch.equal(odd[0], out) and torch.equal(odd[1], state)
+
+
+def test_rwkv6_bf16_prefill_on_b10_equals_ref(dev):
+    """A bf16 reduced RWKV-6 prefill: each layer's time mix on the same
+    input through B10 (bf16 r, k, v, fp32 decay) against ``ref``'s plain
+    scan, output and wkv state at the bf16 bar; B10 launched once a
+    layer on ``cuda``; the whole prefill's logits at the bar too."""
+    from repro_torch import models
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import common as cm
+    from repro_torch.models import rwkv6 as rw6
+    cfg = reduced(get_config("rwkv6-3b"))
+    params = models.init_params(cfg, torch.Generator(dev).manual_seed(3),
+                                dtype=torch.bfloat16, device=dev)
+    toks = torch.arange(2, 302, device=dev)[None] % cfg.vocab_size
+    with torch.no_grad():
+        x = params["embed"][toks]
+        for l in range(cfg.num_layers):
+            lp = {k: w[l] for k, w in params["layers"].items()}
+            xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            kops.reset_launches()
+            got = rw6.time_mix(cfg, lp, xn, backend="cuda")
+            assert kops.launches()["rwkv6_chunked"] == 1
+            want = rw6.time_mix(cfg, lp, xn, backend="ref")
+            for i in (0, 2):
+                close(got[i].float(), want[i].float(), rtol=2e-2, atol=3e-2)
+            x = x + want[0]
+            x = x + rw6.channel_mix(
+                cfg, lp, cm.rms_norm(x, lp["ln2"], cfg.norm_eps))[0]
+        kops.reset_launches()
+        lg, _ = rw6.prefill(cfg, params, toks, 512, backend="cuda")
+        assert kops.launches()["rwkv6_chunked"] == cfg.num_layers
+        lr, _ = rw6.prefill(cfg, params, toks, 512, backend="ref")
+    close(lg.float(), lr.float(), rtol=2e-2, atol=3e-2)
+
+
 @pytest.mark.parametrize("n", [32, 64])
 @pytest.mark.parametrize("t", [15, 16, 17, 33])
 def test_rwkv6_column_blocks_reruns_and_lanes_bit_equal(dev, t, n):

@@ -526,7 +526,8 @@ def test_wkv_records_kept_up_to_the_cap():
 
 def _port_sources():
     return sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-        [REPO / "chip_smoke.py"]
+        [REPO / "chip_smoke.py"] + \
+        sorted((REPO / "examples").glob("*_torch.py"))
 
 
 def _imported_modules(path):
@@ -549,7 +550,11 @@ def test_port_imports_neither_jax_nor_repro():
             "src/repro_torch/launch/mesh.py",
             "src/repro_torch/launch/sharding.py",
             "src/repro_torch/launch/op_costs.py",
-            "src/repro_torch/launch/dryrun.py"} <= names
+            "src/repro_torch/launch/dryrun.py",
+            "examples/quickstart_torch.py",
+            "examples/serve_batched_torch.py",
+            "examples/train_publish_serve_torch.py",
+            "examples/compress_models_torch.py"} <= names
     bad = [(p.relative_to(REPO).as_posix(), m) for p in sources
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]

@@ -265,14 +265,79 @@ PORT = textwrap.dedent("""
                     (o1 - o2).abs().max().item(), o2.abs().max().item(),
                     bool(torch.equal(k1, k2) and torch.equal(v1, v2)),
                     bool(torch.equal(k1, ck0.to_local())) == (pos is None)]
+    # the largest storage one op makes (a block count), in the vocab-split
+    # loss's forward and backward and in two prefill steps
+    from repro_torch import models
+    biggest = [0]
+    charge = memory.LiveBytes._charge
+    def tracked(self, t):
+        sid = charge(self, t)
+        if sid is not None:
+            biggest[0] = max(biggest[0], memory.block_bytes(
+                t.untyped_storage().nbytes()))
+        return sid
+    memory.LiveBytes._charge = tracked
+    mesh8 = make_mesh((2, 4), AXES, device_type="cuda")
+    def placed(x, axes, r):
+        return shd.distribute(x, shd.struct_shardings(x, axes, r, mesh8),
+                              mesh8)
+    r = shd.rules_for("train")
+    with axis_rules(r, mesh8):
+        x = placed(torch.empty(4, 64, 1024, device="meta"),
+                   ("batch", "seq", "vocab_act"), r).requires_grad_()
+        lab = placed(torch.zeros(4, 64, dtype=torch.long, device="meta"),
+                     ("batch", "seq"), r)
+        biggest[0] = 0
+        with memory.LiveBytes() as live:
+            live.arguments((x, lab))
+            loss = cm.softmax_xent(x, lab)
+            g, = torch.autograd.grad(loss, x)
+            m = live.analysis((loss, g))
+        out["c6"] = {"xent": [biggest[0], x.to_local().numel() * 4,
+                              x.numel() * 4, m["temp_bytes"]]}
+    for arch in ("tinyllama-1.1b", "recurrentgemma-9b"):
+        cfg = reduced(get_config(arch))
+        shape = ShapeSpec("p", 256, 4, "prefill")
+        r = shd.rules_for("prefill")
+        with axis_rules(r, mesh8):
+            fn, structs, pls = dr.build_step(cfg, shape, r, mesh8)
+            args = tuple(shd.distribute(t, p, mesh8)
+                         for t, p in zip(structs, pls))
+            biggest[0] = 0
+            with memory.LiveBytes() as live:
+                live.arguments(args)
+                logits, cache = fn(*args)
+            mod = models.get_module(cfg)
+            cl = models.cache_len(cfg, shape)
+            spec, axes = mod.cache_spec(cfg, 4, cl, torch.bfloat16)
+            want = shd.struct_shardings(
+                {k: torch.empty(sh, device="meta")
+                 for k, (sh, _) in spec.items()}, axes, r, mesh8)
+            with memory.LiveBytes() as live:
+                made = cm.prefill_cache(mod.init_cache, mod.cache_spec, cfg,
+                                        4, cl, torch.bfloat16,
+                                        args[1]["tokens"])
+                made_peak = live.analysis(made)["peak_bytes"]
+            out["c6"][arch] = {
+                "biggest": biggest[0],
+                "logits_whole": logits.numel() * logits.element_size(),
+                "logits_local": logits.to_local().numel()
+                * logits.element_size(),
+                "cache_peak": made_peak,
+                "cache_shards": sum(memory.block_bytes(
+                    t.to_local().numel() * t.element_size())
+                    for t in made.values()),
+                "placed": all(tuple(cache[k].placements) == want[k]
+                              and cache[k].dtype == dt
+                              for k, (_, dt) in spec.items())}
+    memory.LiveBytes._charge = charge
     print("RESULT " + json.dumps(out))
 """)
 
 # (name, arch, kind, batch, seq, dtype, the pair whose rules it takes):
 # TinyLlama's three steps (B9; B8 over 4 q chunks, two run on meta; B6),
 # Granite's a2a prefill (collectives), RWKV-6's prefill in fp32 (B10 over
-# 4 chunks) and bf16 (B10 refuses fp32 w beside bf16 r: the plain
-# version, charged)
+# 4 chunks) and bf16 (B10 on bf16 r, k, v beside the fp32 decay)
 PARITY = [
     ("tiny_train", "tinyllama-1.1b", "train", 2, 2048, "float32", None),
     ("tiny_prefill", "tinyllama-1.1b", "prefill", 2, 4096, "float32", None),
@@ -284,20 +349,23 @@ PARITY = [
 ]
 
 # flops, bytes, wire bytes and ops of reduced pairs on a fake (2, 4) mesh
-# with the perf overrides, recorded from the parent commit (11534a4)
+# with the perf overrides, recorded from commit 11534a4; the three train
+# pairs' bytes, wire bytes and ops re-recorded where the loss came to
+# keep each rank's vocab shard (no all-gather of the logits over the
+# vocab, no scatter of their gradient; the FLOPs as recorded)
 PARENT = {
-    "tinyllama-1.1b/train_4k": (6081673691136.0, 1935763912018.0,
-                                8157435796.0, 4558),
+    "tinyllama-1.1b/train_4k": (6081673691136.0, 1918316722242.0,
+                                6555078676.0, 4557),
     "granite-moe-3b-a800m/prefill_32k": (9080097734656.0, 3590867354956.0,
                                          2315667476.0, 64122),
-    "rwkv6-3b/prefill_32k": (682899800064.0, 177895426572.0,
-                             21219545088.0, 172301),
+    "rwkv6-3b/prefill_32k": (650687545344.0, 179606120972.0,
+                             20286793728.0, 172303),
     "whisper-medium/decode_32k": (1226833920.0, 17814551054.0, 3910144.0,
                                   421),
-    "recurrentgemma-9b/train_4k": (4999341932544.0, 1401468193930.0,
-                                   13544254090.0, 4122),
-    "qwen3-moe-235b-a22b/train_4k": (6736656203776.0, 2507296648898.0,
-                                     7854536744.0, 5951),
+    "recurrentgemma-9b/train_4k": (4999341932544.0, 1384021004154.0,
+                                   11941896970.0, 4121),
+    "qwen3-moe-235b-a22b/train_4k": (6736656203776.0, 2489849459122.0,
+                                     6252179624.0, 5950),
 }
 
 
@@ -319,17 +387,46 @@ def test_meta_count_equals_the_count_on_cpu_tensors(port_run, name):
     assert (meta_peak, meta_temp) == (cpu_peak, cpu_temp)
 
 
-def test_a_refused_kernel_is_charged_plain_and_named(port_run):
-    """B10 refuses RWKV-6's fp32 decay beside bf16 r, k, v (the card
-    raises there): the bf16 count charges the plain version and names
-    the site; no other pair of PARITY names one."""
+def test_no_parity_pair_charges_a_plain_version(port_run):
+    """Every kernel a PARITY pair reaches takes its inputs, so no count
+    charges a plain version in a kernel's place: B10 takes RWKV-6's fp32
+    decay beside bf16 r, k, v (``rwkv_prefill_bf16``).  A refused dtype
+    still raises under a count
+    (``test_a_wrappers_refusal_propagates_under_a_count``)."""
+    assert set(port_run["plain"]) == {p[0] for p in PARITY}
     for name, got in port_run["plain"].items():
-        if name == "rwkv_prefill_bf16":
-            assert [site for site, _ in got] == \
-                ["models.rwkv6.wkv_named (B10)"]
-            assert "float32 or bfloat16 r, k, v, w of one dtype" in got[0][1]
-        else:
-            assert got == [], name
+        assert got == [], name
+
+
+def test_the_vocab_split_loss_holds_no_more_than_a_logits_shard(port_run):
+    """softmax_xent and its backward on (4, 64, 1024) fp32 logits split
+    (batch over data, vocab over model) on the fake (2, 4) mesh: no op
+    makes a storage larger than a rank's logits shard (the gathered
+    (B, S, V) gradient was the whole logits, 8 shards), and the
+    temporaries stay within three shards (the loss's exponentials, the
+    backward's softmax and the gradient)."""
+    biggest, local, whole, temp = port_run["c6"]["xent"]
+    assert local * 8 == whole
+    assert 0 < biggest <= memory.block_bytes(local)
+    assert temp <= 3 * memory.block_bytes(local)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "recurrentgemma-9b"])
+def test_prefill_keeps_its_cache_and_logits_sharded(port_run, arch):
+    """The reduced prefill step (4 x 256, bf16) on the fake (2, 4) mesh:
+    every cache leaf in its ``cache_spec`` placement and dtype; building
+    the cache charges its shards' bytes and nothing else (its DTensors
+    took a meta fp32 tensor of the global shape for their strides); and
+    no op makes a storage larger than two logits shards (RecurrentGemma's
+    logits came out of a matmul at the global batch and vocab, 8 shards).
+    The largest is the fp32 copy that rms_norm makes of a rank's
+    residual stream, (2, 256, 256): twice a bf16 (2, 256, 256) logits
+    shard here, so a rank that held half the logits would fail."""
+    got = port_run["c6"][arch]
+    assert got["placed"]
+    assert got["cache_peak"] == got["cache_shards"] > 0
+    assert got["logits_local"] * 8 == got["logits_whole"]
+    assert 0 < got["biggest"] <= 2 * memory.block_bytes(got["logits_local"])
 
 
 @pytest.mark.parametrize("case", ["bksd/7", "bksd/21", "bksd/None",

@@ -12,6 +12,13 @@ replicated), loss within 1e-4 relative and every gradient within 1e-3
 relative norm of ``jax.value_and_grad``.  On (1,4): the same train step
 for reduced Llama3-8B, 8 q heads split four ways and 2 kv heads
 replicated, so each rank's two q heads meet the kv head of their group.
+On (2,2) the sharded prefill step of reduced TinyLlama and
+RecurrentGemma (fp32 weights, the caches in bf16): logits and every
+cache leaf against the port's unsharded prefill and JAX's, each leaf in
+its ``cache_spec`` placement and dtype.  On (2,2) and (1,4) the
+vocab-split loss (``softmax_xent`` on DTensor logits, each rank on its
+own vocab shard), unmasked and masked, and its gradient against the
+unsharded loss and ``jax.grad`` of JAX's.
 Two bodies are held to the port's own unsharded functions instead (the
 JAX dry run rejects the mesh's axes): on (2,2) the RG-LRU's ``_log_a``
 (lam split on ``tp_ff``) and its gradients, and on (2,2) and (1,4)
@@ -57,6 +64,15 @@ BODY_TOL = dict(rtol=1e-5, atol=1e-6)
 # 1's k/v, a 256-term product of layer 0's output): a few fp32 ulps of 10
 SUM_TOL = dict(rtol=1e-5, atol=1e-5)
 DECODE_MESHES = [2, 4]
+PREFILL_ARCHS = ["tinyllama-1.1b", "recurrentgemma-9b"]
+XENT_MESHES = [2, 4]
+# a cache leaf stored in bf16: the fp32 values it rounds differ in the
+# last fp32 bits between the runs, which can move a rounding by one bf16
+# step (2^-8 relative)
+BF16_CACHE_TOL = dict(rtol=2 ** -7, atol=1e-6)
+# the loss (a mean of B * S logsumexps) and its gradient (softmax minus
+# one-hot, over B * S) in another summation order
+XENT_TOL = dict(rtol=1e-5, atol=1e-9)
 DECODE_POSITIONS = [5, 21]           # the second wraps the 16-slot ring
 WORKER = pathlib.Path(__file__).with_name("torch_mesh_worker.py")
 
@@ -95,6 +111,13 @@ def _decode_inputs(cfg, seed, b=2, s=16):
     return out
 
 
+def _xent_inputs(seed, b=4, s=6, v=64):
+    rng = np.random.default_rng(seed)
+    return {"logits": (3 * rng.standard_normal((b, s, v))).astype(np.float32),
+            "labels": rng.integers(0, v, (b, s)).astype(np.int64),
+            "mask": (rng.random((b, s)) < 0.7).astype(np.float32)}
+
+
 def _tokens(cfg, shape, seed):
     rng = np.random.default_rng(seed)
     return rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
@@ -128,6 +151,24 @@ def mesh_run(tmp_path_factory):
                       "model_axis": m, "weights": f"{name}_w.npz",
                       "tokens": f"{name}_tok.npy"})
         ref[name] = (jcfg, w, tok)
+    for i, arch in enumerate(PREFILL_ARCHS):
+        jcfg, cfg = _cfgs(arch)
+        w = any_family_params(cfg, seed=60 + i)
+        tok = _tokens(cfg, (4, 24), seed=70 + i)
+        name = f"prefill_{arch}"
+        np.savez(io / f"{name}_w.npz", **_flat(w))
+        np.save(io / f"{name}_tok.npy", tok)
+        cases.append({"name": name, "kind": "prefill", "arch": arch,
+                      "model_axis": 2, "weights": f"{name}_w.npz",
+                      "tokens": f"{name}_tok.npy"})
+        ref[name] = (jcfg, w, tok)
+    data = _xent_inputs(seed=80)
+    np.savez(io / "xent_in.npz", **data)
+    for m in XENT_MESHES:
+        name = f"xent_{m}"
+        cases.append({"name": name, "kind": "xent", "arch": "tinyllama-1.1b",
+                      "model_axis": m, "tokens": "xent_in.npz"})
+        ref[name] = data
     cfg = reduced(get_config("recurrentgemma-9b"))
     w = any_family_params(cfg, seed=40)
     np.savez(io / "log_a_w.npz", **_flat(w))
@@ -254,3 +295,66 @@ def test_encdec_decode_on_slot_split_cache_matches_unsharded(mesh_run,
     # slot would be O(1) off
     for k, v in cache.items():
         assert_close(out[f"cache/{k}"], v.numpy(), **SUM_TOL, err_msg=k)
+
+
+@pytest.mark.parametrize("arch", PREFILL_ARCHS)
+def test_sharded_prefill_matches_unsharded_and_jax(mesh_run, arch):
+    """build_step's prefill on (2,2): the logits within LOGIT_TOL of
+    JAX's and SUM_TOL of the unsharded port's, every cache leaf of both
+    (bf16 leaves within one bf16 step), each placed by its cache_spec
+    axes in its dtype (no leaf built at the global batch or in fp32)."""
+    from repro_torch import models as tmodels
+    from repro_torch.configs.base import ShapeSpec
+    ref, outs = mesh_run
+    jcfg, w, tok = ref[f"prefill_{arch}"]
+    out = outs[f"prefill_{arch}"]
+    cfg = reduced(get_config(arch))
+    b, s = tok.shape
+    shape = ShapeSpec("p", s, b, "prefill")
+    window, cl = tmodels.effective_window(cfg, shape), \
+        tmodels.cache_len(cfg, shape)
+    with torch.no_grad():
+        tl, tc = tmodels.get_module(cfg).prefill(
+            cfg, params_from_numpy(w, "cpu", cfg=cfg),
+            torch.from_numpy(tok).long(), window=window, cache_len=cl)
+    jl, jc = jmodels.get_module(jcfg).prefill(
+        jcfg, jax.tree.map(jnp.asarray, w), jnp.asarray(tok), cl,
+        window=window)
+    assert_close(out["logits"], np.asarray(jl), **LOGIT_TOL)
+    assert_close(out["logits"], tl.numpy(), **SUM_TOL)
+    assert set(tc) == set(jc) == {k[len("cache/"):] for k in out
+                                  if k.startswith("cache/")}
+    for k, v in tc.items():
+        tol = BF16_CACHE_TOL if v.dtype == torch.bfloat16 else SUM_TOL
+        got = out[f"cache/{k}"]
+        assert_close(got, v.float().numpy(), **tol, err_msg=k)
+        assert_close(got, np.asarray(jc[k].astype(jnp.float32)), **tol,
+                     err_msg=k)
+        assert bool(out[f"placed/{k}"]), k
+
+
+@pytest.mark.parametrize("model_axis", XENT_MESHES)
+def test_vocab_split_loss_and_grad_match_unsharded_and_jax(mesh_run,
+                                                           model_axis):
+    """softmax_xent on logits split (batch over data, vocab over model):
+    the loss and its gradient, unmasked and masked, against the plain
+    loss and jax.grad of JAX's."""
+    from repro.models import common as jcm
+    from repro_torch.models import common as tcm
+    ref, outs = mesh_run
+    data, out = ref[f"xent_{model_axis}"], outs[f"xent_{model_axis}"]
+    assert "Shard(dim=2)" in str(out["logits_placements"])
+    for name, mask in (("plain", None), ("masked", data["mask"])):
+        x = torch.from_numpy(data["logits"]).requires_grad_()
+        tm = None if mask is None else torch.from_numpy(mask)
+        loss = tcm.softmax_xent(x, torch.from_numpy(data["labels"]), tm)
+        grad, = torch.autograd.grad(loss, x)
+        jm = None if mask is None else jnp.asarray(mask)
+        jloss, jgrad = jax.value_and_grad(
+            lambda z: jcm.softmax_xent(z, jnp.asarray(data["labels"]), jm))(
+                jnp.asarray(data["logits"]))
+        for want_loss, want_grad in ((loss.detach().numpy(), grad.numpy()),
+                                     (np.asarray(jloss), np.asarray(jgrad))):
+            assert_close(out[f"{name}/loss"], want_loss, **XENT_TOL)
+            assert_close(out[f"{name}/grad"], want_grad, **XENT_TOL)
+        assert np.abs(out[f"{name}/grad"]).max() > 0

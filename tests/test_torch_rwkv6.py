@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._pytree import tree_map
 
 from repro import models as jmodels
 from repro.checkpoint import ckpt as jckpt
@@ -226,6 +227,102 @@ def test_column_emulation_bf16_inputs():
                                rtol=4e-3, atol=1e-3)
     np.testing.assert_allclose(got_s.double().numpy(), want_s.numpy(),
                                **WKV_TOL)
+
+
+_F32, _BF16, _F16 = torch.float32, torch.bfloat16, torch.float16
+
+
+@pytest.mark.parametrize("dtypes,takes", [
+    ((_F32,) * 4, True),
+    ((_BF16,) * 4, True),
+    ((_BF16, _BF16, _BF16, _F32), True),     # a bf16 RWKV-6's decay
+    ((_F16,) * 4, False),
+    ((_F16, _F16, _F16, _F32), False),
+    ((_F32, _BF16, _BF16, _F32), False),     # mixed r, k, v
+    ((_BF16, _BF16, _F32, _F32), False),
+    ((_F32, _F32, _F32, _BF16), False),      # w neither fp32 nor r's
+], ids=["f32", "bf16", "bf16_w32", "f16", "f16_w32", "mixed_r", "mixed_v",
+        "f32_wbf16"])
+def test_b10_dtype_rule(dtypes, takes):
+    """B10 takes r, k, v of one dtype, fp32 or bf16, and w fp32 or in r's
+    dtype; everything else is refused by name, on meta tensors too (the
+    card's checks)."""
+    r, k, v, w = (torch.empty(1, 20, 2, 32, dtype=d, device="meta")
+                  for d in dtypes)
+    why = trw_chunk.dtype_refusal(r, k, v, w)
+    u = torch.empty(2, 32, device="meta")
+    if takes:
+        assert why is None
+        out, state = trw_chunk.rwkv6_chunked(r, k, v, w, u)
+        assert out.dtype == r.dtype and state.dtype == torch.float32
+        trw_chunk.drop_meta()
+    else:
+        assert why.startswith("rwkv6_chunked: r, k, v of one dtype, "
+                              "float32 or bfloat16, and w float32 or r's "
+                              "dtype")
+        with pytest.raises(TypeError, match="r, k, v of one dtype"):
+            trw_chunk.rwkv6_chunked(r, k, v, w, u)
+
+
+# a bf16 model against JAX's bf16 model, elementwise on the same input
+# layer by layer: each rounds r, k, v, the mixes and the outputs to bf16
+# at the same sites, in another order.  Over a whole prefill two bf16
+# evaluations part by 1-2.5 % of the logits' scale, each as far from an
+# fp32 evaluation of the same bf16 weights, so the whole prefill is held
+# at the scale (assert_scaled).
+BF16_TOL = dict(rtol=2e-2, atol=3e-2)
+BF16_SCALED = 3e-2
+
+
+@pytest.mark.parametrize("prompt", [[3, 1, 4, 1, 5], list(range(2, 39))],
+                         ids=["p5", "p37"])
+def test_bf16_prefill_through_b10_with_fp32_decay_matches_jax(
+        model, prompt, monkeypatch):
+    """A bf16 reduced RWKV-6 prefill on the cuda backend: B10's wrapper
+    takes bf16 r, k, v beside the fp32 decay (on CPU tensors it runs its
+    plain version).  Each layer's time mix on the same input, output and
+    wkv state, matches the JAX package's elementwise; the whole prefill's
+    logits and state match at the scale."""
+    jcfg, cfg, jp, tp = model
+    seen = []
+    wrapped = tops.rwkv6_chunked
+
+    def spy(r, k, v, w, u):
+        seen.append((r.dtype, k.dtype, v.dtype, w.dtype,
+                     trw_chunk.dtype_refusal(r, k, v, w)))
+        return wrapped(r, k, v, w, u)
+
+    monkeypatch.setattr(tops, "rwkv6_chunked", spy)
+    toks = np.asarray([prompt], np.int32)
+    jpb = jax.tree.map(lambda x: x.astype(jnp.bfloat16), jp)
+    tpb = tree_map(lambda x: x.to(torch.bfloat16), tp)
+    with torch.no_grad():
+        x = tpb["embed"][t(toks).long()]
+        for l in range(cfg.num_layers):
+            tlp = {k: w[l] for k, w in tpb["layers"].items()}
+            jlp = jax.tree.map(lambda a: a[l], jpb["layers"])
+            xn = trw.cm.rms_norm(x, tlp["ln1"], cfg.norm_eps)
+            a, _, wkv = trw.time_mix(cfg, tlp, xn, backend="cuda")
+            ja, _, jwkv = jrw.time_mix(
+                jcfg, jlp, jnp.asarray(xn.float().numpy()).astype(
+                    jnp.bfloat16))
+            for what, got, want in (("out", a, ja), ("wkv", wkv, jwkv)):
+                np.testing.assert_allclose(
+                    got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                    **BF16_TOL, err_msg=f"layer {l} {what}")
+            x = x + a
+            x = x + trw.channel_mix(
+                cfg, tlp, trw.cm.rms_norm(x, tlp["ln2"], cfg.norm_eps))[0]
+        tl, tc = trw.prefill(cfg, tpb, t(toks).long(), 32, backend="cuda")
+    assert seen == [(_BF16, _BF16, _BF16, _F32, None)] * 2 * cfg.num_layers
+    jl, jc = jrw.prefill(jcfg, jpb, jnp.asarray(toks), 32)
+    assert tl.dtype == torch.bfloat16
+    assert_scaled(tl.float().numpy(), np.asarray(jl.astype(jnp.float32)),
+                  BF16_SCALED, "logits")
+    for key in ("wkv", "shift_tm", "shift_cm"):
+        assert_scaled(tc[key].float().numpy(),
+                      np.asarray(jc[key].astype(jnp.float32)), BF16_SCALED,
+                      key)
 
 
 # ---------------------------------------------------------------------------

@@ -98,6 +98,65 @@ def run_train(case, io, mesh):
     return out
 
 
+def run_prefill(case, io, mesh):
+    """The sharded prefill step (``build_step``, fp32 parameters, the
+    prefill rules): the logits, every cache leaf, and each leaf's
+    placements and dtype."""
+    cfg = _config(case)
+    np_params = _nested(dict(np.load(io / case["weights"])))
+    tokens = torch.from_numpy(np.load(io / case["tokens"])).long()
+    b, s = tokens.shape
+    rules = shd.rules_for("prefill")
+    with axis_rules(rules, mesh):
+        step, _, shardings = build_step(
+            cfg, ShapeSpec("mesh_prefill", s, b, "prefill"), rules, mesh,
+            dtype=torch.float32)
+        params = params_from_numpy(np_params, "cpu", cfg=cfg)
+        args = [shd.distribute(t, p, mesh)
+                for t, p in zip((params, {"tokens": tokens}), shardings)]
+        logits, cache = step(*args)
+        spec, axes = models.get_module(cfg).cache_spec(
+            cfg, b, models.cache_len(cfg, ShapeSpec("p", s, b, "prefill")),
+            torch.bfloat16)
+        placed = shd.struct_shardings(
+            {k: torch.empty(sh, device="meta") for k, (sh, _) in spec.items()},
+            axes, rules, mesh)
+    out = {"logits": _full(logits),
+           "logits_placements": np.array(str(logits.placements))}
+    for k, v in cache.items():
+        out[f"cache/{k}"] = _full(v.float())
+        out[f"placed/{k}"] = np.array(tuple(v.placements) == placed[k]
+                                      and v.dtype == spec[k][1])
+    return out
+
+
+def run_xent(case, io, mesh):
+    """``common.softmax_xent`` on vocab-split DTensor logits (the train
+    rules' (batch, seq, vocab_act)), unmasked and masked: the loss and
+    its gradient with respect to the logits."""
+    from repro_torch.models import common as cm
+    data = np.load(io / case["tokens"])
+    rules = shd.rules_for("train")
+    out = {}
+    with axis_rules(rules, mesh):
+        x = torch.from_numpy(data["logits"])
+        x = shd.distribute(x, shd.struct_shardings(
+            x, ("batch", "seq", "vocab_act"), rules, mesh), mesh)
+        x.requires_grad_()
+        out["logits_placements"] = np.array(str(x.placements))
+        bs = {}
+        for k in ("labels", "mask"):
+            y = torch.from_numpy(data[k])
+            bs[k] = shd.distribute(y, shd.struct_shardings(
+                y, ("batch", "seq"), rules, mesh), mesh)
+        for name, mask in (("plain", None), ("masked", bs["mask"])):
+            loss = cm.softmax_xent(x, bs["labels"], mask)
+            grad, = torch.autograd.grad(loss, x)
+            out[f"{name}/loss"] = _full(loss)
+            out[f"{name}/grad"] = _full(grad)
+    return out
+
+
 def run_log_a(case, io, mesh):
     """``rglru._log_a`` of layer 0 on DTensors (lam split on ``tp_ff``,
     x on batch and ``ff``), and the gradients of a fixed weighted sum of
@@ -178,6 +237,7 @@ def main():
         for case in job["cases"]:
             mesh = make_host_mesh(model_axis=case["model_axis"])
             run = {"moe": run_moe, "train": run_train,
+                   "prefill": run_prefill, "xent": run_xent,
                    "log_a": run_log_a,
                    "encdec_decode": run_encdec_decode}[case["kind"]]
             out = run(case, io, mesh)
