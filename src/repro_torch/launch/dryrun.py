@@ -32,7 +32,7 @@ a kernel refuses the step's inputs (the card raises there), the plain
 version is charged and ``plain_charged`` names the site and the refusal;
 no pair reaches one.
 ``chip_smoke.py``'s ``mesh`` phase holds the count against
-``torch.cuda.max_memory_allocated()`` for four steps on a one-rank mesh
+``torch.cuda.max_memory_allocated()`` for five steps on a one-rank mesh
 of the H100.  Not counted: NCCL's own buffers, cuBLAS's workspaces and
 the allocator's fragmentation.
 

@@ -98,8 +98,10 @@ def shard_params(params, template, rules, mesh):
 # ---------------------------------------------------------------------------
 
 PERF_OVERRIDES: Dict[Tuple[str, str], Dict[str, MeshAxes]] = {
-    # hillclimb 1: the dense MoE's data-dependent scatter replicates the
-    # global token buffer; a2a dispatches locally and moves k*T*d bytes
+    # hillclimb 1: in the JAX package the dense MoE's data-dependent
+    # scatter replicates the global (T*k, d) token rows; the port's dense
+    # body keeps its buffer and rows sharded (models/moe.py).  a2a
+    # dispatches with a capacity per token shard and moves k*T*d bytes
     ("qwen3-moe-235b-a22b", "train_4k"): {"moe_impl": "a2a", "tp_ff": None,
                                           "attn_ckpt": True},
     ("qwen3-moe-235b-a22b", "prefill_32k"): {"moe_impl": "a2a",

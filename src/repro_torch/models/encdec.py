@@ -33,14 +33,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantize import quantize_into
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import P
-from repro_torch.sharding_hints import hint, is_dtensor
+from repro_torch.sharding_hints import checkpoint, hint, is_dtensor
 
 # The scheduler captures the batched decode step once as a CUDA graph
 # (runtime/scheduler.py): decode_step_batch reads no device value on the

@@ -24,25 +24,31 @@ Three departures in spelling, none in result:
 
 Under a mesh (DTensor parameters and activations, ``launch.sharding``)
 ``moe_ffn`` picks the implementation from the rule ``moe_impl``, as the
-JAX package does: 'dense' runs the dispatch on the whole token buffer,
-replicated on every rank, and the experts sharded by the hints; 'a2a'
-(expert parallelism over an all-to-all on the model axis) and 'local'
-(replicated experts) are ``compat.shard_map`` bodies.  With no mesh all
+JAX package does, and all three are ``compat.shard_map`` bodies.
+'dense' computes the JAX package's function of the global batch (its
+capacity, its stable order, its drops and its aux) on each rank's own
+token shard, and no rank holds a global-batch tensor: the (E*C, d)
+buffer is split over the model axis (by experts where E divides it,
+else by capacity rows) and either over the token shards, the expert
+weights gathered over ``fsdp`` (many tokens: train, prefill), or by the
+columns of d, the weights left split over ``fsdp`` and the tokens moved
+to them (few tokens: decode).  'a2a' (expert parallelism over an
+all-to-all on the model axis) and 'local' (replicated experts) take a
+capacity per token shard, a different function.  With no mesh all
 three are the dense path.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import P
-from repro_torch.sharding_hints import get_rule, hint, is_dtensor
+from repro_torch.sharding_hints import checkpoint, get_rule, hint, is_dtensor
 
 # The scheduler captures the batched decode step once as a CUDA graph
 # (runtime/scheduler.py): decode_step_batch is the dense family's with
@@ -81,14 +87,20 @@ def _capacity(cfg: ArchConfig, num_tokens: int) -> int:
     return max(8, min(c, num_tokens))  # pad to a sane floor, cap at T
 
 
+def _probs(cfg: ArchConfig, xf, router):
+    """(T, d) tokens -> (probs, top_p, top_e): the router's softmax and
+    its renormalized top k, in fp32."""
+    probs = torch.softmax(xf.float() @ router.float(), dim=-1)   # (T, E)
+    top_p, top_e = torch.topk(probs, cfg.experts_per_token, dim=-1)
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    return probs, top_p, top_e
+
+
 def _route(cfg: ArchConfig, xf, router):
     """(T, d) tokens -> (top_p, top_e, aux) router outputs, in fp32."""
     E, k = cfg.num_experts, cfg.experts_per_token
     T = xf.shape[0]
-    logits = xf.float() @ router.float()
-    probs = torch.softmax(logits, dim=-1)                        # (T, E)
-    top_p, top_e = torch.topk(probs, k, dim=-1)                  # (T, k)
-    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    probs, top_p, top_e = _probs(cfg, xf, router)
     # Switch-style load-balance aux loss
     me = probs.mean(dim=0)
     flat_e = top_e.reshape(-1)
@@ -133,52 +145,34 @@ def _combine(y_flat, meta, T: int, dtype):
     return contrib[inv].reshape(T, -1, y_flat.shape[1]).sum(dim=1).to(dtype)
 
 
-def _expert_ffn(xbuf, wg, wu, wd, use_hints: bool = False):
-    """(E, C, d) through per-expert SwiGLU.  ``use_hints`` applies the
-    logical-axis hints (dense path only: the shard_map paths place
-    everything explicitly)."""
+def _expert_ffn(xbuf, wg, wu, wd):
+    """(E, C, d) through per-expert SwiGLU."""
     g = torch.bmm(xbuf, wg)
     u = torch.bmm(xbuf, wu)
     h = torch.nn.functional.silu(g) * u
-    if use_hints:
-        h = hint(h, "experts_act", None, "ff")
     return torch.bmm(h, wd)
 
 
 def moe_ffn_dense(cfg: ArchConfig, lp, x) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss scalar): global dispatch
-    over all B*S tokens.  On DTensors the routing, dispatch and combine
-    run on the whole token buffer, replicated on every rank (what GSPMD
-    makes of the JAX package's data-dependent scatter), and the expert
-    products are sharded by the hints."""
+    over all B*S tokens.  On DTensors, :func:`_dense_sharded`."""
+    info = _mesh_info(x)
+    if info is not None:
+        return _dense_sharded(cfg, lp, x, info)
+    if is_dtensor(x):
+        raise ValueError("moe_ffn_dense on DTensors needs installed rules "
+                         "(sharding_hints.axis_rules)")
     b, s, d = x.shape
     E = cfg.num_experts
     T = b * s
     C = _capacity(cfg, T)
     xf = x.reshape(T, d)
-
-    def route_dispatch(xf, router):
-        top_p, top_e, aux = _route(cfg, xf, router)
-        xbuf, meta = _dispatch(xf, top_e, top_p, E, C)
-        return (xbuf, aux) + meta
-
-    def combine(y, *meta):
-        return _combine(y, meta, T, x.dtype)
-
-    if is_dtensor(xf):
-        from repro_torch.launch.compat import shard_map
-        mesh, rep = xf.device_mesh, ()
-        route_dispatch = shard_map(route_dispatch, mesh=mesh,
-                                   in_specs=(rep, rep), out_specs=[rep] * 7)
-        combine = shard_map(combine, mesh=mesh, in_specs=(rep,) * 6,
-                            out_specs=rep)
-    xbuf, aux, *meta = route_dispatch(xf, lp["router"])
-    xbuf = hint(xbuf, "experts_act", None, None)
-    y = _expert_ffn(xbuf, lp["we_gate"], lp["we_up"], lp["we_down"],
-                    use_hints=True)
-    out = combine(y.reshape(E * C, d), *meta)
-    return hint(out.reshape(b, s, d), "batch", "seq", "embed"), aux
+    top_p, top_e, aux = _route(cfg, xf, lp["router"])
+    xbuf, meta = _dispatch(xf, top_e, top_p, E, C)
+    y = _expert_ffn(xbuf, lp["we_gate"], lp["we_up"], lp["we_down"])
+    out = _combine(y.reshape(E * C, d), meta, T, x.dtype)
+    return out.reshape(b, s, d), aux
 
 
 def _mesh_info(x):
@@ -211,15 +205,44 @@ def _all_to_all(x, mesh, axis):
                                          mesh.get_group(axis))
 
 
-def _pmean(x, mesh, axes):
-    """Mean over the ranks of mesh ``axes`` (``lax.pmean``); each rank's
-    input gets 1/n of the gradient."""
+def _all_reduce(x, mesh, axes):
+    """Sum of ``x`` over the ranks of mesh ``axes``; no gradient."""
     from torch.distributed import _functional_collectives as fc
     from repro_torch.sharding_hints import mesh_sizes
     sizes = mesh_sizes(mesh)
     for a in axes:
+        if sizes[a] > 1:
+            x = fc.wait_tensor(fc.all_reduce(x, "sum", mesh.get_group(a)))
+    return x
+
+
+class _Psum(torch.autograd.Function):
+    """Sum over the ranks of mesh ``axes`` (``lax.psum``), the result on
+    every rank.  A rank's input takes the result's gradient on that rank
+    where every rank does the same with the result (psum's transpose
+    under ``shard_map``), and the sum of the ranks' result gradients
+    where each does its own share of the work with it (``spread``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, spread):
+        ctx.mesh, ctx.axes, ctx.spread = mesh, axes, spread
+        return _all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.spread:
+            g = _all_reduce(g, ctx.mesh, ctx.axes)
+        return g, None, None, None
+
+
+def _pmean(x, mesh, axes):
+    """Mean over the ranks of mesh ``axes`` (``lax.pmean``); each rank's
+    input gets 1/n of the gradient."""
+    from repro_torch.sharding_hints import mesh_sizes
+    sizes = mesh_sizes(mesh)
+    for a in axes:
         n = sizes[a]
-        total = fc.all_reduce(x.detach(), "sum", mesh.get_group(a))
+        total = _all_reduce(x.detach(), mesh, (a,))
         x = x / n + (total - x.detach()) / n
     return x
 
@@ -227,7 +250,8 @@ def _pmean(x, mesh, axes):
 def _weight_grad(wspec, token_axes, mesh):
     """Gradient placements of a weight that enters a body with ``wspec``:
     split where the weight is split, a partial sum over the other axes
-    that split the tokens (each rank's grad covers its own tokens)."""
+    that split the work, ``token_axes`` (each rank's grad covers its own
+    tokens, or in the dense body its own rows)."""
     from torch.distributed.tensor import Partial
     from repro_torch.sharding_hints import to_placements
     pl = to_placements(wspec, mesh)
@@ -235,6 +259,306 @@ def _weight_grad(wspec, token_axes, mesh):
                                               else e)}
     return tuple(Partial() if n not in sharded and n in token_axes else p
                  for n, p in zip(mesh.mesh_dim_names, pl))
+
+
+def _gather_axes(x, mesh, axes, dim: int = 0):
+    """:func:`_all_gather` of ``dim`` over mesh ``axes`` (the first
+    outermost: chunk i of the result is the row-major i-th rank's)."""
+    from repro_torch.sharding_hints import mesh_sizes
+    sizes = mesh_sizes(mesh)
+    for a in reversed(axes):
+        if sizes[a] > 1:
+            x = _all_gather(x, dim, mesh, a)
+    return x
+
+
+def _scatter_axes(x, mesh, axes, dim: int = 0):
+    """Sum of ``x`` over the ranks of mesh ``axes``, each keeping its
+    row-major chunk of ``dim`` (the transpose of :func:`_gather_axes`,
+    which is its gradient)."""
+    from torch.distributed import _functional_collectives as fc
+    from repro_torch.sharding_hints import mesh_sizes
+    scatter = getattr(fc, "reduce_scatter_single_autograd",  # the newer name
+                      fc.reduce_scatter_tensor_autograd)
+    sizes = mesh_sizes(mesh)
+    for a in axes:
+        if sizes[a] > 1:
+            x = scatter(x.contiguous(), "sum", dim, mesh.get_group(a))
+    return x
+
+
+def _shared_grad(t, n: int):
+    """``t``, its gradient divided by ``n`` on the way back: the share of
+    each of n ranks that compute the same ``t``, whose gradients are
+    summed over them."""
+    if n > 1 and t.requires_grad:
+        t.register_hook(lambda g: g / n)
+    return t
+
+
+def _token_slices(n: int):
+    """Eight slices of range(n) (fewer when n is smaller): the combine's
+    temporaries are a slice's rows, not all n."""
+    step = max(1, -(-n // 8))
+    return [slice(i, min(i + step, n)) for i in range(0, n, step)]
+
+
+class _Combine(torch.autograd.Function):
+    """Each token's k expert outputs, weighted and summed: ``y`` (a rank's
+    rows and a zero row) is all-gathered over the mesh ``axes`` into its
+    model block's rows, and out[t] is the sum over the k choices c of
+    ``w[t, c] * rows[take[t, c]]``, added in order in fp32 and returned
+    in y's dtype, a slice of tokens at a time.  The backward gathers the
+    rows again rather than keep them, and adds every choice's share into
+    one gradient of them (where autograd would build a whole one a
+    choice), which a reduce-scatter takes home."""
+
+    @staticmethod
+    def forward(ctx, y, take, w, mesh, axes):
+        ctx.save_for_backward(y, take, w)
+        ctx.mesh, ctx.axes = mesh, axes
+        rows = _gather_axes(y, mesh, axes)
+        out = y.new_empty((take.shape[0], y.shape[1]))
+        for sl in _token_slices(take.shape[0]):
+            acc = torch.zeros(out[sl].shape, dtype=torch.float32,
+                              device=y.device)
+            for c in range(take.shape[1]):
+                acc.addcmul_(rows.index_select(0, take[sl, c]),
+                             w[sl, c, None])
+            out[sl] = acc
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        y, take, w = ctx.saved_tensors
+        rows = _gather_axes(y, ctx.mesh, ctx.axes)
+        gw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+        parts = _token_slices(take.shape[0])
+        for sl in parts:
+            for c in range(take.shape[1]):
+                gw[sl, c] = (g[sl] * rows.index_select(0, take[sl, c])).sum(
+                    -1, dtype=torch.float32)
+        shape = rows.shape
+        del rows
+        grows = torch.zeros(shape, dtype=y.dtype, device=y.device)
+        for sl in parts:
+            for c in range(take.shape[1]):
+                grows.index_add_(0, take[sl, c], g[sl] * w[sl, c, None])
+        return (_scatter_axes(grows, ctx.mesh, ctx.axes), None,
+                gw.to(w.dtype), None, None)
+
+
+class DenseLayout(NamedTuple):
+    """How :func:`_dense_sharded` places the (E*C, d) buffer (see
+    :func:`dense_layout`)."""
+    route: str              # what the model axis splits: 'experts', 'rows'
+    contract: bool          # the expert products contract d over fsdp
+    fsdp: Optional[str]     # the mesh axis of the weights' fsdp split
+    n_tok: int              # token shards
+    m: int                  # model blocks
+    e_r: int                # experts a rank's rows hold
+    cc: int                 # capacity rows a rank holds per expert
+
+
+def dense_layout(cfg: ArchConfig, num_tokens: int, sizes, token_axes,
+                 model_axis) -> DenseLayout:
+    """How :func:`_dense_sharded` splits the (E*C, d) buffer on a mesh of
+    axis ``sizes``.  Route 'experts' (E divides the model axis and
+    ``experts_act`` maps there): block j of the model axis holds experts
+    [j*e_r, (j+1)*e_r).  Route 'rows': every block holds all E experts.
+
+    The expert products take the form that moves less, as the weights
+    and the rows a rank's weight shard meets compare:
+
+    - ``contract`` (decode: C * (d + d_ff) < 3 * d * d_ff, the rows and
+      their hidden units fewer than an expert's three matrices): the
+      weights stay where the parameter rules put them and the tokens go
+      to them.  A rank holds all C rows of its block's experts, the
+      columns of its ``fsdp`` slice of d, and the products contract d
+      over that axis; in route 'rows' the model axis splits d_ff (which
+      it must divide) instead of the rows.
+    - else (train, prefill) the weights are gathered over ``fsdp`` (in
+      route 'rows' over the model axis too), and token shard i of block
+      j holds capacity rows [i*cc, (i+1)*cc) of its experts, in route
+      'rows' rows [q*cc, (q+1)*cc), q = j * token shards + i.  cc is
+      rounded up, so the last rows of a split that does not divide are
+      padding that no entry writes."""
+    from repro_torch.sharding_hints import logical_to_spec
+    E, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    C = _capacity(cfg, num_tokens)
+    n = math.prod(sizes[a] for a in token_axes)
+    m = sizes[model_axis] if model_axis else 1
+    by_experts = m == 1 or logical_to_spec(("experts_act",),
+                                           shape=(E,)) == (model_axis,)
+    fs = logical_to_spec(("experts", "fsdp", "tp_ff"), shape=(E, d, f))[1]
+    fs = fs if isinstance(fs, str) and fs != model_axis else None
+    contract = fs is not None and (by_experts or f % m == 0) and \
+        C * (d + f) < 3 * d * f
+    if contract:
+        return DenseLayout("experts" if by_experts else "rows", True, fs, n,
+                           m, E // m if by_experts else E, C)
+    if by_experts:
+        return DenseLayout("experts", False, fs, n, m, E // m, -(-C // n))
+    return DenseLayout("rows", False, fs, n, m, E, -(-C // (n * m)))
+
+
+def _dense_sharded(cfg: ArchConfig, lp, x, info):
+    """The dense dispatch on DTensors: JAX's ``moe_ffn_dense`` of the
+    global batch, computed on each rank's own tokens.
+
+    x is split over the batch axes (the token shards, in global token
+    order) and replicated over the model axis.  Each rank routes its
+    tokens; an entry's place in its expert is the count of same-expert
+    entries on earlier token shards (an all-gather of each shard's (E,)
+    counts) plus its local stable rank, so the capacity C of the global
+    batch drops the entries JAX's global argsort drops.  A rank of model
+    block j writes its tokens' kept entries of block j into a buffer of
+    the rows (``dense_layout``).  With the weights gathered, a
+    reduce-scatter over the token axes leaves each row on one owner,
+    which runs the experts' SwiGLU on it, the combine all-gathers the
+    outputs back over the token axes, and each token owner weights its
+    entries' rows and sums its k choices in order.  With ``contract``
+    the tokens of the fsdp axis's ranks are all-gathered there (where
+    that axis does not split them, its ranks route the same tokens, and
+    each takes 1/n of their gradients); each rank fills and combines the
+    columns of its fsdp slice of d, the gate and up products summed over
+    the axis, and an all-to-all takes each token's columns home.  The
+    partial sums of the model blocks are added over the model axis.
+    aux is JAX's: the mean of the router's probabilities over all T
+    tokens times the global counts / (T*k).  Raises when a rule splits
+    ``seq`` (the shards would not be in token order)."""
+    from repro_torch.launch.compat import shard_map
+    from repro_torch.sharding_hints import logical_to_spec
+    mesh, sizes, _, maxis = info
+    b, s, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    T = b * s
+    C = _capacity(cfg, T)
+    bspec, sspec, _ = logical_to_spec(("batch", "seq", "embed"),
+                                      shape=(b, s, d))
+    if sspec is not None:
+        raise ValueError(
+            f"moe_ffn_dense: the rules split 'seq' over {sspec!r}; the "
+            f"dense dispatch needs token shards in global token order "
+            f"(split 'batch' only) to drop the entries the global "
+            f"capacity drops")
+    tok_axes = () if bspec is None else \
+        ((bspec,) if isinstance(bspec, str) else tuple(bspec))
+    lay = dense_layout(cfg, T, sizes, tok_axes, maxis)
+    e_r, cc = lay.e_r, lay.cc
+    i0 = 0
+    for a in tok_axes:
+        i0 = i0 * sizes[a] + mesh.get_local_rank(a)
+    j0 = mesh.get_local_rank(maxis) if maxis else 0
+    rows = e_r * cc                                  # a rank's rows
+    model = (maxis,) if maxis else ()
+    fs = lay.fsdp if lay.contract else None
+    # contract: the ranks of fs that route the same tokens, and the token
+    # axes the buffer is summed over whole
+    dup = sizes[fs] if fs and fs not in tok_axes else 1
+    whole = tuple(a for a in tok_axes if a != fs)
+    dax = fs or ("data" if "data" in tok_axes else None)
+
+    def body(xl, router, wg, wu, wd):
+        bl, sl, _ = xl.shape
+        n = bl * sl * k
+        xf = xl.reshape(bl * sl, d)
+        if dax:
+            router = _all_gather(router, 0, mesh, dax)
+        if dax and not fs:
+            wg = _all_gather(wg, 1, mesh, dax)
+            wu = _all_gather(wu, 1, mesh, dax)
+            wd = _all_gather(wd, 2, mesh, dax)
+        probs, top_p, top_e = _probs(cfg, xf, router)
+        flat_e = top_e.reshape(-1)                   # (token, choice) order
+        counts = torch.zeros(E, dtype=torch.long, device=xf.device)
+        counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+        every = _gather_axes(counts[None], mesh, tok_axes)    # (n_tok, E)
+        # aux over the global batch; its gradient is taken once over the
+        # model axis, whose ranks route the same tokens
+        me = _Psum.apply(probs.sum(0), mesh, tok_axes, False) / T
+        ce = every.sum(0).float() / (T * k)
+        aux = E * torch.sum(me * ce)
+        if j0:
+            aux = aux.detach()
+        # each entry's place in its expert, in JAX's global stable order
+        order = torch.argsort(flat_e, stable=True)
+        starts = torch.cumsum(counts, 0) - counts
+        rank = torch.arange(n, device=xf.device) - starts[flat_e[order]]
+        local = torch.empty_like(order).index_copy_(0, order, rank)
+        pos = every[:i0].sum(0)[flat_e] + local
+        if lay.route == "experts":
+            blk, el = flat_e // e_r, flat_e % e_r
+        elif fs:                             # every block holds every row
+            blk, el = j0, flat_e
+        else:
+            blk, el = pos // cc // lay.n_tok, flat_e
+        mine = (pos < C) & (blk == j0)
+        w = top_p.to(xf.dtype)
+        if fs:
+            # the block's rows, C an expert, and a spare row that an
+            # entry of another block, or a dropped one, writes (and
+            # whose zero output it reads).  The fs peers' tokens come
+            # together (where fs splits them), each rank fills and
+            # combines its columns of the rows, and an all-to-all takes
+            # each token's columns to its owner
+            at = torch.where(mine, el * C + pos, rows).reshape(-1, k)
+            peers = (fs,) if fs in tok_axes else ()
+            xg = _gather_axes(xf, mesh, peers)
+            at, w = _gather_axes(at, mesh, peers), _gather_axes(w, mesh,
+                                                                peers)
+            dl = d // sizes[fs]
+            r = mesh.get_local_rank(fs)
+            xs = xf.new_zeros((rows + 1, dl))
+            xs.index_put_((at,), xg[:, None, r * dl:(r + 1) * dl])
+            del xg
+            xs = _Psum.apply(xs[:rows], mesh, whole, True).reshape(e_r, C,
+                                                                   dl)
+            g = _Psum.apply(torch.bmm(xs, wg), mesh, (fs,), True)
+            u = _Psum.apply(torch.bmm(xs, wu), mesh, (fs,), True)
+            del xs
+            h = torch.nn.functional.silu(g) * u
+            del g, u
+            y = torch.bmm(h, wd).reshape(rows, dl)
+            del h
+        else:
+            # the block's rows as n_tok chunks of an owner's rows and a
+            # spare row, written and read as above
+            tok = pos // cc % lay.n_tok if lay.route == "rows" else pos // cc
+            at = torch.where(mine, tok * (rows + 1) + el * cc + pos % cc,
+                             rows).reshape(-1, k)
+            buf = xf.new_zeros((lay.n_tok * (rows + 1), d))
+            buf.index_put_((at,), xf[:, None, :])
+            xe = _scatter_axes(buf, mesh, tok_axes)[:rows]
+            del buf
+            y = _expert_ffn(xe.reshape(e_r, cc, d), wg, wu, wd)
+            y = y.reshape(rows, d)
+            del xe
+        y = torch.cat([y, y.new_zeros(1, y.shape[1])])
+        out = _Combine.apply(y, at, w, mesh, () if fs else tok_axes)
+        del y
+        if fs in tok_axes and sizes[fs] > 1:
+            out = _all_to_all(out, mesh, fs).reshape(sizes[fs], -1, dl)
+            out = out.transpose(0, 1).reshape(-1, d)
+        elif fs:
+            out = _gather_axes(out, mesh, (fs,), dim=1)
+        out = _Psum.apply(out, mesh, model, False)
+        return (_shared_grad(out.reshape(bl, sl, d), dup),
+                _shared_grad(aux, dup))
+
+    xspec = (bspec, None, None)
+    row_axes = set(tok_axes) | set(model) | ({fs} if fs else set())
+    ex = maxis if lay.route == "experts" and lay.m > 1 else None
+    fx = maxis if fs and lay.route == "rows" and lay.m > 1 else None
+    rspec, wspec, dspec = (dax, None), (ex, dax, fx), (ex, fx, dax)
+    grads = tuple(_weight_grad(w, row_axes, mesh)
+                  for w in (xspec, rspec, wspec, wspec, dspec))
+    fn = shard_map(body, mesh=mesh,
+                   in_specs=(xspec, rspec, wspec, wspec, dspec),
+                   out_specs=[xspec, ()], in_grad_specs=grads)
+    out, aux = fn(x, lp["router"], lp["we_gate"], lp["we_up"],
+                  lp["we_down"])
+    return hint(out, "batch", "seq", "embed"), aux
 
 
 def moe_ffn_a2a(cfg: ArchConfig, lp, x) -> Tuple[torch.Tensor,

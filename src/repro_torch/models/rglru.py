@@ -31,14 +31,13 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantize import quantize_into
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import P
-from repro_torch.sharding_hints import hint, is_dtensor
+from repro_torch.sharding_hints import checkpoint, hint, is_dtensor
 
 LRU_C = 8.0
 

@@ -27,13 +27,12 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common as cm
 from repro_torch.models.common import P
 from repro_torch.launch import op_costs
-from repro_torch.sharding_hints import hint, is_dtensor
+from repro_torch.sharding_hints import checkpoint, hint, is_dtensor
 
 # O(1) matrix state, no KV ring at all: generation length is unbounded by
 # cache_len, so the scheduler's ring-wrap guard does not apply

@@ -17,13 +17,12 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantize import quantize_into
 from repro_torch.models import common as cm
 from repro_torch.models.common import P
-from repro_torch.sharding_hints import get_rule, hint, is_dtensor
+from repro_torch.sharding_hints import checkpoint, get_rule, hint, is_dtensor
 
 # The scheduler may capture this family's batched decode step once as a
 # CUDA graph and replay it (runtime/scheduler.py): decode_step_batch and

@@ -48,15 +48,41 @@ def axis_rules(rules: Dict[str, MeshAxes], mesh=None):
         _state.rules, _state.mesh = old_r, old_m
 
 
+def checkpoint(fn, *args, **kwargs):
+    """``torch.utils.checkpoint.checkpoint`` whose recompute runs under
+    the rules and mesh installed at the forward: autograd runs a CUDA
+    graph's backward, and so the recompute, on a thread of its own, which
+    does not see this thread's rules."""
+    from torch.utils.checkpoint import checkpoint as torch_checkpoint
+    rules, mesh = _rules(), _mesh()
+
+    def contexts():
+        return contextlib.nullcontext(), (
+            contextlib.nullcontext() if rules is None
+            else axis_rules(rules, mesh))
+    return torch_checkpoint(fn, *args, context_fn=contexts, **kwargs)
+
+
+@contextlib.contextmanager
 def _implicit_replication(mesh):
+    """DTensor's implicit replication on, and on exit back to what it
+    was (``implicit_replication()`` turns it off, which would end an
+    outer block's too)."""
     from repro_torch.launch.compat import AbstractMesh
     if mesh is None or isinstance(mesh, AbstractMesh):
-        return contextlib.nullcontext()
+        yield
+        return
     try:
-        from torch.distributed.tensor.experimental import implicit_replication
+        from torch.distributed.tensor import DTensor
     except ImportError:
-        from torch.distributed._tensor.experimental import implicit_replication
-    return implicit_replication()
+        from torch.distributed._tensor import DTensor
+    dispatcher = DTensor._op_dispatcher
+    old = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = old
 
 
 def mesh_sizes(mesh) -> Dict[str, int]:

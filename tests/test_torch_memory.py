@@ -154,7 +154,7 @@ def test_a_loop_on_meta_holds_every_trips_output():
 
 
 PORT = textwrap.dedent("""
-    import json, sys
+    import dataclasses, json, sys
     sys.path.insert(0, "src")
     import torch
     from torch.utils._pytree import tree_map
@@ -192,7 +192,9 @@ PORT = textwrap.dedent("""
                 return live.analysis(res)
 
     for name, arch, kind, b, s, dtype, pair in %(parity)r:
-        cfg, dt = reduced(get_config(arch)), getattr(torch, dtype)
+        cfg = dataclasses.replace(reduced(get_config(arch)),
+                                  **%(parity_cfg)r.get(name, {}))
+        dt = getattr(torch, dtype)
         shape = ShapeSpec(name, s, b, kind)
         r = rules(arch, kind, pair)
         _, m = dr.count_step(cfg, shape, r, cpu1, dt)
@@ -330,23 +332,59 @@ PORT = textwrap.dedent("""
                 "placed": all(tuple(cache[k].placements) == want[k]
                               and cache[k].dtype == dt
                               for k, (_, dt) in spec.items())}
+    # one dense MoE call (no grad) on the fake (2, 4) mesh at a token
+    # count where the global (E*C + 1, d) buffer dwarfs the weights
+    from repro_torch.models import moe
+    cfg = reduced(get_config("qwen3-moe-235b-a22b"))
+    b, s = %(c8_tokens)r
+    r = shd.rules_for("prefill")
+    with axis_rules(r, mesh8), torch.no_grad():
+        tmpl = models.param_template(cfg)["layers"]
+        lp = {k: placed(torch.empty(tmpl[k].shape[1:], device="meta"),
+                        tmpl[k].axes[1:], r)
+              for k in ("router", "we_gate", "we_up", "we_down")}
+        x = placed(torch.empty(b, s, cfg.d_model, device="meta"),
+                   ("batch", "seq", "embed"), r)
+        biggest[0] = 0
+        with memory.LiveBytes() as live:
+            live.arguments((x, lp))
+            res = moe.moe_ffn_dense(cfg, lp, x)
+            m = live.analysis(res)
+        C = moe._capacity(cfg, b * s)
+        out["c8"] = {"peak": m["peak_bytes"], "biggest": biggest[0],
+                     "buffer": (cfg.num_experts * C + 1) * cfg.d_model * 4,
+                     "out_placements": str(res[0].placements),
+                     "out_shape": list(res[0].shape)}
     memory.LiveBytes._charge = charge
     print("RESULT " + json.dumps(out))
 """)
 
 # (name, arch, kind, batch, seq, dtype, the pair whose rules it takes):
 # TinyLlama's three steps (B9; B8 over 4 q chunks, two run on meta; B6),
-# Granite's a2a prefill (collectives), RWKV-6's prefill in fp32 (B10 over
-# 4 chunks) and bf16 (B10 on bf16 r, k, v beside the fp32 decay)
+# Granite's a2a prefill (collectives), Qwen3-MoE's prefill at the base
+# rules (the dense body on DTensors) and its train step there with drops
+# (the body's backward: a few tokens contract d, 2 x 1024 gather the
+# weights), RWKV-6's prefill in fp32 (B10 over 4 chunks) and bf16 (B10 on
+# bf16 r, k, v beside the fp32 decay)
 PARITY = [
     ("tiny_train", "tinyllama-1.1b", "train", 2, 2048, "float32", None),
     ("tiny_prefill", "tinyllama-1.1b", "prefill", 2, 4096, "float32", None),
     ("tiny_decode", "tinyllama-1.1b", "decode", 2, 256, "float32", None),
     ("granite_prefill", "granite-moe-3b-a800m", "prefill", 2, 128,
      "float32", "prefill_32k"),
+    ("qwen_moe_prefill", "qwen3-moe-235b-a22b", "prefill", 2, 128,
+     "float32", None),
+    ("qwen_moe_train", "qwen3-moe-235b-a22b", "train", 2, 128, "float32",
+     None),
+    ("qwen_moe_train_gather", "qwen3-moe-235b-a22b", "train", 2, 1024,
+     "float32", None),
     ("rwkv_prefill", "rwkv6-3b", "prefill", 2, 64, "float32", None),
     ("rwkv_prefill_bf16", "rwkv6-3b", "prefill", 2, 64, "bfloat16", None),
 ]
+
+# config fields of PARITY steps: the train steps drop entries
+PARITY_CFG = {"qwen_moe_train": {"capacity_factor": 0.5},
+              "qwen_moe_train_gather": {"capacity_factor": 0.5}}
 
 # flops, bytes, wire bytes and ops of reduced pairs on a fake (2, 4) mesh
 # with the perf overrides, recorded from commit 11534a4; the three train
@@ -369,10 +407,15 @@ PARENT = {
 }
 
 
+# the dense MoE call's batch and seq on the fake (2, 4) mesh
+C8_TOKENS = (4, 2048)
+
+
 @pytest.fixture(scope="module")
 def port_run():
-    code = PORT % {"parity": PARITY,
-                   "parent": [tuple(k.split("/")) for k in PARENT]}
+    code = PORT % {"parity": PARITY, "parity_cfg": PARITY_CFG,
+                   "parent": [tuple(k.split("/")) for k in PARENT],
+                   "c8_tokens": C8_TOKENS}
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
@@ -429,6 +472,23 @@ def test_prefill_keeps_its_cache_and_logits_sharded(port_run, arch):
     assert 0 < got["biggest"] <= 2 * memory.block_bytes(got["logits_local"])
 
 
+def test_dense_moe_holds_less_than_one_global_buffer(port_run):
+    """One ``moe_ffn_dense`` call (reduced Qwen3-MoE, 4 x 2048 tokens,
+    fp32, no grad) on the fake (2, 4) mesh at the base rules: its counted
+    peak, arguments included, stays below the bytes of one global
+    (E*C + 1, d) buffer, and no storage it makes holds a third of one (a
+    rank's filled buffer holds E*C/4 rows and a spare row, its gathered
+    expert outputs the same and a zero row per token shard).
+    Each rank holding the whole buffer and the experts' whole output, as
+    the replicated body did, counts more than two buffers.  The output
+    comes back split over the batch axis."""
+    got = port_run["c8"]
+    assert 0 < got["peak"] < got["buffer"]
+    assert 0 < got["biggest"] <= got["buffer"] // 3
+    assert got["out_shape"] == [*C8_TOKENS, 256]
+    assert "Shard(dim=0)" in got["out_placements"]
+
+
 @pytest.mark.parametrize("case", ["bksd/7", "bksd/21", "bksd/None",
                                   "bskd/7", "bskd/21", "bskd/None"])
 def test_whole_ring_rank_takes_b6_with_the_einsum_routes_values(port_run,
@@ -445,7 +505,7 @@ def test_whole_ring_rank_takes_b6_with_the_einsum_routes_values(port_run,
 
 
 JAX_ARGS = textwrap.dedent("""
-    import json, sys
+    import dataclasses, json, sys
     sys.path.insert(0, "src")
     import jax, numpy as np
     from repro.configs.base import ShapeSpec, get_config, reduced

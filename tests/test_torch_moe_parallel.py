@@ -6,12 +6,21 @@ import no JAX) run the port on two meshes of one world: (data=2,
 model=2) and (data=1, model=4).  On (2,2): reduced Qwen3-MoE and
 Granite-MoE (capacity factor 8, so no path drops a token) through
 ``moe_impl`` 'dense', 'a2a' and 'local', logits within 1e-4 of JAX's
-forward; and the sharded train step (``launch.dryrun.build_step``) of
+forward; the dense body at capacity factor 0.5, where JAX drops
+entries, on Qwen3-MoE (2,2) (its buffer split by experts), Granite-MoE
+with 6 experts on (1,4) and 3 on (2,2) (split by capacity rows), each
+with the weights kept split over the data axis (few tokens), gathered
+(4 x 512 tokens) or routed alike by both data ranks (a batch of 1):
+logits and the global aux against JAX's, and its refusal of a rule
+that splits seq; and the sharded train step (``launch.dryrun.build_step``) of
 reduced TinyLlama (8 q heads split over the model axis, its one kv head
 replicated), loss within 1e-4 relative and every gradient within 1e-3
 relative norm of ``jax.value_and_grad``.  On (1,4): the same train step
 for reduced Llama3-8B, 8 q heads split four ways and 2 kv heads
 replicated, so each rank's two q heads meet the kv head of their group.
+The same train step, with drops, for reduced Qwen3-MoE on (2,2) and
+Granite-MoE (6 experts) on (1,4): the base rules' dense body; and in
+its other forms (``DENSE_TRAIN_CASES``).
 On (2,2) the sharded prefill step of reduced TinyLlama and
 RecurrentGemma (fp32 weights, the caches in bf16): logits and every
 cache leaf against the port's unsharded prefill and JAX's, each leaf in
@@ -52,7 +61,49 @@ from test_torch_transformer import numpy_params
 
 WORLD = 4
 MOE_ARCHS = ["qwen3-moe-235b-a22b", "granite-moe-3b-a800m"]
-TRAIN_CASES = [("tinyllama-1.1b", 2), ("llama3-8b", 4)]
+# the dense body where it drops entries (capacity factor 0.5): (arch,
+# model axis, config fields, tokens, the buffer's split, the expert
+# products' form).  Qwen3-MoE's 4 experts split over the model axis; 6
+# experts on 4 and 3 on 2 split by capacity rows, padded (the model axis
+# does not divide them).  A few tokens a layer keep the weights split
+# over the data axis and contract d there ('contract'); 4 x 512 tokens
+# gather them ('gather'); a batch of 1, which the data axis does not
+# split, has both data ranks route the same tokens
+DENSE_CASES = {
+    "qwen_drops": ("qwen3-moe-235b-a22b", 2, {"capacity_factor": 0.5},
+                   (4, 16), "experts", "contract"),
+    "granite_e6_rows": ("granite-moe-3b-a800m", 4,
+                        {"capacity_factor": 0.5, "num_experts": 6},
+                        (4, 16), "rows", "contract"),
+    "granite_e3_rows": ("granite-moe-3b-a800m", 2,
+                        {"capacity_factor": 0.5, "num_experts": 3},
+                        (4, 16), "rows", "contract"),
+    "qwen_gather": ("qwen3-moe-235b-a22b", 2, {"capacity_factor": 0.5},
+                    (4, 512), "experts", "gather"),
+    "granite_e3_gather": ("granite-moe-3b-a800m", 2,
+                          {"capacity_factor": 0.5, "num_experts": 3},
+                          (4, 512), "rows", "gather"),
+    "qwen_batch1": ("qwen3-moe-235b-a22b", 2, {"capacity_factor": 0.5},
+                    (1, 64), "experts", "contract"),
+    "granite_e3_batch1": ("granite-moe-3b-a800m", 2,
+                          {"capacity_factor": 0.5, "num_experts": 3},
+                          (1, 64), "rows", "contract"),
+}
+AUX_RTOL = 1e-5
+TRAIN_CASES = [("tinyllama-1.1b", 2), ("llama3-8b", 4),
+               ("qwen3-moe-235b-a22b", 2), ("granite-moe-3b-a800m", 4)]
+# the MoE train steps take the base rules' dense body with drops, the
+# second on its capacity-row route
+TRAIN_CFG = {"qwen3-moe-235b-a22b": {"capacity_factor": 0.5},
+             "granite-moe-3b-a800m": {"capacity_factor": 0.5,
+                                      "num_experts": 6}}
+# more train steps through the dense body, each a DENSE_CASES entry's
+# arch, mesh and config: the other forms of the expert products and the
+# capacity-row route on a data axis of 2 (tokens as TRAIN_CASES' unless
+# given)
+DENSE_TRAIN_CASES = {"qwen_gather": (8, 256), "qwen_batch1": (1, 64),
+                     "granite_e3_rows": (4, 32),
+                     "granite_e3_gather": (4, 256)}
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)
 LOSS_RTOL = 1e-4
 GRAD_REL = 1e-3
@@ -140,17 +191,53 @@ def mesh_run(tmp_path_factory):
                       "weights": f"{name}_w.npz",
                       "tokens": f"{name}_tok.npy"})
         ref[name] = (jcfg, w, tok)
+    for i, (name, (arch, m, over, shape, *_)) in enumerate(sorted(
+            DENSE_CASES.items())):
+        jcfg, cfg = _cfgs(arch, **over)
+        w = numpy_params(cfg, seed=90 + i)
+        tok = _tokens(cfg, shape, seed=100 + i)
+        np.savez(io / f"{name}_w.npz", **_flat(w))
+        np.save(io / f"{name}_tok.npy", tok)
+        cases.append({"name": name, "kind": "moe", "arch": arch,
+                      "cfg": over, "model_axis": m, "impls": ["dense"],
+                      "seq_guard": name == "qwen_drops",
+                      "weights": f"{name}_w.npz",
+                      "tokens": f"{name}_tok.npy"})
+        ref[name] = (jcfg, w, tok)
     for i, (arch, m) in enumerate(TRAIN_CASES):
-        jcfg, cfg = _cfgs(arch)
+        over = TRAIN_CFG.get(arch, {})
+        jcfg, cfg = _cfgs(arch, **over)
         w = numpy_params(cfg, seed=20 + i)
         tok = _tokens(cfg, (4, 32), seed=30 + i)
         name = f"train_{arch}"
         np.savez(io / f"{name}_w.npz", **_flat(w))
         np.save(io / f"{name}_tok.npy", tok)
         cases.append({"name": name, "kind": "train", "arch": arch,
-                      "model_axis": m, "weights": f"{name}_w.npz",
+                      "cfg": over, "model_axis": m,
+                      "weights": f"{name}_w.npz",
                       "tokens": f"{name}_tok.npy"})
         ref[name] = (jcfg, w, tok)
+    for i, (case, shape) in enumerate(sorted(DENSE_TRAIN_CASES.items())):
+        arch, m, over = DENSE_CASES[case][:3]
+        jcfg, cfg = _cfgs(arch, **over)
+        w = numpy_params(cfg, seed=110 + i)
+        tok = _tokens(cfg, shape, seed=120 + i)
+        name = f"train_dense_{case}"
+        np.savez(io / f"{name}_w.npz", **_flat(w))
+        np.save(io / f"{name}_tok.npy", tok)
+        cases.append({"name": name, "kind": "train", "arch": arch,
+                      "cfg": over, "model_axis": m,
+                      "weights": f"{name}_w.npz",
+                      "tokens": f"{name}_tok.npy"})
+        ref[name] = (jcfg, w, tok)
+    name = "remat_thread"
+    arch, m, over = DENSE_CASES["qwen_drops"][:3]
+    jcfg, cfg = _cfgs(arch, **over)
+    np.savez(io / f"{name}_w.npz", **_flat(numpy_params(cfg, seed=130)))
+    np.save(io / f"{name}_tok.npy", _tokens(cfg, (4, 16), seed=131))
+    cases.append({"name": name, "kind": "remat_thread", "arch": arch,
+                  "cfg": over, "model_axis": m, "weights": f"{name}_w.npz",
+                  "tokens": f"{name}_tok.npy"})
     for i, arch in enumerate(PREFILL_ARCHS):
         jcfg, cfg = _cfgs(arch)
         w = any_family_params(cfg, seed=60 + i)
@@ -230,16 +317,104 @@ def test_moe_impl_on_2x2_mesh_matches_jax(mesh_run, arch, impl):
     assert np.isfinite(outs[f"moe_{arch}"][impl + "_aux"]).all()
 
 
-@pytest.mark.parametrize("arch,model_axis", TRAIN_CASES)
-def test_sharded_train_step_matches_jax_grads(mesh_run, arch, model_axis):
+def _jax_drops(monkeypatch):
+    """Wraps the JAX package's ``_dispatch`` (for this test only) so that
+    each call adds its dropped entries to the returned list."""
+    from repro.models import moe as jmoe
+    drops = []
+    real = jmoe._dispatch
+
+    def counted(xf, top_e, top_p, E, C):
+        xbuf, meta = real(xf, top_e, top_p, E, C)
+        jax.debug.callback(lambda n: drops.append(int(n)),
+                           jnp.sum(~meta[1]))
+        return xbuf, meta
+    monkeypatch.setattr(jmoe, "_dispatch", counted)
+    return drops
+
+
+@pytest.mark.parametrize("name", sorted(DENSE_CASES))
+def test_dense_moe_drops_the_entries_jax_drops(mesh_run, name, monkeypatch):
+    """The dense body on DTensors at capacity factor 0.5 against JAX's
+    unsharded forward on the same weights: logits within LOGIT_TOL and
+    the summed aux within AUX_RTOL (JAX's global value, not a mean of
+    per-shard ones), with JAX dropping entries; the buffer split by
+    experts or by capacity rows, and the weights kept split or gathered,
+    as ``DENSE_CASES`` says."""
     ref, outs = mesh_run
-    jcfg, w, tok = ref[f"train_{arch}"]
+    jcfg, w, tok = ref[name]
+    out = outs[name]
+    drops = _jax_drops(monkeypatch)
+    logits, aux = jmodels.get_module(jcfg).forward(
+        jcfg, jax.tree.map(jnp.asarray, w), jnp.asarray(tok))
+    jax.effects_barrier()
+    assert len(drops) == jcfg.num_layers and sum(drops) > 0, drops
+    assert (str(out["route"]), str(out["form"])) == DENSE_CASES[name][4:]
+    assert out["dense"].shape == logits.shape
+    assert_close(out["dense"], logits, **LOGIT_TOL)
+    assert abs(float(out["dense_aux"]) - float(aux)) <= AUX_RTOL * abs(
+        float(aux))
+
+
+def test_dense_moe_refuses_a_rule_that_splits_seq(mesh_run):
+    """With ``seq`` mapped to the model axis the token shards are not in
+    global token order: the dense body raises before any collective."""
+    _, outs = mesh_run
+    msg = str(outs["qwen_drops"]["seq_guard"])
+    assert "split 'seq'" in msg and "global token order" in msg
+
+
+@pytest.mark.parametrize("arch,model_axis", TRAIN_CASES)
+def test_sharded_train_step_matches_jax_grads(mesh_run, arch, model_axis,
+                                              monkeypatch):
+    _train_step_matches_jax(mesh_run, f"train_{arch}", monkeypatch)
+
+
+@pytest.mark.parametrize("case", sorted(DENSE_TRAIN_CASES))
+def test_dense_moe_train_step_matches_jax_grads(mesh_run, case,
+                                                monkeypatch):
+    """The train step through the dense body's other forms: the weights
+    gathered, both data ranks routing one batch row (each takes half of
+    its gradients), and the capacity-row route on a data axis of 2."""
+    _, outs = mesh_run
+    out = outs[f"train_dense_{case}"]
+    assert (str(out["route"]), str(out["form"])) == \
+        (DENSE_CASES[case][4], "gather" if "gather" in case else "contract")
+    _train_step_matches_jax(mesh_run, f"train_dense_{case}", monkeypatch)
+
+
+def test_moe_backward_on_another_thread_recomputes_under_the_rules(
+        mesh_run):
+    """Autograd runs a CUDA graph's backward on a thread of its own,
+    which sees none of the forward thread's rules: the checkpointed MoE
+    layers' recompute still takes the dense body (it raises without
+    rules), and every gradient equals the one of a backward on the
+    forward's thread."""
+    _, outs = mesh_run
+    out = outs["remat_thread"]
+    assert str(out["errors"]) == ""
+    same = sorted(k for k in out if k.startswith("same/"))
+    assert same and {"thread/" + k[5:] for k in same} == \
+        {k for k in out if k.startswith("thread/")}
+    for k in same:
+        np.testing.assert_array_equal(out["thread/" + k[5:]], out[k])
+
+
+def _train_step_matches_jax(mesh_run, name, monkeypatch):
+    """Loss within LOSS_RTOL and every gradient within GRAD_REL of
+    ``jax.value_and_grad`` on the same weights and tokens; a MoE step
+    drops entries."""
+    ref, outs = mesh_run
+    jcfg, w, tok = ref[name]
     jp = jax.tree.map(jnp.asarray, w)
     batch = {"tokens": jnp.asarray(tok), "labels": jnp.asarray(tok)}
     mod = jmodels.get_module(jcfg)
+    drops = _jax_drops(monkeypatch)
     (loss, _), grads = jax.value_and_grad(
         lambda p: mod.loss_fn(jcfg, p, batch), has_aux=True)(jp)
-    out = outs[f"train_{arch}"]
+    jax.effects_barrier()
+    assert (sum(drops) > 0) == jcfg.is_moe, drops
+    out = outs[name]
     assert abs(float(out["loss"]) - float(loss)) <= LOSS_RTOL * abs(
         float(loss))
     jflat = _flat(jax.tree.map(np.asarray, grads))

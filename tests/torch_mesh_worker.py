@@ -5,7 +5,8 @@
 Reads ``<io_dir>/job.json`` and the numpy weights beside it, joins a
 gloo group of ``world`` ranks through a file store in ``io_dir``, and for
 each case builds its mesh, places the weights as DTensors by the rules
-and runs the port: MoE forwards per ``moe_impl``, the sharded train
+and runs the port: MoE forwards per ``moe_impl`` (and the dense
+body's refusal of a split seq), the sharded train
 step of ``launch.dryrun.build_step``, the RG-LRU's ``_log_a`` with its
 gradients, and the encoder-decoder's decode step on a slot-split 'bskd'
 cache.  Rank 0 writes the full results to ``<io_dir>/out_<case>.npz``.
@@ -53,15 +54,36 @@ def _full(x):
         else x.detach().numpy()
 
 
+def _dense_form(cfg, tokens, mesh):
+    """The dense body's route and the form of its expert products
+    ('contract' or 'gather') for ``tokens`` under the installed rules."""
+    from repro_torch.models import moe
+    from repro_torch.sharding_hints import logical_to_spec, mesh_sizes
+    b, s = tokens.shape
+    bspec = logical_to_spec(("batch",), shape=(b,))[0]
+    axes = () if bspec is None else \
+        ((bspec,) if isinstance(bspec, str) else tuple(bspec))
+    lay = moe.dense_layout(cfg, b * s, mesh_sizes(mesh), axes, "model")
+    return np.array(lay.route), np.array(
+        "contract" if lay.contract else "gather")
+
+
 def run_moe(case, io, mesh):
+    """The forward per ``moe_impl`` in ``case["impls"]`` (all three by
+    default), the dense body's route and form, and with
+    ``case["seq_guard"]`` the message of the dense body's refusal of a
+    rule that splits seq."""
+    from repro_torch.models import moe
     cfg = _config(case)
     np_params = _nested(dict(np.load(io / case["weights"])))
     tokens = torch.from_numpy(np.load(io / case["tokens"])).long()
     mod = models.get_module(cfg)
     out = {}
-    for impl, extra in (("dense", {}), ("a2a", {"tp_ff": None}),
-                        ("local", {"experts": None, "tp_ff": None})):
-        rules = shd.rules_for("train", overrides={"moe_impl": impl, **extra})
+    extras = {"dense": {}, "a2a": {"tp_ff": None},
+              "local": {"experts": None, "tp_ff": None}}
+    for impl in case.get("impls", list(extras)):
+        rules = shd.rules_for("train", overrides={"moe_impl": impl,
+                                                  **extras[impl]})
         with axis_rules(rules, mesh), torch.no_grad():
             params = shd.shard_params(
                 params_from_numpy(np_params, "cpu", cfg=cfg),
@@ -72,6 +94,24 @@ def run_moe(case, io, mesh):
             logits, aux = mod.forward(cfg, params, tok)
             out[impl] = _full(logits)
             out[impl + "_aux"] = _full(aux)
+            if impl == "dense":
+                out["route"], out["form"] = _dense_form(cfg, tokens, mesh)
+    if case.get("seq_guard"):
+        rules = shd.rules_for("train", overrides={"seq": "model"})
+        b, s = tokens.shape
+        with axis_rules(rules, mesh), torch.no_grad():
+            params = shd.shard_params(
+                params_from_numpy(np_params, "cpu", cfg=cfg),
+                models.param_template(cfg), rules, mesh)
+            x = torch.zeros(b, s, cfg.d_model)
+            x = shd.distribute(x, shd.struct_shardings(
+                x, ("batch", "seq", "embed"), rules, mesh), mesh)
+            lp = {k: w[0] for k, w in params["layers"].items()}
+            try:
+                moe.moe_ffn_dense(cfg, lp, x)
+                out["seq_guard"] = np.array("")
+            except ValueError as e:
+                out["seq_guard"] = np.array(str(e))
     return out
 
 
@@ -93,8 +133,59 @@ def run_train(case, io, mesh):
                 for t, p in zip((params, opt, batch), shardings)]
         _, _, loss, grads = step(*args)
         out = {"loss": _full(loss)}
+        if cfg.is_moe:
+            out["route"], out["form"] = _dense_form(cfg, tokens, mesh)
         for path, g in tree_items(grads):
             out["grad/" + "/".join(path)] = _full(g)
+    return out
+
+
+def run_remat_thread(case, io, mesh):
+    """The MoE loss's gradients (base train rules, checkpointed layers)
+    from a backward on the forward's thread and from one on a thread of
+    its own, which has DTensor's implicit replication on but no rules
+    installed: autograd runs a CUDA graph's backward so, and the layers'
+    recompute must still take the dense body.  The error the second
+    raised, if any."""
+    import contextlib
+    import threading
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils._pytree import tree_leaves
+    cfg = _config(case)
+    np_params = _nested(dict(np.load(io / case["weights"])))
+    tokens = torch.from_numpy(np.load(io / case["tokens"])).long()
+    mod = models.get_module(cfg)
+    rules = shd.rules_for("train")
+    out, errors = {}, []
+
+    def backward(loss, replicate):
+        try:
+            with implicit_replication() if replicate else \
+                    contextlib.nullcontext():
+                loss.backward()
+        except Exception as e:  # reported to the test
+            errors.append(repr(e))
+    for where in ("same", "thread"):
+        with axis_rules(rules, mesh):
+            params = shd.shard_params(
+                params_from_numpy(np_params, "cpu", cfg=cfg),
+                models.param_template(cfg), rules, mesh)
+            leaves = [p.requires_grad_() for p in tree_leaves(params)]
+            tok = shd.distribute(
+                tokens, shd.struct_shardings(tokens, ("batch", None), rules,
+                                             mesh), mesh)
+            loss, _ = mod.loss_fn(cfg, params, {"tokens": tok,
+                                                "labels": tok})
+            if where == "same":
+                backward(loss, False)
+            else:
+                t = threading.Thread(target=backward, args=(loss, True))
+                t.start()
+                t.join()
+        for i, p in enumerate(leaves):
+            if p.grad is not None:
+                out[f"{where}/{i}"] = _full(p.grad)
+    out["errors"] = np.array(" ".join(errors))
     return out
 
 
@@ -237,6 +328,7 @@ def main():
         for case in job["cases"]:
             mesh = make_host_mesh(model_axis=case["model_axis"])
             run = {"moe": run_moe, "train": run_train,
+                   "remat_thread": run_remat_thread,
                    "prefill": run_prefill, "xent": run_xent,
                    "log_a": run_log_a,
                    "encdec_decode": run_encdec_decode}[case["kind"]]
